@@ -1,0 +1,125 @@
+// PyTorch bindings of the port's CUDA kernels. The only source that
+// includes torch/extension.h (slow to compile); the kernels themselves
+// (gru.cu, gae.cu) see only the CUDA runtime. Outputs are allocated by the
+// Python wrappers (repro_torch/kernels/*/kernel.py), which also check
+// shapes; this layer checks device, dtype and contiguity, launches on
+// PyTorch's current stream and checks every launch.
+#include <torch/extension.h>
+
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime.h>
+
+size_t gru_forward_smem_bytes(int H, int block_rows);
+size_t gru_backward_smem_bytes(int H, int block_rows);
+cudaError_t launch_gru_forward(const float* gi, const float* wh,
+                               const float* bh, const float* h0,
+                               const float* resets, float* hs, int A, int T,
+                               int B, int H, int block_rows,
+                               cudaStream_t stream);
+cudaError_t launch_gru_backward(const float* gi, const float* wh,
+                                const float* bh, const float* h0,
+                                const float* resets, const float* hs,
+                                const float* g, float* dgi, float* dwh_part,
+                                float* dbh_part, float* dh0, int A, int T,
+                                int B, int H, int block_rows,
+                                cudaStream_t stream);
+cudaError_t launch_gru_sum_tiles(const float* part, float* out, int A,
+                                 int tiles, int n, cudaStream_t stream);
+cudaError_t launch_gae_forward(const float* r, const float* v,
+                               const float* nv, const float* d, float* adv,
+                               int T, int B, float gamma, float gamma_lam,
+                               cudaStream_t stream);
+cudaError_t launch_gae_backward(const float* g, const float* d, float* dr,
+                                float* dnv, int T, int B, float gamma,
+                                float gamma_lam, cudaStream_t stream);
+
+namespace {
+
+void check(const torch::Tensor& x, const char* name) {
+  TORCH_CHECK(x.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(x.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(x.is_contiguous(), name, " must be contiguous");
+}
+
+const float* in(const torch::Tensor& x, const char* name) {
+  check(x, name);
+  return x.data_ptr<float>();
+}
+
+float* out(torch::Tensor& x, const char* name) {
+  check(x, name);
+  return x.data_ptr<float>();
+}
+
+void gru_forward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
+                 torch::Tensor h0, torch::Tensor resets, torch::Tensor hs,
+                 int64_t block_rows) {
+  const c10::cuda::CUDAGuard guard(gi.device());
+  const int A = gi.size(0), T = gi.size(1), B = gi.size(2), H = wh.size(1);
+  C10_CUDA_CHECK(launch_gru_forward(
+      in(gi, "gi"), in(wh, "wh"), in(bh, "bh"), in(h0, "h0"),
+      in(resets, "resets"), out(hs, "hs"), A, T, B, H, (int)block_rows,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void gru_backward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
+                  torch::Tensor h0, torch::Tensor resets, torch::Tensor hs,
+                  torch::Tensor g, torch::Tensor dgi, torch::Tensor dwh_part,
+                  torch::Tensor dbh_part, torch::Tensor dh0,
+                  torch::Tensor dwh, torch::Tensor dbh, int64_t block_rows) {
+  const c10::cuda::CUDAGuard guard(gi.device());
+  const int A = gi.size(0), T = gi.size(1), B = gi.size(2), H = wh.size(1);
+  const int tiles = dwh_part.size(1);
+  auto stream = c10::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(launch_gru_backward(
+      in(gi, "gi"), in(wh, "wh"), in(bh, "bh"), in(h0, "h0"),
+      in(resets, "resets"), in(hs, "hs"), in(g, "g"), out(dgi, "dgi"),
+      out(dwh_part, "dwh_part"), out(dbh_part, "dbh_part"),
+      out(dh0, "dh0"), A, T, B, H, (int)block_rows, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  if (tiles > 1) {  // one tile writes dwh/dbh directly (the parts alias them)
+    C10_CUDA_CHECK(launch_gru_sum_tiles(in(dwh_part, "dwh_part"),
+                                        out(dwh, "dwh"), A, tiles,
+                                        3 * H * H, stream));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    C10_CUDA_CHECK(launch_gru_sum_tiles(in(dbh_part, "dbh_part"),
+                                        out(dbh, "dbh"), A, tiles, 3 * H,
+                                        stream));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+}
+
+void gae_forward(torch::Tensor r, torch::Tensor v, torch::Tensor nv,
+                 torch::Tensor d, torch::Tensor adv, double gamma,
+                 double gamma_lam) {
+  const c10::cuda::CUDAGuard guard(r.device());
+  C10_CUDA_CHECK(launch_gae_forward(
+      in(r, "rewards"), in(v, "values"), in(nv, "next_values"),
+      in(d, "dones"), out(adv, "adv"), r.size(0), r.size(1), (float)gamma,
+      (float)gamma_lam, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void gae_backward(torch::Tensor g, torch::Tensor d, torch::Tensor dr,
+                  torch::Tensor dnv, double gamma, double gamma_lam) {
+  const c10::cuda::CUDAGuard guard(g.device());
+  C10_CUDA_CHECK(launch_gae_backward(
+      in(g, "g"), in(d, "dones"), out(dr, "dr"), out(dnv, "dnv"), g.size(0),
+      g.size(1), (float)gamma, (float)gamma_lam,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("gru_forward_smem_bytes", &gru_forward_smem_bytes);
+  m.def("gru_backward_smem_bytes", &gru_backward_smem_bytes);
+  m.def("gru_forward", &gru_forward);
+  m.def("gru_backward", &gru_backward);
+  m.def("gae_forward", &gae_forward);
+  m.def("gae_backward", &gae_backward);
+}
