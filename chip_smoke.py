@@ -10,20 +10,35 @@ It
   2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
      csrc`` and prints the build seconds;
   3. holds every kernel against its plain torch version on the card at
-     the shapes the main path gives it (forward outputs and gradients
-     within GRU 1e-5 and GAE 1e-6 times max(1, largest magnitude)) and
-     times kernel and plain version with CUDA events;
-  4. drives the main path — two DIALS loop rounds on warehouse side=10
+     the shapes its path gives it and times kernel, plain version and,
+     where one exists, the one PyTorch call for the same function, with
+     CUDA events: GRU (1e-5 times max(1, largest magnitude)) and GAE
+     (1e-6) forward and backward; flash attention at gemma2-9b's prefill
+     shapes on bf16 inputs, against the plain version in float32 on the
+     same inputs (1e-3 + 8e-3 |plain|), and one float32 shape (2e-5); the
+     SSD intra-chunk block and the SSD op at mamba2-780m's layer width, in
+     float32 (2e-4) and bf16;
+  4. drives the DIALS main path — two loop rounds on warehouse side=10
      (100 agents) at the library's default widths with the GRU AIP,
-     ``use_kernels="on"`` — with every launch count set to 0 just before
-     and read just after, and checks every round record;
-  5. checks the kernel path against the plain path on the card on a
-     small input (one round, warehouse side=2);
-  6. prints the kernel table as one JSON line, the nvidia-smi line, and
+     ``use_kernels="on"`` — and checks every round record; then checks
+     the kernel path against the plain path on a small input (one round,
+     warehouse side=2);
+  5. drives the serving path of gemma2-9b at full width (bf16, random
+     weights from a seed): the prefill step over a B=2 x T=8192 prompt
+     with the flash kernel (42 launches) and without it, their last
+     logits compared, then a greedy decode of 16 tokens at B=4 after a
+     32-token prompt; then profiles one prefill and 8 decode steps
+     (device busy share, device time by kernel);
+  6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
+     (2, 8192, 1536) bf16 activations (one SSD launch) against
+     ``use_kernel=False``;
+  7. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Any failed phase exits non-zero without the last line. Without CUDA, or
-without the repository beside it, it exits non-zero at once.
+Each path (4, 5, 6) runs with every launch count set to 0 just before it
+and read just after; each phase prints its seconds. Any failed phase
+exits non-zero without the last line. Without CUDA, or without the
+repository beside it, it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -36,17 +51,48 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and fp32
-# outside the tensor cores — the kernels compute in fp32 FFMA.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, fp32
+# outside the tensor cores (the GRU/GAE kernels' inputs) and dense bf16 on
+# the tensor cores (the bound for the LM kernels' bf16 inputs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 GRU_TOL = 1e-5
 GAE_TOL = 1e-6
+# flash: |err| <= atol + rtol*|plain|. float32: the reference's 2e-5. bf16
+# inputs: the plain version runs in float32 on the same inputs, so only the
+# kernel's bf16 output rounding (at most 2^-8 relative) and the order of
+# float32 sums differ. q is scaled by 8 there, so the scores (std 8, row
+# maxima near 30) reach the softcap of 50 and a few keys lead each row's
+# softmax: a mask, tile or softcap fault moves outputs by order |v| = 1.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
+FLASH_Q_SCALE = 8.0
+# SSD: float32 the reference's 2e-4; bf16 outputs stored in bf16 within
+# 1e-2 times max(1, largest magnitude) (two bf16 roundings of 2^-8 each)
+SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# gemma2-9b last logits, flash against plain prefill, and the SSM layer's
+# output, kernel against plain, both bf16: within tol times max(1, largest
+# magnitude) (bf16 rounding flips at other places, carried through the
+# stack)
+LOGIT_TOL = 5e-2
+SSM_LAYER_TOL = 2e-2
 
-# The slice's configuration: warehouse side=10, library default widths.
+# The first slice's configuration: warehouse side=10, library default
+# widths.
 SIDE = 10
 OUTER_ROUNDS = 2
 AIP_REFRESH = 5
+
+# The serving slice: gemma2-9b at full width (src/repro/configs/gemma2_9b.py),
+# prompt B=2 x T=8192 (prefill_32k cut from B=32 x 32768), greedy decode of
+# 16 tokens at B=4 after a 32-token prompt (examples/serve_decode.py).
+GEMMA_PROMPT = (2, 8192)
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 32, 16
+PROFILE_DECODE_STEPS = 8
+# mamba2-780m's SSM layer (src/repro/configs/mamba2_780m.py:15-17) on
+# (2, 8192, 1536) activations
+MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
+SSM_INPUT = (2, 8192)
 
 
 class PhaseError(RuntimeError):
@@ -82,10 +128,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     """The least time of the card for this work, and what bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -108,6 +154,20 @@ def allclose_err(pairs, tol: float) -> float:
               f"(max abs err {err:.3e}, allowed {tol} * {scale:.4g})")
         worst = max(worst, err)
     return worst
+
+
+def allclose_rel(name, k, p, atol: float, rtol: float) -> float:
+    """Max abs error; raises unless the kernel output is finite and
+    |k - p| <= atol + rtol*|p| everywhere (numpy's allclose rule)."""
+    import torch
+    k64, p64 = k.double(), p.double()
+    diff = (k64 - p64).abs()
+    ok = bool(torch.isfinite(k64).all()) and \
+        not bool((diff > atol + rtol * p64.abs()).any())
+    err = float(diff.max())
+    check(ok, f"{name}: kernel disagrees with plain version (max abs err "
+              f"{err:.3e}, atol {atol}, rtol {rtol})")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +289,185 @@ def check_gae(gen, device, t, b, gamma, lam):
 
 
 # ---------------------------------------------------------------------------
+# the LM kernels against their plain versions, at the serving paths' shapes
+# ---------------------------------------------------------------------------
+def live_pairs(t: int, window) -> int:
+    """(query, key) pairs a causal mask with this window leaves live, for
+    one (batch, head) row: what this run's data needs."""
+    if window is None or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def check_flash(gen, device):
+    """gemma2-9b prefill attention (B=2, T=8192, 16 heads over 8 KV heads,
+    head_dim 256, softcap 50), bf16, local (window 4096) and global
+    layers; one float32 shape. Returns the kernel row: times are per
+    launch, averaged over one local and one global launch, as the prefill
+    alternates them."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.configs import registry
+    attn = registry.get("gemma2-9b").cfg.period[0].attn
+    b, t = GEMMA_PROMPT
+    h, hkv, d = attn.num_heads, attn.num_kv_heads, attn.dh
+    window, cap = attn.sliding_window, attn.attn_softcap
+    worst = 0.0
+
+    def inputs(bb, tt, dtype):
+        rnd = lambda n: torch.randn(bb * n, tt, d, generator=gen,
+                                    device=device).to(dtype)
+        return rnd(h), rnd(hkv), rnd(hkv)
+
+    # float32 at the reference's 2e-5 (a shorter prompt: the plain
+    # version materialises the (T, T) scores in float32)
+    q, k, v = inputs(1, 2048, torch.float32)
+    kw = dict(causal=True, sliding_window=1024, softcap=cap)
+    worst = max(worst, allclose_rel(
+        "flash float32 T=2048", fk.forward(q, k, v, **kw),
+        fr.attention_bhsd(q, k, v, **kw), *FLASH_TOL["float32"]))
+    del q, k, v
+
+    # bf16 at the main path's shapes, q scaled by FLASH_Q_SCALE, held to the
+    # plain version in float32 on the same (upcast) bf16 inputs, one batch
+    # row at a time to bound the (T, T) float32 scores
+    q, k, v = inputs(b, t, torch.bfloat16)
+    q = q * FLASH_Q_SCALE
+    cases = [dict(causal=True, sliding_window=w, softcap=cap)
+             for w in (window, None)]
+    for kw in cases:
+        got = fk.forward(q, k, v, **kw)
+        want = torch.cat([fr.attention_bhsd(
+            q[i * h:(i + 1) * h].float(), k[i * hkv:(i + 1) * hkv].float(),
+            v[i * hkv:(i + 1) * hkv].float(), **kw) for i in range(b)])
+        name = f"flash bf16 window={kw['sliding_window']}"
+        worst = max(worst, allclose_rel(name, got, want,
+                                        *FLASH_TOL["bfloat16"]))
+        diff = (got.double() - want.double()).norm()
+        print(f"{name}: mean |o| {float(want.abs().mean()):.4f}, max |o| "
+              f"{float(want.abs().max()):.4f}, |err| / |o| (norms) "
+              f"{float(diff / want.double().norm()):.3e}", flush=True)
+        del got, want
+        torch.cuda.empty_cache()
+
+    pair = lambda fn: (lambda: [fn(**kw) for kw in cases])
+    ms = cuda_ms(pair(lambda **kw: fk.forward(q, k, v, **kw)), 3) / 2
+    plain_ms = cuda_ms(pair(lambda **kw: fr.attention_bhsd(q, k, v, **kw)),
+                       1) / 2
+    torch.cuda.empty_cache()
+    lib_ms, lib_name = flash_library_ms(q, k, v, b, cases)
+    pairs = b * h * sum(live_pairs(t, kw["sliding_window"]) for kw in cases)
+    nbytes = 2.0 * (2 * b * h * t * d + 2 * b * hkv * t * d) * len(cases)
+    bound = bound_ms(nbytes, 4.0 * d * pairs, PEAK_BF16_PER_S)
+    ffma = 4.0 * d * pairs / PEAK_FP32_PER_S * 1e3 / 2
+    print(f"flash: {4.0 * d * pairs / 1e12:.4f} TFLOP a local+global "
+          f"layer pair; bound {bound[0] / 2:.4f} ms a launch on bf16 tensor "
+          f"cores, {ffma:.4f} ms on fp32 FFMA; library: {lib_name}",
+          flush=True)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:95",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound=(bound[0] / 2, bound[1]), library_ms=lib_ms)
+
+
+def flash_library_ms(q, k, v, b, cases):
+    """One PyTorch call for the same function, timed as a yardstick only:
+    ``flex_attention`` (compiled) with a softcap ``score_mod`` and a
+    causal+window ``mask_mod``; SDPA on the causal no-softcap function if
+    flex does not run here (the name says which)."""
+    import torch
+    qb, kb, vb = (x.view(b, -1, x.shape[1], x.shape[2]) for x in (q, k, v))
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        flex = torch.compile(flex_attention)
+        cap = cases[0]["softcap"]
+
+        def score_mod(s, bi, hi, qi, ki):
+            return cap * torch.tanh(s / cap)
+
+        calls = []
+        for kw in cases:
+            win = kw["sliding_window"]
+
+            def mask_mod(bi, hi, qi, ki, win=win):
+                live = ki <= qi
+                return live if win is None else live & (ki > qi - win)
+
+            mask = create_block_mask(mask_mod, None, None, q.shape[1],
+                                     k.shape[1], device=q.device)
+            calls.append(lambda m=mask: flex(
+                qb, kb, vb, score_mod=score_mod, block_mask=m,
+                enable_gqa=True))
+        return cuda_ms(lambda: [c() for c in calls], 3) / 2, \
+            "flex_attention (compiled, softcap score_mod, causal+window mask)"
+    except Exception as exc:     # a yardstick: the port never calls it
+        print(f"flex_attention did not run ({type(exc).__name__}: "
+              f"{str(exc)[:200]}); timing SDPA instead", flush=True)
+        import torch.nn.functional as F
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True, enable_gqa=True), 3), \
+            "scaled_dot_product_attention (causal, no softcap, no window)"
+
+
+def check_ssd(gen, device):
+    """mamba2-780m's SSD at layer width (B=2, T=8192, 48 heads of 64, state
+    128, chunk 128): the kernel's three outputs against the plain
+    intra-chunk block, and ``ops.ssd`` against ``ssd_chunked``, in float32
+    and bf16. Returns the kernel row (timed in bf16, the layer's dtype)."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk, ops as so, ref as sr
+    from repro_torch.configs import common
+    from repro_torch.nn import ssm
+    cfg = common.ssm_layer(MAMBA2["d_model"], MAMBA2["state"],
+                           head_dim=MAMBA2["head_dim"]).ssm
+    bsz, t = SSM_INPUT
+    h, p, n, chunk = cfg.num_heads, cfg.head_dim, cfg.state, cfg.chunk
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
+        x = rnd(bsz, t, h, p).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(bsz, t, h) - 3.0)
+        a = -torch.exp(rnd(h) * 0.5)
+        bm, c = rnd(bsz, t, n).to(dtype), rnd(bsz, t, n).to(dtype)
+        xw = (x * dt[..., None].to(dtype)).contiguous()
+        la = (dt * a).contiguous()
+        name = str(dtype).replace("torch.", "")
+        got = sk.forward(xw, la, bm, c, chunk=chunk)
+        want = sr.intra_chunk(xw, la, bm, c, chunk=chunk)
+        tols = (SSD_TOL[name], SSD_TOL["float32"], SSD_TOL["float32"])
+        for what, g, w, tol in zip(("y", "states", "chunk_decay"), got,
+                                   want, tols):
+            err = allclose_err([(f"ssd {name} {what}", g, w)], tol)
+            print(f"ssd {name} {what}: max abs err {err:.3e}, max |plain| "
+                  f"{float(w.abs().max()):.4f}, allowed {tol} * max(1, "
+                  f"max |plain|)", flush=True)
+            worst = max(worst, err)
+        y_k, s_k = so.ssd(x, dt, a, bm, c, chunk=chunk)
+        y_p, s_p = ssm.ssd_chunked(x, dt, a, bm, c, chunk=chunk)
+        allclose_err([(f"ops.ssd {name} y", y_k, y_p)], SSD_TOL[name])
+        allclose_err([(f"ops.ssd {name} state", s_k, s_p)],
+                     SSD_TOL["float32"])
+    ms = cuda_ms(lambda: sk.forward(xw, la, bm, c, chunk=chunk), 20)
+    plain_ms = cuda_ms(lambda: sr.intra_chunk(xw, la, bm, c, chunk=chunk), 3)
+    nc = t // chunk
+    nbytes = (2.0 * (2 * bsz * t * h * p + 2 * bsz * t * n)
+              + 4.0 * (bsz * t * h + bsz * nc * h * p * n + bsz * nc * h))
+    # C·Bᵀ once per (b, chunk); per head the causal half of M·X, the
+    # decay-weighted M and the chunk state
+    ops = bsz * nc * (2.0 * chunk * chunk * n + h * (
+        p * chunk * (chunk + 1) + 2.0 * chunk * chunk
+        + 2.0 * chunk * p * n + chunk * n))
+    return dict(name="ssd_intra_chunk", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd.cu",
+                replaces="src/repro/kernels/ssd/kernel.py:65",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound=bound_ms(nbytes, ops, PEAK_BF16_PER_S),
+                library_ms=None)
+
+
+# ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 def make_trainer(side, *, device, use_kernels, small=False, rounds=1,
@@ -257,16 +496,20 @@ def make_trainer(side, *, device, use_kernels, small=False, rounds=1,
                               device=device)
 
 
-def launch_counts():
+def _count_tables():
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.gae import kernel as ak
     from repro_torch.kernels.gru import kernel as gk
-    return {**gk.LAUNCHES, **ak.LAUNCHES}
+    from repro_torch.kernels.ssd import kernel as sk
+    return (gk.LAUNCHES, ak.LAUNCHES, fk.LAUNCHES, sk.LAUNCHES)
+
+
+def launch_counts():
+    return {k: v for table in _count_tables() for k, v in table.items()}
 
 
 def reset_counts():
-    from repro_torch.kernels.gae import kernel as ak
-    from repro_torch.kernels.gru import kernel as gk
-    for table in (gk.LAUNCHES, ak.LAUNCHES):
+    for table in _count_tables():
         for k in table:
             table[k] = 0
 
@@ -317,6 +560,198 @@ def run_main_path(device):
     return counts
 
 
+def run_serving_path(device):
+    """gemma2-9b at full width, bf16, params from a seeded generator: the
+    prefill step over a B=2 x T=8192 prompt with the flash kernel and
+    without it, then a greedy decode. Returns the launch counts of this
+    path's run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    spec = registry.get("gemma2-9b")
+    flash = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, use_flash=True))
+    plain = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, use_flash=False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.init_params(flash, seed=0, device=device)
+    torch.cuda.synchronize()
+    print(f"serving: gemma2-9b init {time.perf_counter() - t0:.3f} s, "
+          f"{api.param_count(params)} params, {api.param_bytes(params)} "
+          f"bytes", flush=True)
+    b, t = GEMMA_PROMPT
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, spec.cfg.vocab, (b, t), generator=gen,
+                           device=device)
+    prefill = steps.make_prefill_step(flash)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    logits_k = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    logits_p = steps.make_prefill_step(plain)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(counts["flash_attention"] == spec.cfg.n_layers,
+          f"prefill launched the flash kernel {counts['flash_attention']} "
+          f"times, not once per layer ({spec.cfg.n_layers})")
+    check(launch_counts()["flash_attention"] == spec.cfg.n_layers,
+          "the plain prefill launched the flash kernel")
+    check(tuple(logits_k.shape) == (b, 1, spec.cfg.vocab),
+          f"prefill logits of shape {tuple(logits_k.shape)}")
+    err = allclose_err([("prefill last logits, flash vs plain", logits_k,
+                         logits_p)], LOGIT_TOL)
+    agree = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
+    print(f"serving: prefill B={b} T={t} {prefill_s:.3f} s with the flash "
+          f"kernel ({counts['flash_attention']} launches), {plain_s:.3f} s "
+          f"plain; last logits max abs diff {err:.4e} (max |logit| "
+          f"{float(logits_p.abs().max()):.4f}), argmax agrees {agree}/{b}",
+          flush=True)
+    del logits_p
+
+    serve = steps.make_serve_step(flash)
+    max_len = DECODE_PROMPT + DECODE_NEW
+    caches = api.init_caches(params, flash, DECODE_BATCH, max_len)
+    prompt = torch.randint(0, spec.cfg.vocab, (DECODE_BATCH, DECODE_PROMPT),
+                           generator=gen, device=device)
+    finite = []
+    t0 = time.perf_counter()
+    for i in range(DECODE_PROMPT):
+        logits, caches = serve(params, prompt[:, i:i + 1], caches, i)
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(DECODE_PROMPT, max_len - 1):
+        logits, caches = serve(params, tok, caches, i)
+        finite.append(torch.isfinite(logits).all())
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(torch.stack(finite).all()), "decode: non-finite logits")
+    new = torch.cat(out, dim=1)
+    check(tuple(new.shape) == (DECODE_BATCH, DECODE_NEW),
+          f"decode produced {tuple(new.shape)} tokens")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving: decode B={DECODE_BATCH}: {DECODE_PROMPT} prompt steps "
+          f"in {prompt_s:.3f} s, {DECODE_NEW} new tokens in {decode_s:.3f} "
+          f"s ({DECODE_BATCH * DECODE_NEW / decode_s:.3f} tok/s, "
+          f"{(DECODE_NEW - 1) / decode_s:.3f} steps/s); peak memory "
+          f"{peak} bytes", flush=True)
+    profile_serving(lambda: prefill(params, {"tokens": tokens}),
+                    lambda i: serve(params, tok, caches, i))
+    del params, caches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def device_summary(prof, wall: float, top: int = 12) -> dict:
+    """Device busy share of a traced window of ``wall`` seconds (the union
+    of all CUDA kernel intervals over the wall time) and device time and
+    launch count per kernel name, largest first."""
+    import torch
+    intervals, per_kernel = [], {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        intervals.append((start, end))
+        ms, n = per_kernel.get(ev.name, (0.0, 0))
+        per_kernel[ev.name] = (ms + (end - start) / 1e3, n + 1)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"device_kernels": len(intervals),
+            "device_busy_share": busy_us / 1e6 / wall,
+            "top_kernels": [(name[:80], ms, n) for name, (ms, n) in ranked]}
+
+
+def profile_serving(run_prefill, run_serve_step):
+    """Where the serving path's time goes: one prefill and
+    PROFILE_DECODE_STEPS serve steps (both warm), each timed untraced and
+    then traced under ``torch.profiler``. Prints each window's wall
+    seconds (their difference is the profiler's cost), the device busy
+    share, the kernel launches, and device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def decode():
+        for i in range(PROFILE_DECODE_STEPS):
+            run_serve_step(i)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name, fn in (("prefill", run_prefill),
+                     (f"{PROFILE_DECODE_STEPS} decode steps", decode)):
+        untraced = timed(fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = timed(fn)
+        summary = device_summary(prof, wall)
+        print(f"profile {name}: untraced {untraced:.4f} s, traced "
+              f"{wall:.4f} s, device busy {summary['device_busy_share']:.4f}"
+              f", {summary['device_kernels']} kernels", flush=True)
+        for kname, ms, n in summary["top_kernels"]:
+            print(f"  {ms:10.3f} ms {n:6d}x  {kname}", flush=True)
+
+
+def run_ssm_path(device):
+    """``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
+    (2, 8192, 1536) bf16 activations, against ``use_kernel=False``.
+    Returns the launch counts of the kernel call."""
+    import torch
+    from repro_torch.configs import common
+    from repro_torch.nn import ssm
+    cfg = common.ssm_layer(MAMBA2["d_model"], MAMBA2["state"],
+                           head_dim=MAMBA2["head_dim"]).ssm
+    gen = torch.Generator(device=device).manual_seed(2)
+    params = ssm.ssm_init(gen, cfg)
+    b, t = SSM_INPUT
+    x = torch.randn(b, t, cfg.d_model, generator=gen,
+                    device=device).to(cfg.dtype)
+    with torch.inference_mode():
+        reset_counts()
+        t0 = time.perf_counter()
+        y_k = ssm.ssm_layer(params, x, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        y_p = ssm.ssm_layer(params, x, cfg, use_kernel=False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    check(counts["ssd_intra_chunk"] == 1,
+          f"ssm_layer launched the SSD kernel {counts['ssd_intra_chunk']} "
+          f"times, not once")
+    check(tuple(y_k.shape) == (b, t, cfg.d_model) and y_k.dtype == cfg.dtype,
+          f"ssm_layer output {tuple(y_k.shape)} {y_k.dtype}")
+    err = allclose_err([("ssm_layer, kernel vs plain", y_k, y_p)],
+                       SSM_LAYER_TOL)
+    print(f"ssm layer: {cfg.num_heads} heads x {cfg.head_dim}, state "
+          f"{cfg.state}, chunk {cfg.chunk}, on ({b}, {t}, {cfg.d_model}) "
+          f"bf16: {kernel_s:.3f} s with the kernel, {plain_s:.3f} s plain; "
+          f"max abs diff {err:.4e} (max |y| {float(y_p.abs().max()):.4f})",
+          flush=True)
+    return counts
+
+
 def check_small_against_plain(device):
     """One round at side=2 through the kernels and through the plain
     versions, on the card, from the same state."""
@@ -360,19 +795,26 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    # fp32 everywhere, as the reference: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
+    # the entry points' device rule, which also sets the reference's matmul
+    # numerics for the plain versions timed below
+    from repro_torch.kernels import dispatch
+    device = dispatch.resolve_device("cuda:0")
+
+    phases = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phases[name]:.1f} s", flush=True)
+        return out
 
     try:
         smi = smi_line()
         print(f"card: {smi}", flush=True)
 
         from repro_torch.kernels import build
-        t0 = time.perf_counter()
-        build.extension()
-        print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+        phase("build", build.extension)
 
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
@@ -385,17 +827,30 @@ def main() -> int:
                                   (n_agents, 128, 1, 64),
                                   (n_agents, 1, 16, 64)],
                   "gru_backward": (n_agents, 128, 7, 64)}
-        rows = check_gru(gen, device, shapes)
-        rows += check_gae(gen, device, 16, n_agents * 16, ppo_cfg.gamma,
-                          ppo_cfg.lam)
+        rows = phase("gru/gae kernels vs plain", lambda: check_gru(
+            gen, device, shapes) + check_gae(
+            gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam))
+        rows.append(phase("flash kernel vs plain", check_flash, gen, device))
+        rows.append(phase("ssd kernel vs plain", check_ssd, gen, device))
         for row in rows:
             print(f"kernel {row['name']}: max abs err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
                   f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.5f} "
-                  f"ms by {row['bound'][1]})", flush=True)
+                  f"ms by {row['bound'][1]}, library "
+                  f"{row.get('library_ms')})", flush=True)
 
-        counts = run_main_path(device)
-        check_small_against_plain(device)
+        # each path runs with every count set to 0 just before it
+        counts = phase("dials main path", run_main_path, device)
+        phase("dials small input vs plain", check_small_against_plain,
+              device)
+        counts.update({k: v for k, v in phase(
+            "gemma2-9b serving path", run_serving_path,
+            device).items() if k == "flash_attention"})
+        counts.update({k: v for k, v in phase(
+            "mamba2 ssm layer path", run_ssm_path,
+            device).items() if k == "ssd_intra_chunk"})
+        for name in ("flash_attention", "ssd_intra_chunk"):
+            check(counts[name] > 0, f"its path never launched {name}")
     except Exception as exc:       # every phase failure ends the run
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr, flush=True)
@@ -405,7 +860,8 @@ def main() -> int:
               "replaces": r["replaces"], "launches": counts[r["name"]],
               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-              "bound_by": r["bound"][1], "library_ms": None}
+              "bound_by": r["bound"][1],
+              "library_ms": r.get("library_ms")}
              for r in rows]
     print(json.dumps({"kernels": table}))
     print(smi)

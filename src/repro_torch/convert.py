@@ -7,7 +7,10 @@ the SAME state: the reference's pytree, fetched to numpy
 The layouts already agree leaf for leaf (per-agent stacks on a leading
 axis, ``{"mu", "nu", "master", "step"}`` optimizer states, the IALS state
 dict); only the integer types change: every integer leaf (including the
-uint32 PRNG keys) becomes int64, floats and bools keep their type.
+uint32 PRNG keys) becomes int64, floats and bools keep their type. A
+bfloat16 leaf (numpy's ``ml_dtypes.bfloat16``, which ``torch.tensor``
+does not take) crosses through its uint16 bits, so it arrives bit for
+bit.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ from repro_torch.tree import tree_map
 
 def _leaf_to_torch(x, device):
     x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(x).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     if np.issubdtype(x.dtype, np.integer):
         x = x.astype(np.int64)
     return torch.tensor(x, device=device)
@@ -41,6 +47,14 @@ def from_jax_state(state, device="cuda"):
             "key": _leaf_to_torch(state["key"], device)}
 
 
+def _leaf_to_numpy(x):
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:      # numpy has no bfloat16: compare in f32
+        x = x.float()
+    return x.numpy()
+
+
 def to_numpy(tree):
-    """The port's tensors -> numpy, for comparison with the reference."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    """The port's tensors -> numpy, for comparison with the reference
+    (bfloat16 leaves come back as float32, exactly)."""
+    return tree_map(_leaf_to_numpy, tree)

@@ -16,7 +16,7 @@ import torch
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
-SOURCES = ("bindings.cpp", "gru.cu", "gae.cu")
+SOURCES = ("bindings.cpp", "gru.cu", "gae.cu", "flash_attention.cu", "ssd.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 _extension = None
@@ -38,13 +38,15 @@ def extension():
     return _extension
 
 
-def check_tensor(name: str, x, shape) -> None:
-    """A kernel wrapper's input contract: a contiguous float32 CUDA tensor
-    of exactly ``shape``; raises ValueError otherwise."""
+def check_tensor(name: str, x, shape, dtypes=(torch.float32,)) -> None:
+    """A kernel wrapper's input contract: a contiguous CUDA tensor of
+    exactly ``shape`` whose dtype is one of ``dtypes`` (float32 unless the
+    wrapper says otherwise); raises ValueError otherwise."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{name} must be {names}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                          f"expected {tuple(shape)}")

@@ -1,6 +1,6 @@
 // PyTorch bindings of the port's CUDA kernels. The only source that
 // includes torch/extension.h (slow to compile); the kernels themselves
-// (gru.cu, gae.cu) see only the CUDA runtime. Outputs are allocated by the
+// (gru.cu, gae.cu, flash_attention.cu, ssd.cu) see only the CUDA runtime. Outputs are allocated by the
 // Python wrappers (repro_torch/kernels/*/kernel.py), which also check
 // shapes; this layer checks device, dtype and contiguity, launches on
 // PyTorch's current stream and checks every launch.
@@ -34,6 +34,16 @@ cudaError_t launch_gae_forward(const float* r, const float* v,
 cudaError_t launch_gae_backward(const float* g, const float* d, float* dr,
                                 float* dnv, int T, int B, float gamma,
                                 float gamma_lam, cudaStream_t stream);
+cudaError_t launch_flash_attention(const void* q, const void* k,
+                                   const void* v, void* o, bool bf16, int BH,
+                                   int BHkv, int Tq, int Tk, int D,
+                                   int causal, int window, float softcap,
+                                   float scale, cudaStream_t stream);
+size_t ssd_smem_bytes(int L, int P, int N);
+cudaError_t launch_ssd_chunk(const void* xw, const float* la, const void* b,
+                             const void* c, void* y, float* st, float* cd,
+                             bool bf16, int B, int T, int H, int P, int N,
+                             int L, int G, cudaStream_t stream);
 
 namespace {
 
@@ -51,6 +61,21 @@ const float* in(const torch::Tensor& x, const char* name) {
 float* out(torch::Tensor& x, const char* name) {
   check(x, name);
   return x.data_ptr<float>();
+}
+
+// float32 or bfloat16, the same for every tensor of one call
+bool half_or_float(const std::vector<torch::Tensor>& xs,
+                   const std::vector<const char*>& names) {
+  const auto dtype = xs[0].scalar_type();
+  TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+              names[0], " must be float32 or bfloat16");
+  for (size_t i = 0; i < xs.size(); ++i) {
+    TORCH_CHECK(xs[i].is_cuda(), names[i], " must be a CUDA tensor");
+    TORCH_CHECK(xs[i].scalar_type() == dtype, names[i], " must be ",
+                dtype == torch::kBFloat16 ? "bfloat16" : "float32");
+    TORCH_CHECK(xs[i].is_contiguous(), names[i], " must be contiguous");
+  }
+  return dtype == torch::kBFloat16;
 }
 
 void gru_forward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
@@ -113,6 +138,32 @@ void gae_backward(torch::Tensor g, torch::Tensor d, torch::Tensor dr,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                     torch::Tensor o, bool causal, int64_t window,
+                     double softcap, double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const bool bf16 = half_or_float({q, k, v, o}, {"q", "k", "v", "out"});
+  C10_CUDA_CHECK(launch_flash_attention(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bf16,
+      q.size(0), k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
+      (int)window, (float)softcap, (float)scale,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void ssd_intra_chunk(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
+                     torch::Tensor c, torch::Tensor y, torch::Tensor st,
+                     torch::Tensor cd, int64_t chunk, int64_t heads_per_block) {
+  const c10::cuda::CUDAGuard guard(xw.device());
+  const bool bf16 = half_or_float({xw, b, c, y}, {"xw", "b", "c", "y"});
+  C10_CUDA_CHECK(launch_ssd_chunk(
+      xw.data_ptr(), in(la, "la"), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+      out(st, "states"), out(cd, "chunk_decay"), bf16, xw.size(0),
+      xw.size(1), xw.size(2), xw.size(3), b.size(2), (int)chunk,
+      (int)heads_per_block, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -122,4 +173,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gru_backward", &gru_backward);
   m.def("gae_forward", &gae_forward);
   m.def("gae_backward", &gae_backward);
+  m.def("flash_attention", &flash_attention);
+  m.def("ssd_smem_bytes", &ssd_smem_bytes);
+  m.def("ssd_intra_chunk", &ssd_intra_chunk);
 }

@@ -12,12 +12,21 @@ for the device the tensors live on:
 * ``"auto"`` — the CUDA kernel for CUDA tensors, the plain version for
   CPU tensors.
 
+The LM stack keeps the reference's boolean flags
+(``ModelConfig.use_flash``, ``nn.ssm.ssm_layer(use_kernel=...)``) and
+resolves ``True`` as ``"auto"``: the kernel wrappers
+(``kernels/flash_attention``, ``kernels/ssd``) launch the CUDA kernel for
+CUDA tensors and run the plain version for CPU tensors, as the
+reference's flags run the Pallas kernel in interpret mode off the TPU.
+
 A kernel that fails to build or launch raises; nothing falls back to the
 plain version.
 
 :func:`resolve_device` is the entry points' device rule: the default is
 ``"cuda"``, which raises when no card is visible; the CPU runs only when
-the caller asks for it.
+the caller asks for it. Resolving to CUDA also sets the card's matmul
+numerics to the reference's: no TF32, and bf16 products reduced in fp32
+(``preferred_element_type=float32``).
 """
 from __future__ import annotations
 
@@ -38,6 +47,11 @@ def resolve_device(device="cuda") -> torch.device:
             "plain torch path on the host")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return device
 
 

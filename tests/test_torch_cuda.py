@@ -6,17 +6,32 @@ on a GPU machine without them:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: GRU 1e-5 times max(1, largest magnitude); GAE forward bit
-for bit, its gradients 1e-6 likewise.
+for bit, its gradients 1e-6 likewise. Flash attention |err| <= tol +
+tol·|plain| with tol 2e-5 in float32 and 2e-2 in bfloat16 (the
+reference's own, ``tests/test_kernels.py``; in bf16 the plain version
+rounds the probabilities to bf16 before p·v and the kernel does not). SSD
+2e-4 likewise in float32 (``tests/test_kernels.py``); in bfloat16 the
+outputs stored in bf16 within 1e-2 times max(1, largest magnitude) (two
+roundings of 2^-8 each), the float32 states within 2e-4 likewise.
 """
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gae import kernel as gae_kernel
 from repro_torch.kernels.gae import ref as gae_ref
 from repro_torch.kernels.gru import kernel as gru_kernel
 from repro_torch.kernels.gru import ref as gru_ref
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.nn import ssm as ssm_mod
 
 GRU_TOL, GAE_TOL = 1e-5, 1e-6
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL, SSD_BF16_TOL = 2e-4, 1e-2
 
 
 @pytest.fixture
@@ -110,3 +125,109 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda_device):
     r = torch.zeros(4, 5, device=cuda_device)
     with pytest.raises(ValueError, match="shape"):
         gae_kernel.forward(r, r, r, r[:3], 0.9, 0.9)
+
+
+def assert_allclose(actual, desired, tol):
+    """|actual - desired| <= tol + tol·|desired| elementwise."""
+    actual, desired = actual.detach().double(), desired.detach().double()
+    bad = (actual - desired).abs() > tol + tol * desired.abs()
+    err = float((actual - desired).abs().max())
+    assert not bool(bad.any()), f"max abs err {err:.3e} (tol {tol})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,window,softcap,causal", [
+    (1, 200, 4, 2, 64, None, None, True),    # T not a tile multiple, GQA
+    (2, 256, 8, 2, 64, 64, 50.0, True),      # window + softcap
+    (1, 384, 4, 2, 256, 128, 50.0, True),    # gemma2's head_dim
+    (1, 130, 2, 1, 256, None, 50.0, True),   # MQA, ragged T
+    (2, 128, 4, 4, 128, None, None, False),  # non-causal
+])
+def test_flash_kernel_matches_plain(cuda_device, dtype, b, t, h, hkv, d,
+                                    window, softcap, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device,
+                                 dtype=torch.float32).to(dtype)
+    q, k, v = rnd(b, t, h, d) * 2, rnd(b, t, hkv, d) * 2, rnd(b, t, hkv, d)
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    before = fa_kernel.LAUNCHES["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert_allclose(out, fa_ref.attention(q, k, v, **kw), FLASH_TOL[dtype])
+
+
+def _ssd_inputs(gen, device, b, t, h, p, n, dtype):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = rnd(b, t, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, t, h)) * 0.1
+    a = -torch.exp(rnd(h) * 0.3)
+    return x, dt, a, rnd(b, t, n).to(dtype), rnd(b, t, n).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [
+    (1, 128, 2, 16, 16, 32), (2, 256, 4, 32, 32, 64),
+    (1, 64, 1, 8, 64, 64), (2, 512, 6, 64, 128, 128)])
+def test_ssd_kernel_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
+    """The kernel's three outputs against the plain intra-chunk block,
+    and ``ops.ssd`` (with an initial state) against ``ssd_chunked``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, p, n, dtype)
+    xw = (x * dt[..., None].to(dtype)).contiguous()
+    la = (dt * a).contiguous()
+    before = ssd_kernel.LAUNCHES["ssd_intra_chunk"]
+    got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
+    want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_intra_chunk"] == before + 1
+    assert got[0].dtype == dtype
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            assert_allclose(g, w, SSD_TOL)
+    else:
+        assert_close_scaled(got[0], want[0], SSD_BF16_TOL)
+        for g, w in zip(got[1:], want[1:]):
+            assert_close_scaled(g, w, SSD_TOL)
+
+    s0 = torch.randn(b, h, p, n, generator=gen, device=cuda_device)
+    y_k, s_k = ssd_ops.ssd(x, dt, a, bm, c, chunk=chunk, initial_state=s0)
+    y_p, s_p = ssm_mod.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
+                                   initial_state=s0)
+    if dtype == torch.float32:
+        assert_allclose(y_k, y_p, SSD_TOL)
+        assert_allclose(s_k, s_p, SSD_TOL)
+    else:
+        assert_close_scaled(y_k, y_p, SSD_BF16_TOL)
+        assert_close_scaled(s_k, s_p, SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_wrappers_refuse_bad_inputs(cuda_device):
+    q = torch.zeros(4, 64, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.forward(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="float32"):
+        fa_kernel.forward(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.forward(q.transpose(1, 2).contiguous().transpose(1, 2),
+                          q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_kernel.forward(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                          q[..., :32].contiguous())
+    xw = torch.zeros(1, 64, 2, 8, device=cuda_device)
+    la = torch.zeros(1, 64, 2, device=cuda_device)
+    bm = torch.zeros(1, 64, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_kernel.forward(xw.double(), la, bm.double(), bm.double(),
+                           chunk=32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_kernel.forward(xw.bfloat16(), la, bm, bm, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.forward(xw, la, bm.transpose(1, 2).contiguous()
+                           .transpose(1, 2), bm, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_kernel.forward(xw, la, bm, bm, chunk=24)
