@@ -8,14 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-     csrc`` and prints the build seconds;
+     csrc``, prints the build seconds, and reads the built library with
+     ``cuobjdump``: registers, stack, local memory and HGMMA (tensor-core)
+     instructions of each flash kernel (the bf16 one must have HGMMA);
   3. holds every kernel against its plain torch version on the card at
      the shapes its path gives it and times kernel, plain version and,
      where one exists, the one PyTorch call for the same function, with
      CUDA events: GRU (1e-5 times max(1, largest magnitude)) and GAE
      (1e-6) forward and backward; flash attention at gemma2-9b's prefill
-     shapes on bf16 inputs, against the plain version in float32 on the
-     same inputs (1e-3 + 8e-3 |plain|), and one float32 shape (2e-5); the
+     shapes on bf16 inputs (the tensor-core kernel), against the plain
+     version in float32 on the same inputs (1e-3 + 8e-3 |plain|), with its
+     achieved TFLOP/s and share of the bf16 bound beside compiled
+     ``flex_attention``, and one float32 shape (2e-5, the FFMA kernel); the
      SSD intra-chunk block and the SSD op at mamba2-780m's layer width, in
      float32 (2e-4) and bf16;
   4. drives the DIALS main path — two loop rounds on warehouse side=10
@@ -25,10 +29,11 @@ It
      warehouse side=2);
   5. drives the serving path of gemma2-9b at full width (bf16, random
      weights from a seed): the prefill step over a B=2 x T=8192 prompt
-     with the flash kernel (42 launches) and without it, their last
+     with the flash kernel (42 launches, all of the bf16 kernel) and
+     without it, their last
      logits compared, then a greedy decode of 16 tokens at B=4 after a
      32-token prompt; then profiles one prefill and 8 decode steps
-     (device busy share, device time by kernel);
+     (device busy share, device time by kernel, flash's share);
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
      (2, 8192, 1536) bf16 activations (one SSD launch) against
      ``use_kernel=False``;
@@ -302,9 +307,9 @@ def live_pairs(t: int, window) -> int:
 def check_flash(gen, device):
     """gemma2-9b prefill attention (B=2, T=8192, 16 heads over 8 KV heads,
     head_dim 256, softcap 50), bf16, local (window 4096) and global
-    layers; one float32 shape. Returns the kernel row: times are per
-    launch, averaged over one local and one global launch, as the prefill
-    alternates them."""
+    layers, on the tensor-core kernel; one float32 shape on the FFMA
+    kernel. Returns the kernel row: times are per launch, averaged over one
+    local and one global launch, as the prefill alternates them."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
     from repro_torch.configs import registry
@@ -319,13 +324,26 @@ def check_flash(gen, device):
                                     device=device).to(dtype)
         return rnd(h), rnd(hkv), rnd(hkv)
 
-    # float32 at the reference's 2e-5 (a shorter prompt: the plain
-    # version materialises the (T, T) scores in float32)
+    def launched(entry, fn):
+        before = fk.LAUNCHES[entry]
+        out = fn()
+        check(fk.LAUNCHES[entry] == before + 1,
+              f"flash: the {entry} kernel was not launched")
+        return out
+
+    # float32 at the reference's 2e-5 on the FFMA kernel (a shorter prompt:
+    # the plain version materialises the (T, T) scores in float32)
     q, k, v = inputs(1, 2048, torch.float32)
     kw = dict(causal=True, sliding_window=1024, softcap=cap)
     worst = max(worst, allclose_rel(
-        "flash float32 T=2048", fk.forward(q, k, v, **kw),
+        "flash float32 T=2048",
+        launched("flash_fwd", lambda: fk.forward(q, k, v, **kw)),
         fr.attention_bhsd(q, k, v, **kw), *FLASH_TOL["float32"]))
+    ffma_ms = cuda_ms(lambda: fk.forward(q, k, v, **kw), 5)
+    ffma_plain_ms = cuda_ms(lambda: fr.attention_bhsd(q, k, v, **kw), 3)
+    print(f"flash float32 (FFMA kernel flash_fwd) q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)}, window 1024, softcap {cap}: {ffma_ms:.4f} ms "
+          f"a launch (plain {ffma_plain_ms:.4f} ms)", flush=True)
     del q, k, v
 
     # bf16 at the main path's shapes, q scaled by FLASH_Q_SCALE, held to the
@@ -336,7 +354,7 @@ def check_flash(gen, device):
     cases = [dict(causal=True, sliding_window=w, softcap=cap)
              for w in (window, None)]
     for kw in cases:
-        got = fk.forward(q, k, v, **kw)
+        got = launched("flash_fwd_sm90", lambda: fk.forward(q, k, v, **kw))
         want = torch.cat([fr.attention_bhsd(
             q[i * h:(i + 1) * h].float(), k[i * hkv:(i + 1) * hkv].float(),
             v[i * hkv:(i + 1) * hkv].float(), **kw) for i in range(b)])
@@ -351,33 +369,38 @@ def check_flash(gen, device):
         torch.cuda.empty_cache()
 
     pair = lambda fn: (lambda: [fn(**kw) for kw in cases])
-    ms = cuda_ms(pair(lambda **kw: fk.forward(q, k, v, **kw)), 3) / 2
+    ms = cuda_ms(pair(lambda **kw: fk.forward(q, k, v, **kw)), 5) / 2
     plain_ms = cuda_ms(pair(lambda **kw: fr.attention_bhsd(q, k, v, **kw)),
                        1) / 2
     torch.cuda.empty_cache()
     lib_ms, lib_name = flash_library_ms(q, k, v, b, cases)
     pairs = b * h * sum(live_pairs(t, kw["sliding_window"]) for kw in cases)
-    nbytes = 2.0 * (2 * b * h * t * d + 2 * b * hkv * t * d) * len(cases)
-    bound = bound_ms(nbytes, 4.0 * d * pairs, PEAK_BF16_PER_S)
-    ffma = 4.0 * d * pairs / PEAK_FP32_PER_S * 1e3 / 2
-    print(f"flash: {4.0 * d * pairs / 1e12:.4f} TFLOP a local+global "
-          f"layer pair; bound {bound[0] / 2:.4f} ms a launch on bf16 tensor "
-          f"cores, {ffma:.4f} ms on fp32 FFMA; library: {lib_name}",
-          flush=True)
+    flop = 4.0 * d * pairs / len(cases)           # a launch, mean of both
+    nbytes = 2.0 * (2 * b * h * t * d + 2 * b * hkv * t * d)
+    bound = bound_ms(nbytes, flop, PEAK_BF16_PER_S)
+    print(f"flash bf16 (tensor-core kernel flash_fwd_sm90): {flop / 1e12:.4f}"
+          f" TFLOP a launch; {ms:.4f} ms, {flop / ms / 1e9:.2f} TFLOP/s, "
+          f"{bound[0] / ms:.4f} of the bf16 bound ({bound[0]:.4f} ms by "
+          f"{bound[1]}); {lib_name}: "
+          + (f"{lib_ms:.4f} ms, {flop / lib_ms / 1e9:.2f} TFLOP/s"
+             if lib_ms is not None else "not measured"), flush=True)
     return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:95",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound=(bound[0] / 2, bound[1]), library_ms=lib_ms)
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=bound,
+                library_ms=lib_ms, library=lib_name if lib_ms is not None
+                else None)
 
 
 def flash_library_ms(q, k, v, b, cases):
     """One PyTorch call for the same function, timed as a yardstick only:
     ``flex_attention`` (compiled) with a softcap ``score_mod`` and a
-    causal+window ``mask_mod``; SDPA on the causal no-softcap function if
-    flex does not run here (the name says which)."""
+    causal+window ``mask_mod``. Returns (ms a launch, its name), or (None,
+    the reason) if it does not run here: no other call computes this
+    function (SDPA has no softcap), so none stands in for it."""
     import torch
     qb, kb, vb = (x.view(b, -1, x.shape[1], x.shape[2]) for x in (q, k, v))
+    name = "flex_attention (compiled, softcap score_mod, causal+window mask)"
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -400,15 +423,62 @@ def flash_library_ms(q, k, v, b, cases):
             calls.append(lambda m=mask: flex(
                 qb, kb, vb, score_mod=score_mod, block_mask=m,
                 enable_gqa=True))
-        return cuda_ms(lambda: [c() for c in calls], 3) / 2, \
-            "flex_attention (compiled, softcap score_mod, causal+window mask)"
+        return cuda_ms(lambda: [c() for c in calls], 3) / 2, name
     except Exception as exc:     # a yardstick: the port never calls it
-        print(f"flex_attention did not run ({type(exc).__name__}: "
-              f"{str(exc)[:200]}); timing SDPA instead", flush=True)
-        import torch.nn.functional as F
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, is_causal=True, enable_gqa=True), 3), \
-            "scaled_dot_product_attention (causal, no softcap, no window)"
+        reason = (f"{name} did not run ({type(exc).__name__}: "
+                  f"{str(exc)[:200]}); library_ms is null")
+        print(reason, flush=True)
+        return None, reason
+
+
+def flash_resources():
+    """Registers, stack and local memory (``cuobjdump -res-usage``),
+    dynamic shared memory, and HGMMA instructions (``cuobjdump -sass``) of
+    each flash kernel in the built library. Fails unless every
+    instantiation of the bf16 kernel issues HGMMA."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(build.LIBRARY)
+    run = lambda *a: subprocess.run([tool, *a, lib], capture_output=True,
+                                    text=True, timeout=300,
+                                    check=True).stdout
+    kernel = re.compile(r"(flash_fwd(?:_sm90)?)ILi(\d+)E")
+    usage, fn = {}, None
+    for line in run("-res-usage").splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = kernel.search(m.group(1))
+        elif fn and "REG:" in line:
+            name, n = fn.group(1), int(fn.group(2))
+            d = n if name.endswith("sm90") else 64 * n
+            usage[(name, d)] = dict(re.findall(r"(\w+):(\d+)", line))
+            fn = None
+    hgmma, fn = {}, None
+    for line in run("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel.search(m.group(1))
+        elif fn and "HGMMA" in line:
+            name, n = fn.group(1), int(fn.group(2))
+            d = n if name.endswith("sm90") else 64 * n
+            hgmma[(name, d)] = hgmma.get((name, d), 0) + 1
+    ext = build.extension()
+    for (name, d), use in sorted(usage.items()):
+        smem = ext.flash_attention_sm90_smem_bytes(d) \
+            if name == "flash_fwd_sm90" else None
+        print(f"resources {name} D={d}: REG {use.get('REG')} (at entry), "
+              f"STACK {use.get('STACK')}, LOCAL {use.get('LOCAL')}, static "
+              f"SHARED {use.get('SHARED')}, dynamic shared "
+              f"{smem if smem is not None else 'see flash_attention.cu'}, "
+              f"HGMMA {hgmma.get((name, d), 0)}", flush=True)
+    for d in (64, 128, 256):
+        check(("flash_fwd_sm90", d) in usage,
+              f"flash_fwd_sm90 D={d} not found in {lib}")
+        check(hgmma.get(("flash_fwd_sm90", d), 0) > 0,
+              f"flash_fwd_sm90 D={d} issues no HGMMA: not on the tensor "
+              f"cores")
 
 
 def check_ssd(gen, device):
@@ -602,6 +672,11 @@ def run_serving_path(device):
     check(counts["flash_attention"] == spec.cfg.n_layers,
           f"prefill launched the flash kernel {counts['flash_attention']} "
           f"times, not once per layer ({spec.cfg.n_layers})")
+    check(counts["flash_fwd_sm90"] == spec.cfg.n_layers
+          and counts["flash_fwd"] == 0,
+          f"prefill's flash launches by kernel: {counts['flash_fwd_sm90']} "
+          f"tensor-core, {counts['flash_fwd']} FFMA (all bf16: all "
+          f"tensor-core)")
     check(launch_counts()["flash_attention"] == spec.cfg.n_layers,
           "the plain prefill launched the flash kernel")
     check(tuple(logits_k.shape) == (b, 1, spec.cfg.vocab),
@@ -676,6 +751,9 @@ def device_summary(prof, wall: float, top: int = 12) -> dict:
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return {"device_kernels": len(intervals),
             "device_busy_share": busy_us / 1e6 / wall,
+            "device_ms": sum(ms for ms, _ in per_kernel.values()),
+            "flash_ms": sum(ms for name, (ms, _) in per_kernel.items()
+                            if "flash_fwd" in name),
             "top_kernels": [(name[:80], ms, n) for name, (ms, n) in ranked]}
 
 
@@ -707,7 +785,11 @@ def profile_serving(run_prefill, run_serve_step):
         summary = device_summary(prof, wall)
         print(f"profile {name}: untraced {untraced:.4f} s, traced "
               f"{wall:.4f} s, device busy {summary['device_busy_share']:.4f}"
-              f", {summary['device_kernels']} kernels", flush=True)
+              f", {summary['device_kernels']} kernels, "
+              f"{summary['device_ms']:.3f} ms of kernel time, flash "
+              f"{summary['flash_ms']:.3f} ms "
+              f"({summary['flash_ms'] / summary['device_ms']:.4f} of it)",
+              flush=True)
         for kname, ms, n in summary["top_kernels"]:
             print(f"  {ms:10.3f} ms {n:6d}x  {kname}", flush=True)
 
@@ -815,6 +897,7 @@ def main() -> int:
 
         from repro_torch.kernels import build
         phase("build", build.extension)
+        phase("flash kernel resources", flash_resources)
 
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
@@ -845,7 +928,7 @@ def main() -> int:
               device)
         counts.update({k: v for k, v in phase(
             "gemma2-9b serving path", run_serving_path,
-            device).items() if k == "flash_attention"})
+            device).items() if k.startswith("flash")})
         counts.update({k: v for k, v in phase(
             "mamba2 ssm layer path", run_ssm_path,
             device).items() if k == "ssd_intra_chunk"})
@@ -861,7 +944,8 @@ def main() -> int:
               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
               "bound_by": r["bound"][1],
-              "library_ms": r.get("library_ms")}
+              "library_ms": r.get("library_ms"),
+              "library": r.get("library")}
              for r in rows]
     print(json.dumps({"kernels": table}))
     print(smi)

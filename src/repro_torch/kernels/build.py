@@ -1,9 +1,10 @@
 """Build-at-first-use of the port's CUDA kernels (``csrc/``).
 
 ``extension()`` compiles every source in one ``torch.utils.cpp_extension
-.load`` call for ``sm_90a`` (``-O3``, no fast-math: the kernels compute in
+.load`` call for ``sm_90a`` (``-O3``, no fast-math: the kernels sum in
 fp32 as the reference does) into ``build/torch_kernels/`` at the root of
-the checkout, and caches the loaded module for the process. Nothing is
+the checkout (``LIBRARY``), and caches the loaded module for the
+process. Nothing is
 compiled at import: the package imports on a host without ``nvcc``. A
 build failure raises.
 """
@@ -16,8 +17,11 @@ import torch
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
-SOURCES = ("bindings.cpp", "gru.cu", "gae.cu", "flash_attention.cu", "ssd.cu")
+SOURCES = ("bindings.cpp", "gru.cu", "gae.cu", "flash_attention.cu",
+           "flash_attention_sm90.cu", "ssd.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+NAME = "repro_torch_kernels"
+LIBRARY = BUILD_DIR / f"{NAME}.so"
 
 _extension = None
 
@@ -29,7 +33,7 @@ def extension():
         from torch.utils.cpp_extension import load
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         _extension = load(
-            name="repro_torch_kernels",
+            name=NAME,
             sources=[str(_CSRC / s) for s in SOURCES],
             build_directory=str(BUILD_DIR),
             extra_cflags=["-O2"],

@@ -1,6 +1,7 @@
 // PyTorch bindings of the port's CUDA kernels. The only source that
 // includes torch/extension.h (slow to compile); the kernels themselves
-// (gru.cu, gae.cu, flash_attention.cu, ssd.cu) see only the CUDA runtime. Outputs are allocated by the
+// (gru.cu, gae.cu, flash_attention.cu, flash_attention_sm90.cu, ssd.cu)
+// see only the CUDA runtime. Outputs are allocated by the
 // Python wrappers (repro_torch/kernels/*/kernel.py), which also check
 // shapes; this layer checks device, dtype and contiguity, launches on
 // PyTorch's current stream and checks every launch.
@@ -34,11 +35,17 @@ cudaError_t launch_gae_forward(const float* r, const float* v,
 cudaError_t launch_gae_backward(const float* g, const float* d, float* dr,
                                 float* dnv, int T, int B, float gamma,
                                 float gamma_lam, cudaStream_t stream);
-cudaError_t launch_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, bool bf16, int BH,
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, float* o, int BH,
                                    int BHkv, int Tq, int Tk, int D,
                                    int causal, int window, float softcap,
                                    float scale, cudaStream_t stream);
+cudaError_t launch_flash_attention_sm90(const void* q, const void* k,
+                                        const void* v, void* o, int BH,
+                                        int BHkv, int Tq, int Tk, int D,
+                                        int causal, int window, float softcap,
+                                        float scale, cudaStream_t stream);
+size_t flash_attention_sm90_smem_bytes(int D);
 size_t ssd_smem_bytes(int L, int P, int N);
 cudaError_t launch_ssd_chunk(const void* xw, const float* la, const void* b,
                              const void* c, void* y, float* st, float* cd,
@@ -138,14 +145,29 @@ void gae_backward(torch::Tensor g, torch::Tensor d, torch::Tensor dr,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// float32 only: the FFMA kernel (flash_attention.cu)
 void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                      torch::Tensor o, bool causal, int64_t window,
                      double softcap, double scale) {
   const c10::cuda::CUDAGuard guard(q.device());
-  const bool bf16 = half_or_float({q, k, v, o}, {"q", "k", "v", "out"});
   C10_CUDA_CHECK(launch_flash_attention(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bf16,
-      q.size(0), k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
+      in(q, "q"), in(k, "k"), in(v, "v"), out(o, "out"), q.size(0),
+      k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
+      (int)window, (float)softcap, (float)scale,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// bf16 only: the tensor-core kernel (flash_attention_sm90.cu)
+void flash_attention_sm90(torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                          torch::Tensor o, bool causal, int64_t window,
+                          double softcap, double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(half_or_float({q, k, v, o}, {"q", "k", "v", "out"}),
+              "q must be bfloat16");
+  C10_CUDA_CHECK(launch_flash_attention_sm90(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.size(0),
+      k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
       (int)window, (float)softcap, (float)scale,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -174,6 +196,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gae_forward", &gae_forward);
   m.def("gae_backward", &gae_backward);
   m.def("flash_attention", &flash_attention);
+  m.def("flash_attention_sm90", &flash_attention_sm90);
+  m.def("flash_attention_sm90_smem_bytes", &flash_attention_sm90_smem_bytes);
   m.def("ssd_smem_bytes", &ssd_smem_bytes);
   m.def("ssd_intra_chunk", &ssd_intra_chunk);
 }

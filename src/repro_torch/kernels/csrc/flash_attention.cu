@@ -1,12 +1,13 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a), float32 inputs, on FFMA.
 //
 // Replaces the Pallas kernel of repro/kernels/flash_attention/kernel.py:
 //   flash_fwd <- flash_attention_bhsd / _attn_kernel
+// for float32 q/k/v (bfloat16 inputs go to flash_attention_sm90.cu, on the
+// tensor cores, which float32 could only reach through TF32).
 //
 // Layout (the reference's flattened rows): q (BH, Tq, D); k, v (BHkv, Tk, D)
 // with query row bh reading kv row bh / (BH / BHkv) (GQA: repeated heads are
-// never materialised); o (BH, Tq, D) in q's dtype. Inputs float32 or
-// bfloat16; all arithmetic is float32, as the reference's kernel upcasts.
+// never materialised); o (BH, Tq, D). All arithmetic is float32.
 //
 // Per (q row i, key j): s = (q_i . k_j) * scale, then s = cap*tanh(s/cap)
 // when a softcap is given, masked to -1e30 unless j <= i (causal) and
@@ -18,8 +19,8 @@
 // loops over 64-key tiles, but only over the tiles the causal and window
 // masks leave live: the range is computed up front from the tile's first
 // and last query, so fully masked tiles cost nothing (the reference skips
-// them with pl.when). Q, K and V tiles are staged in shared memory as
-// float32 (converted once from bf16 on load): at D=256 that is 64 rows x
+// them with pl.when). Q, K and V tiles are staged in shared memory: at
+// D=256 that is 64 rows x
 // (256+4) floats for Q and K, 64 x 256 for V and a 64 x 68 tile of p --
 // 211 KB, so the launcher opts in to more than 48 KB with
 // cudaFuncSetAttribute and one block runs per SM. Row strides of D+4
@@ -31,11 +32,8 @@
 // half-warp with shuffles. Causal q tiles are launched longest first.
 //
 // Bound: at gemma2-9b prefill shapes the work is ~1e12 FLOP per layer and
-// the bytes ~0.1 GB, so it is bound by operations. This first kernel runs
-// on fp32 FFMA (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s for
-// bf16): wgmma with TMA-fed tiles is the redesign. No fast-math: expf and
-// tanhf are the accurate versions.
-#include <cuda_bf16.h>
+// the bytes ~0.2 GB, so it is bound by operations on fp32 FFMA (67 TFLOP/s
+// peak). No fast-math: expf and tanhf are the accurate versions.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -46,15 +44,6 @@ constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 256;   // 16 x 16
 constexpr int PS = BK + 4;      // row stride of the p tile (floats)
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -77,11 +66,12 @@ constexpr size_t smem_floats() {
          (size_t)BQ * PS;
 }
 
-// D = 64 * DC; T is float or __nv_bfloat16
-template <typename T, int DC>
+// D = 64 * DC
+template <int DC>
 __global__ void __launch_bounds__(NTHREADS)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Tq, int Tk,
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int Tq,
+              int Tk,
               int group, int causal, int window, float softcap,
               float scale) {
   constexpr int D = 64 * DC;
@@ -96,9 +86,9 @@ __global__ void __launch_bounds__(NTHREADS)
   const int nq = (Tq + BQ - 1) / BQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;  // longest tiles first
   const int bh = blockIdx.y;
-  const T* qb = q + (size_t)bh * Tq * D;
-  const T* kb = k + (size_t)(bh / group) * Tk * D;
-  const T* vb = v + (size_t)(bh / group) * Tk * D;
+  const float* qb = q + (size_t)bh * Tq * D;
+  const float* kb = k + (size_t)(bh / group) * Tk * D;
+  const float* vb = v + (size_t)(bh / group) * Tk * D;
 
   // the live key range of this query tile
   int k_lo = 0, k_hi = Tk;
@@ -107,7 +97,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   for (int e = tid; e < BQ * D; e += NTHREADS) {
     const int r = e / D, c = e - r * D, qi = q0 + r;
-    q_s[r * QS + c] = qi < Tq ? to_f32(qb[(size_t)qi * D + c]) : 0.0f;
+    q_s[r * QS + c] = qi < Tq ? qb[(size_t)qi * D + c] : 0.0f;
   }
 
   float m[4], l[4];
@@ -125,8 +115,8 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int e = tid; e < BK * D; e += NTHREADS) {
       const int r = e / D, c = e - r * D, kj = k0 + r;
       const bool in = kj < Tk;
-      k_s[r * QS + c] = in ? to_f32(kb[(size_t)kj * D + c]) : 0.0f;
-      v_s[r * D + c] = in ? to_f32(vb[(size_t)kj * D + c]) : 0.0f;
+      k_s[r * QS + c] = in ? kb[(size_t)kj * D + c] : 0.0f;
+      v_s[r * D + c] = in ? vb[(size_t)kj * D + c] : 0.0f;
     }
     __syncthreads();
 
@@ -227,68 +217,53 @@ __global__ void __launch_bounds__(NTHREADS)
     const int qi = q0 + ty + 16 * r;
     if (qi >= Tq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* orow = o + ((size_t)bh * Tq + qi) * D;
+    float* orow = o + ((size_t)bh * Tq + qi) * D;
 #pragma unroll
     for (int dc = 0; dc < DC; ++dc) {
-      T* dst = orow + 4 * tx + 64 * dc;
-      store_as(dst + 0, acc[r][dc].x / den);
-      store_as(dst + 1, acc[r][dc].y / den);
-      store_as(dst + 2, acc[r][dc].z / den);
-      store_as(dst + 3, acc[r][dc].w / den);
+      float* dst = orow + 4 * tx + 64 * dc;
+      dst[0] = acc[r][dc].x / den;
+      dst[1] = acc[r][dc].y / den;
+      dst[2] = acc[r][dc].z / den;
+      dst[3] = acc[r][dc].w / den;
     }
   }
 }
 
-template <typename T, int DC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+template <int DC>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int BH, int BHkv, int Tq, int Tk, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<DC>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, BH);
-  flash_fwd<T, DC><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, BH / BHkv,
-      causal, window, softcap, scale);
+  flash_fwd<DC><<<grid, NTHREADS, smem, stream>>>(
+      q, k, v, o, Tq, Tk, BH / BHkv, causal, window, softcap, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int BH, int BHkv, int Tq, int Tk, int D, int causal,
-                     int window, float softcap, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 1>(q, k, v, o, BH, BHkv, Tq, Tk, causal, window,
-                          softcap, scale, stream);
-    case 128:
-      return launch<T, 2>(q, k, v, o, BH, BHkv, Tq, Tk, causal, window,
-                          softcap, scale, stream);
-    case 256:
-      return launch<T, 4>(q, k, v, o, BH, BHkv, Tq, Tk, causal, window,
-                          softcap, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // window <= 0: no sliding window; softcap <= 0: no softcap.
-cudaError_t launch_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, bool bf16, int BH,
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, float* o, int BH,
                                    int BHkv, int Tq, int Tk, int D,
                                    int causal, int window, float softcap,
                                    float scale, cudaStream_t stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Tq <= 0 || Tk <= 0)
     return cudaErrorInvalidValue;
-  if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, BH, BHkv, Tq, Tk, D, causal,
-                                   window, softcap, scale, stream);
-  return launch_d<float>(q, k, v, o, BH, BHkv, Tq, Tk, D, causal, window,
-                         softcap, scale, stream);
+  switch (D) {
+    case 64:
+      return launch<1>(q, k, v, o, BH, BHkv, Tq, Tk, causal, window, softcap,
+                       scale, stream);
+    case 128:
+      return launch<2>(q, k, v, o, BH, BHkv, Tq, Tk, causal, window, softcap,
+                       scale, stream);
+    case 256:
+      return launch<4>(q, k, v, o, BH, BHkv, Tq, Tk, causal, window, softcap,
+                       scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

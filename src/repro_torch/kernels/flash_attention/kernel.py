@@ -1,16 +1,22 @@
 """Flash attention on the card — the wrapper of
-``csrc/flash_attention.cu``.
+``csrc/flash_attention_sm90.cu`` and ``csrc/flash_attention.cu``.
 
 Replaces ``repro/kernels/flash_attention/kernel.py``:
-:func:`flash_attention_bhsd` launches ``flash_fwd`` (for
-``flash_attention_bhsd`` / ``_attn_kernel``) on CUDA tensors and runs the
+:func:`flash_attention_bhsd` launches a kernel for
+``flash_attention_bhsd`` / ``_attn_kernel`` on CUDA tensors and runs the
 plain version (``ref.attention_bhsd``) on CPU tensors. Forward only, as
-the reference (it has no VJP). ``LAUNCHES`` counts the launches.
+the reference (it has no VJP).
 
-The kernel takes float32 or bfloat16 q/k/v of one dtype, head_dim 64, 128
-or 256, and computes in float32; the output is in q's dtype. The
-reference's ``block_q``/``block_k``/``interpret`` arguments are gone: the
-tiles are fixed at 64 x 64 and there is no interpreter on the card.
+The kernel is chosen by dtype. bfloat16 q/k/v go to ``flash_fwd_sm90``,
+on the tensor cores (``wgmma``, bf16 products summed in float32, p
+rounded to bf16 for p·v); float32 q/k/v go to ``flash_fwd``, on fp32
+FFMA, since the tensor cores would need TF32 for them. Both take head_dim
+64, 128 or 256; the output is in q's dtype. A failed build or launch
+raises: there is no fallback. ``LAUNCHES["flash_attention"]`` counts
+every launch, ``LAUNCHES["flash_fwd_sm90"]`` and ``LAUNCHES["flash_fwd"]``
+each kernel's. The reference's ``block_q``/``block_k``/``interpret``
+arguments are gone: the kernels fix their tiles and there is no
+interpreter on the card.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.flash_attention import ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_fwd_sm90": 0, "flash_fwd": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 128, 256)
 
@@ -50,9 +56,18 @@ def forward(q, k, v, *, causal: bool = True,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     ext = build.extension()
     out = torch.empty_like(q)
-    ext.flash_attention(q, k, v, out, bool(causal),
-                        int(sliding_window or 0), float(softcap or 0.0),
-                        1.0 / math.sqrt(d))
+    args = (q, k, v, out, bool(causal), int(sliding_window or 0),
+            float(softcap or 0.0), 1.0 / math.sqrt(d))
+    if q.dtype == torch.bfloat16:
+        # the tensor maps of its loads need 16-byte aligned rows
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+        ext.flash_attention_sm90(*args)
+        LAUNCHES["flash_fwd_sm90"] += 1
+    else:
+        ext.flash_attention(*args)
+        LAUNCHES["flash_fwd"] += 1
     LAUNCHES["flash_attention"] += 1
     return out
 

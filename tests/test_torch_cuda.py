@@ -7,9 +7,14 @@ on a GPU machine without them:
 
 Tolerances: GRU 1e-5 times max(1, largest magnitude); GAE forward bit
 for bit, its gradients 1e-6 likewise. Flash attention |err| <= tol +
-tol·|plain| with tol 2e-5 in float32 and 2e-2 in bfloat16 (the
-reference's own, ``tests/test_kernels.py``; in bf16 the plain version
-rounds the probabilities to bf16 before p·v and the kernel does not). SSD
+tol·|plain| with tol 2e-5 in float32 (the FFMA kernel) and 2e-2 in
+bfloat16 (the tensor-core kernel), the reference's own
+(``tests/test_kernels.py``; in bf16 the plain version rounds the
+probabilities to bf16 before p·v and the kernel rounds them to bf16 for
+its bf16 product). The bf16 kernel is also held, with q scaled by 8 so the
+scores reach the softcap, to the plain version run in float32 on the same
+bf16 inputs within 1e-3 + 8e-3·|plain| (``chip_smoke.py``'s limit: p and
+the output rounded to bf16, 2^-9 and 2^-8 relative). SSD
 2e-4 likewise in float32 (``tests/test_kernels.py``); in bfloat16 the
 outputs stored in bf16 within 1e-2 times max(1, largest magnitude) (two
 roundings of 2^-8 each), the float32 states within 2e-4 likewise.
@@ -31,6 +36,7 @@ from repro_torch.nn import ssm as ssm_mod
 
 GRU_TOL, GAE_TOL = 1e-5, 1e-6
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_BF16_F32_TOL = (1e-3, 8e-3)
 SSD_TOL, SSD_BF16_TOL = 2e-4, 1e-2
 
 
@@ -143,6 +149,10 @@ def assert_allclose(actual, desired, tol):
     (1, 384, 4, 2, 256, 128, 50.0, True),    # gemma2's head_dim
     (1, 130, 2, 1, 256, None, 50.0, True),   # MQA, ragged T
     (2, 128, 4, 4, 128, None, None, False),  # non-causal
+    (1, 130, 8, 2, 128, 100, 50.0, True),    # GQA 4:1, window 100, ragged T
+    (1, 4100, 4, 2, 256, 100, 50.0, True),   # long ragged T, window 100
+    (2, 300, 4, 4, 256, 17, None, True),     # window under a key tile
+    (1, 200, 4, 1, 256, None, 30.0, False),  # MQA, non-causal, D=256
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, b, t, h, hkv, d,
                                     window, softcap, causal):
@@ -157,6 +167,67 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, b, t, h, hkv, d,
     assert fa_kernel.LAUNCHES["flash_attention"] == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     assert_allclose(out, fa_ref.attention(q, k, v, **kw), FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,bhkv,t,d,window,softcap,causal", [
+    (4, 2, 200, 64, None, None, True),     # GQA 2:1, T not a tile multiple
+    (8, 2, 130, 128, 100, 50.0, True),     # GQA 4:1, window 100
+    (4, 1, 4100, 256, 100, 50.0, True),    # MQA, long ragged T
+    (4, 2, 300, 256, 17, 50.0, True),      # window under a key tile
+    (4, 4, 256, 64, 64, 50.0, True),       # MHA, window a tile multiple
+    (4, 2, 200, 128, None, 30.0, False),   # non-causal, ragged Tk
+])
+def test_flash_bf16_kernel_matches_plain_in_float32(
+        cuda_device, bh, bhkv, t, d, window, softcap, causal):
+    """The tensor-core kernel on bf16 inputs, q scaled by 8 so a few keys
+    lead each softmax and the scores reach the softcap, against the plain
+    version in float32 on the same inputs: a mask, tile, swizzle or
+    fragment fault moves outputs by order |v| = 1."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    q = (rnd(bh, t, d) * 8).bfloat16()
+    k, v = rnd(bhkv, t, d).bfloat16(), rnd(bhkv, t, d).bfloat16()
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    out = fa_kernel.forward(q, k, v, **kw)
+    want = fa_ref.attention_bhsd(q.float(), k.float(), v.float(), **kw)
+    atol, rtol = FLASH_BF16_F32_TOL
+    diff = (out.double() - want.double()).abs()
+    bad = diff > atol + rtol * want.double().abs()
+    assert not bool(bad.any()), \
+        f"max abs err {float(diff.max()):.3e} at rows " \
+        f"{bad.any(-1).nonzero()[:4].tolist()}"
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_dtype(cuda_device):
+    """bf16 goes to the tensor-core kernel and float32 to the FFMA kernel,
+    which still holds the reference's 2e-5; each launch counts once in
+    ``flash_attention`` and once under its kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(4, 192, 128, generator=gen, device=cuda_device)
+               for _ in range(3))
+    kw = dict(causal=True, sliding_window=70, softcap=50.0)
+    counts = dict(fa_kernel.LAUNCHES)
+    out = fa_kernel.forward(q, k, v, **kw)
+    assert_allclose(out, fa_ref.attention_bhsd(q, k, v, **kw),
+                    FLASH_TOL[torch.float32])
+    assert fa_kernel.LAUNCHES["flash_fwd"] == counts["flash_fwd"] + 1
+    assert fa_kernel.LAUNCHES["flash_fwd_sm90"] == counts["flash_fwd_sm90"]
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    out = fa_kernel.forward(qb, kb, vb, **kw)
+    assert out.dtype == torch.bfloat16
+    assert fa_kernel.LAUNCHES["flash_fwd_sm90"] == \
+        counts["flash_fwd_sm90"] + 1
+    assert fa_kernel.LAUNCHES["flash_fwd"] == counts["flash_fwd"] + 1
+    assert fa_kernel.LAUNCHES["flash_attention"] == \
+        counts["flash_attention"] + 2
+    # a view that is not 16-byte aligned cannot feed the tensor maps
+    flat = torch.zeros(4 * 192 * 128 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    odd = flat[1:].view(4, 192, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_kernel.forward(odd, kb, vb, **kw)
 
 
 def _ssd_inputs(gen, device, b, t, h, p, n, dtype):
