@@ -10,12 +10,17 @@ It
   2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
      csrc``, prints the build seconds, and reads the built library with
      ``cuobjdump``: registers, stack, local memory and HGMMA (tensor-core)
-     instructions of each flash kernel (the bf16 one must have HGMMA);
+     instructions of each flash kernel (the bf16 one must have HGMMA), and
+     registers, stack and local memory of each GRU kernel (those that keep
+     W_h in registers must not spill);
   3. holds every kernel against its plain torch version on the card at
      the shapes its path gives it and times kernel, plain version and,
      where one exists, the one PyTorch call for the same function, with
-     CUDA events: GRU (1e-5 times max(1, largest magnitude)) and GAE
-     (1e-6) forward and backward; flash attention at gemma2-9b's prefill
+     CUDA events: GRU (1e-5 times max(1, largest magnitude)) forward and
+     backward at each of the forward's three main-path shapes and at
+     hidden 128 (1x16x64 and 1x128x256), the backward twice for its bits,
+     times per launch and per step at each; GAE (1e-6) forward and
+     backward; flash attention at gemma2-9b's prefill
      shapes on bf16 inputs (the tensor-core kernel), against the plain
      version in float32 on the same inputs (1e-3 + 8e-3 |plain|), with its
      achieved TFLOP/s and share of the bf16 bound beside compiled
@@ -141,7 +146,7 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
 
 
 def max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    return float((a.detach().double() - b.detach().double()).abs().max())
 
 
 def allclose_err(pairs, tol: float) -> float:
@@ -153,7 +158,7 @@ def allclose_err(pairs, tol: float) -> float:
     worst = 0.0
     for name, k, p in pairs:
         err = max_err(k, p)
-        scale = max(1.0, float(p.abs().max()))
+        scale = max(1.0, float(p.detach().abs().max()))
         check(bool(torch.isfinite(k).all()) and err <= tol * scale,
               f"{name}: kernel disagrees with plain version "
               f"(max abs err {err:.3e}, allowed {tol} * {scale:.4g})")
@@ -191,19 +196,13 @@ def gru_inputs(gen, a, t, b, hdim, device):
     return gi, wh, bh, h0, resets
 
 
-def check_gru(gen, device, shapes):
-    """Forward at every main-path shape, forward+backward at the AIP
-    training shape; returns the two kernel rows."""
+def gru_case(gen, device, a, t, b, hdim):
+    """Inputs, output cotangent, and the kernels' and plain version's
+    forward and gradients at one shape; returns (worst forward error,
+    worst gradient error, inputs, cotangent)."""
     import torch
     from repro_torch.kernels.gru import kernel as gk, ref as gref
-    fwd_err = 0.0
-    for a, t, b, hdim in shapes["gru_forward"]:
-        ins = gru_inputs(gen, a, t, b, hdim, device)
-        fwd_err = max(fwd_err, allclose_err(
-            [(f"gru_forward {a}x{t}x{b}x{hdim}", gk.forward(*ins),
-              gref.gru_scan(*ins))], GRU_TOL))
-
-    a, t, b, hdim = shapes["gru_backward"]
+    name = f"{a}x{t}x{b}x{hdim}"
     gi, wh, bh, h0, resets = gru_inputs(gen, a, t, b, hdim, device)
     g = torch.randn(a, t, b, hdim, generator=gen, device=device)
     leaves = [x.clone().requires_grad_() for x in (gi, wh, bh, h0)]
@@ -211,43 +210,84 @@ def check_gru(gen, device, shapes):
     grads_k = torch.autograd.grad(hs_k, leaves, g)
     ref_leaves = [x.clone().requires_grad_() for x in (gi, wh, bh, h0)]
     hs_p = gref.gru_scan(*ref_leaves, resets)
-    grads_p = torch.autograd.grad(hs_p, ref_leaves, g, retain_graph=True)
-    bwd_err = allclose_err(
-        [(f"d{n}", k, p) for n, k, p in
+    grads_p = torch.autograd.grad(hs_p, ref_leaves, g)
+    fwd = allclose_err([(f"gru_forward {name}", hs_k, hs_p)], GRU_TOL)
+    bwd = allclose_err(
+        [(f"gru_backward {name} d{n}", k, p) for n, k, p in
          zip(("gi", "wh", "bh", "h0"), grads_k, grads_p)], GRU_TOL)
+    again = gk.backward(gi, wh, bh, h0, resets, hs_k.detach(), g)
+    check(all(torch.equal(x, y) for x, y in zip(
+        again, gk.backward(gi, wh, bh, h0, resets, hs_k.detach(), g))),
+        f"gru_backward {name}: two calls differ in their bits")
+    print(f"gru {name}: forward max abs err {fwd:.3e}, backward {bwd:.3e} "
+          f"(tol {GRU_TOL} * max(1, max |plain|)); backward bitwise "
+          f"repeatable", flush=True)
+    return fwd, bwd, (gi, wh, bh, h0, resets), g
 
-    fa, ft, fb, fh = shapes["gru_forward"][0]
-    fins = gru_inputs(gen, fa, ft, fb, fh, device)
-    hs = gk.forward(gi, wh, bh, h0, resets)
-    iters = 20
-    rows = []
-    n = fa * ft * fb
-    rows.append(dict(
-        name="gru_forward", route="cuda",
-        source="src/repro_torch/kernels/csrc/gru.cu",
-        replaces="src/repro/kernels/gru/kernel.py:64",
-        max_abs_err=fwd_err,
-        ms=cuda_ms(lambda: gk.forward(*fins), iters),
-        plain_ms=cuda_ms(lambda: gref.gru_scan(*fins), iters),
-        bound=bound_ms(
-            4.0 * (n * 3 * fh + fa * fh * 3 * fh + fa * 3 * fh
-                   + fa * fb * fh + n + n * fh),
-            n * (6.0 * fh * fh + 20.0 * fh))))
+
+def gru_bounds(a, t, b, hdim):
+    """(forward, backward) bounds: each input read once, each output
+    written once; the forward's h.W_h and gates, the backward's gate
+    recompute, h.W_h^T, hp^T.dgh and gate adjoints."""
     n = a * t * b
-    rows.append(dict(
-        name="gru_backward", route="cuda",
-        source="src/repro_torch/kernels/csrc/gru.cu",
-        replaces="src/repro/kernels/gru/kernel.py:132",
-        max_abs_err=bwd_err,
-        ms=cuda_ms(lambda: gk.backward(gi, wh, bh, h0, resets, hs, g),
-                   iters),
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(
-            hs_p, ref_leaves, g, retain_graph=True), iters),
-        bound=bound_ms(
-            4.0 * (2 * (n * 3 * hdim + a * hdim * 3 * hdim + a * 3 * hdim
-                        + a * b * hdim) + n + 2 * n * hdim),
-            n * (18.0 * hdim * hdim + 40.0 * hdim))))
-    return rows
+    fwd = bound_ms(4.0 * (n * 3 * hdim + a * hdim * 3 * hdim + a * 3 * hdim
+                          + a * b * hdim + n + n * hdim),
+                   n * (6.0 * hdim * hdim + 20.0 * hdim))
+    bwd = bound_ms(4.0 * (2 * (n * 3 * hdim + a * hdim * 3 * hdim
+                               + a * 3 * hdim + a * b * hdim) + n
+                          + 2 * n * hdim),
+                   n * (18.0 * hdim * hdim + 40.0 * hdim))
+    return fwd, bwd
+
+
+def check_gru(gen, device, shapes):
+    """Both kernels against the plain version at every main-path shape
+    and at H=128 (the recurrent policy's width), the backward twice for
+    its bits; times per launch and per step at each shape. Returns the
+    two kernel rows, timed at the AIP training shape."""
+    import torch
+    from repro_torch.kernels.gru import kernel as gk, ref as gref
+    fwd_err = bwd_err = 0.0
+    timed = {}
+    for a, t, b, hdim in shapes["gru_forward"] + shapes["gru_h128"]:
+        fe, be, ins, g = gru_case(gen, device, a, t, b, hdim)
+        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+        hs = gk.forward(*ins)
+        iters = 20 if t > 1 else 200
+        f_ms = cuda_ms(lambda: gk.forward(*ins), iters)
+        b_ms = cuda_ms(lambda: gk.backward(*ins, hs, g), iters)
+        fb, bb = gru_bounds(a, t, b, hdim)
+        timed[(a, t, b, hdim)] = (f_ms, b_ms, ins, g, hs)
+        print(f"gru {a}x{t}x{b}x{hdim}: forward {f_ms:.4f} ms a launch, "
+              f"{f_ms * 1e3 / t:.3f} us a step (bound {fb[0]:.5f} ms); "
+              f"backward {b_ms:.4f} ms, {b_ms * 1e3 / t:.3f} us a step "
+              f"(bound {bb[0]:.5f} ms)", flush=True)
+        del hs
+        torch.cuda.empty_cache()
+
+    key = shapes["gru_backward"]
+    f_ms, b_ms, ins, g, hs = timed[key]
+    ref_leaves = [x.clone().requires_grad_() for x in ins[:4]]
+    hs_p = gref.gru_scan(*ref_leaves, ins[4])
+    fb, bb = gru_bounds(*key)
+    by_shape = lambda d: {"x".join(map(str, k)): v for k, v in d.items()}
+    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/gru.cu",
+                  shape="x".join(map(str, key)),
+                  ms_by_shape=by_shape({k: v[0] for k, v in timed.items()}))
+    return [
+        dict(name="gru_forward",
+             replaces="src/repro/kernels/gru/kernel.py:64",
+             max_abs_err=fwd_err, ms=f_ms,
+             plain_ms=cuda_ms(lambda: gref.gru_scan(*ins), 10), bound=fb,
+             **common),
+        dict(name="gru_backward",
+             replaces="src/repro/kernels/gru/kernel.py:132",
+             max_abs_err=bwd_err, ms=b_ms,
+             plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                 hs_p, ref_leaves, g, retain_graph=True), 10), bound=bb,
+             **dict(common, ms_by_shape=by_shape(
+                 {k: v[1] for k, v in timed.items()}))),
+    ]
 
 
 def check_gae(gen, device, t, b, gamma, lam):
@@ -431,11 +471,13 @@ def flash_library_ms(q, k, v, b, cases):
         return None, reason
 
 
-def flash_resources():
-    """Registers, stack and local memory (``cuobjdump -res-usage``),
-    dynamic shared memory, and HGMMA instructions (``cuobjdump -sass``) of
-    each flash kernel in the built library. Fails unless every
-    instantiation of the bf16 kernel issues HGMMA."""
+def kernel_resources():
+    """Registers, stack and local memory (``cuobjdump -res-usage``) of
+    each flash and GRU kernel in the built library, dynamic shared memory,
+    and HGMMA instructions (``cuobjdump -sass``) of each flash kernel.
+    Fails unless every instantiation of the bf16 flash kernel issues HGMMA,
+    and if a GRU kernel that keeps W_h in registers spills to local
+    memory (a stack frame or local bytes)."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -444,12 +486,13 @@ def flash_resources():
     run = lambda *a: subprocess.run([tool, *a, lib], capture_output=True,
                                     text=True, timeout=300,
                                     check=True).stdout
-    kernel = re.compile(r"(flash_fwd(?:_sm90)?)ILi(\d+)E")
+    res_usage = run("-res-usage")
+    flash = re.compile(r"(flash_fwd(?:_sm90)?)ILi(\d+)E")
     usage, fn = {}, None
-    for line in run("-res-usage").splitlines():
+    for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            fn = kernel.search(m.group(1))
+            fn = flash.search(m.group(1))
         elif fn and "REG:" in line:
             name, n = fn.group(1), int(fn.group(2))
             d = n if name.endswith("sm90") else 64 * n
@@ -459,7 +502,7 @@ def flash_resources():
     for line in run("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = kernel.search(m.group(1))
+            fn = flash.search(m.group(1))
         elif fn and "HGMMA" in line:
             name, n = fn.group(1), int(fn.group(2))
             d = n if name.endswith("sm90") else 64 * n
@@ -479,6 +522,54 @@ def flash_resources():
         check(hgmma.get(("flash_fwd_sm90", d), 0) > 0,
               f"flash_fwd_sm90 D={d} issues no HGMMA: not on the tensor "
               f"cores")
+    gru_resources(res_usage, ext)
+
+
+def gru_resources(res_usage: str, ext):
+    """The GRU kernels' lines of ``cuobjdump -res-usage``: the recurrent
+    kernels by configuration (units a thread, lanes a unit, elements a
+    lane, rows a tile, W_h in registers or not) with their dynamic shared
+    memory at the widest hidden size each serves (64 in registers, 128 in
+    shared memory), and the backward's GEMM kernels."""
+    import re
+    recur = re.compile(r"(gru_fwd|gru_bwd_chain)ILi(\d+)ELi(\d+)ELi(\d+)"
+                       r"ELi(\d+)ELb([01])E")
+    plain = re.compile(r"(gru_bwd_weights_sum|gru_bwd_weights|"
+                       r"gru_bwd_gates)E")
+    found, fn = [], None
+    for line in res_usage.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = recur.search(m.group(1)) or plain.search(m.group(1))
+        elif fn and "REG:" in line:
+            found.append((fn.groups(), dict(re.findall(r"(\w+):(\d+)",
+                                                       line))))
+            fn = None
+    check(any(g[0] == "gru_fwd" and g[5] == "1" for g, _ in found) and
+          any(g[0] == "gru_bwd_chain" and g[5] == "1" for g, _ in found),
+          "the GRU kernels with W_h in registers are not in the library")
+    for groups, use in sorted(found):
+        name = groups[0]
+        if len(groups) == 1:
+            print(f"resources {name}: REG {use.get('REG')}, STACK "
+                  f"{use.get('STACK')}, LOCAL {use.get('LOCAL')}",
+                  flush=True)
+            continue
+        upt, ks, kpt, rows, wreg = (int(x) for x in groups[1:])
+        hdim = 64 if wreg else 128
+        smem = (ext.gru_forward_smem_bytes if name == "gru_fwd"
+                else ext.gru_backward_smem_bytes)(hdim, rows)
+        print(f"resources {name} units/thread {upt} lanes/unit {ks} "
+              f"elements/lane {kpt} rows {rows} W_h in "
+              f"{'registers' if wreg else 'shared memory'}: REG "
+              f"{use.get('REG')}, STACK {use.get('STACK')}, LOCAL "
+              f"{use.get('LOCAL')}, dynamic shared {smem} bytes at H="
+              f"{hdim}", flush=True)
+        if wreg:
+            check(use.get("STACK") == "0" and use.get("LOCAL") == "0",
+                  f"{name} (rows {rows}) keeps W_h in registers but spills "
+                  f"to local memory: STACK {use.get('STACK')}, LOCAL "
+                  f"{use.get('LOCAL')}")
 
 
 def check_ssd(gen, device):
@@ -579,9 +670,19 @@ def launch_counts():
 
 
 def reset_counts():
+    from repro_torch.kernels.gru import kernel as gk
     for table in _count_tables():
         for k in table:
             table[k] = 0
+    for by_shape in gk.SHAPE_LAUNCHES.values():
+        by_shape.clear()
+
+
+def shape_counts():
+    """The GRU wrappers' launches by (A, T, B, H) since the last reset."""
+    from repro_torch.kernels.gru import kernel as gk
+    return {name: {"x".join(map(str, k)): n for k, n in sorted(tbl.items())}
+            for name, tbl in gk.SHAPE_LAUNCHES.items()}
 
 
 def run_main_path(device):
@@ -607,8 +708,10 @@ def run_main_path(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    by_shape = shape_counts()
     print(f"main path: {OUTER_ROUNDS} rounds in {wall:.3f} s, launches "
-          f"{counts}", flush=True)
+          f"{counts}; GRU launches by shape (A x T x B x H) {by_shape}",
+          flush=True)
 
     check(len(history) == OUTER_ROUNDS, "main path: missing round records")
     for rec in history:
@@ -627,7 +730,10 @@ def run_main_path(device):
           "main path: AIP GRU weights of the wrong shape")
     for name in ("gru_forward", "gru_backward", "gae_forward"):
         check(counts[name] > 0, f"main path never launched {name}")
-    return counts
+    for name, by in by_shape.items():
+        check(sum(by.values()) == counts[name],
+              f"{name}: launches by shape do not add up to its count")
+    return counts, by_shape
 
 
 def run_serving_path(device):
@@ -897,7 +1003,7 @@ def main() -> int:
 
         from repro_torch.kernels import build
         phase("build", build.extension)
-        phase("flash kernel resources", flash_resources)
+        phase("kernel resources", kernel_resources)
 
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
@@ -909,7 +1015,10 @@ def main() -> int:
         shapes = {"gru_forward": [(n_agents, 128, 7, 64),
                                   (n_agents, 128, 1, 64),
                                   (n_agents, 1, 16, 64)],
-                  "gru_backward": (n_agents, 128, 7, 64)}
+                  "gru_backward": (n_agents, 128, 7, 64),
+                  # the recurrent policy's width: BENCH_kernels.json's
+                  # policy shape, and a long batch of tiles
+                  "gru_h128": [(1, 16, 64, 128), (1, 128, 256, 128)]}
         rows = phase("gru/gae kernels vs plain", lambda: check_gru(
             gen, device, shapes) + check_gae(
             gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam))
@@ -923,7 +1032,7 @@ def main() -> int:
                   f"{row.get('library_ms')})", flush=True)
 
         # each path runs with every count set to 0 just before it
-        counts = phase("dials main path", run_main_path, device)
+        counts, by_shape = phase("dials main path", run_main_path, device)
         phase("dials small input vs plain", check_small_against_plain,
               device)
         counts.update({k: v for k, v in phase(
@@ -945,7 +1054,10 @@ def main() -> int:
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
               "bound_by": r["bound"][1],
               "library_ms": r.get("library_ms"),
-              "library": r.get("library")}
+              **{k: r[k] for k in ("library", "shape", "ms_by_shape")
+                 if k in r},
+              **({"launches_by_shape": by_shape[r["name"]]}
+                 if r["name"] in by_shape else {})}
              for r in rows]
     print(json.dumps({"kernels": table}))
     print(smi)

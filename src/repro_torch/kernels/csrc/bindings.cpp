@@ -12,22 +12,20 @@
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime.h>
 
-size_t gru_forward_smem_bytes(int H, int block_rows);
-size_t gru_backward_smem_bytes(int H, int block_rows);
+size_t gru_forward_smem_bytes(int H, int rows);
+size_t gru_backward_smem_bytes(int H, int rows);
+size_t gru_backward_part_floats(int A, int T, int B, int H);
 cudaError_t launch_gru_forward(const float* gi, const float* wh,
                                const float* bh, const float* h0,
                                const float* resets, float* hs, int A, int T,
-                               int B, int H, int block_rows,
-                               cudaStream_t stream);
+                               int B, int H, int rows, cudaStream_t stream);
 cudaError_t launch_gru_backward(const float* gi, const float* wh,
                                 const float* bh, const float* h0,
                                 const float* resets, const float* hs,
-                                const float* g, float* dgi, float* dwh_part,
-                                float* dbh_part, float* dh0, int A, int T,
-                                int B, int H, int block_rows,
-                                cudaStream_t stream);
-cudaError_t launch_gru_sum_tiles(const float* part, float* out, int A,
-                                 int tiles, int n, cudaStream_t stream);
+                                const float* g, float* gh, float* rgate,
+                                float* part, float* dgi, float* dwh,
+                                float* dbh, float* dh0, int A, int T, int B,
+                                int H, int rows, cudaStream_t stream);
 cudaError_t launch_gae_forward(const float* r, const float* v,
                                const float* nv, const float* d, float* adv,
                                int T, int B, float gamma, float gamma_lam,
@@ -87,41 +85,33 @@ bool half_or_float(const std::vector<torch::Tensor>& xs,
 
 void gru_forward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
                  torch::Tensor h0, torch::Tensor resets, torch::Tensor hs,
-                 int64_t block_rows) {
+                 int64_t rows) {
   const c10::cuda::CUDAGuard guard(gi.device());
   const int A = gi.size(0), T = gi.size(1), B = gi.size(2), H = wh.size(1);
   C10_CUDA_CHECK(launch_gru_forward(
       in(gi, "gi"), in(wh, "wh"), in(bh, "bh"), in(h0, "h0"),
-      in(resets, "resets"), out(hs, "hs"), A, T, B, H, (int)block_rows,
+      in(resets, "resets"), out(hs, "hs"), A, T, B, H, (int)rows,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// four kernels: the gate recompute, the adjoint chain, the dW_h/db_h
+// partial sums over slices of rows and their sum in slice order
 void gru_backward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
                   torch::Tensor h0, torch::Tensor resets, torch::Tensor hs,
-                  torch::Tensor g, torch::Tensor dgi, torch::Tensor dwh_part,
-                  torch::Tensor dbh_part, torch::Tensor dh0,
-                  torch::Tensor dwh, torch::Tensor dbh, int64_t block_rows) {
+                  torch::Tensor g, torch::Tensor gh, torch::Tensor rgate,
+                  torch::Tensor part, torch::Tensor dgi, torch::Tensor dwh,
+                  torch::Tensor dbh, torch::Tensor dh0, int64_t rows) {
   const c10::cuda::CUDAGuard guard(gi.device());
   const int A = gi.size(0), T = gi.size(1), B = gi.size(2), H = wh.size(1);
-  const int tiles = dwh_part.size(1);
-  auto stream = c10::cuda::getCurrentCUDAStream();
   C10_CUDA_CHECK(launch_gru_backward(
       in(gi, "gi"), in(wh, "wh"), in(bh, "bh"), in(h0, "h0"),
-      in(resets, "resets"), in(hs, "hs"), in(g, "g"), out(dgi, "dgi"),
-      out(dwh_part, "dwh_part"), out(dbh_part, "dbh_part"),
-      out(dh0, "dh0"), A, T, B, H, (int)block_rows, stream));
+      in(resets, "resets"), in(hs, "hs"), in(g, "g"), out(gh, "gh"),
+      out(rgate, "rgate"), out(part, "part"), out(dgi, "dgi"),
+      out(dwh, "dwh"), out(dbh, "dbh"), out(dh0, "dh0"), A, T, B, H,
+      (int)rows,
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  if (tiles > 1) {  // one tile writes dwh/dbh directly (the parts alias them)
-    C10_CUDA_CHECK(launch_gru_sum_tiles(in(dwh_part, "dwh_part"),
-                                        out(dwh, "dwh"), A, tiles,
-                                        3 * H * H, stream));
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-    C10_CUDA_CHECK(launch_gru_sum_tiles(in(dbh_part, "dbh_part"),
-                                        out(dbh, "dbh"), A, tiles, 3 * H,
-                                        stream));
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-  }
 }
 
 void gae_forward(torch::Tensor r, torch::Tensor v, torch::Tensor nv,
@@ -191,6 +181,7 @@ void ssd_intra_chunk(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gru_forward_smem_bytes", &gru_forward_smem_bytes);
   m.def("gru_backward_smem_bytes", &gru_backward_smem_bytes);
+  m.def("gru_backward_part_floats", &gru_backward_part_floats);
   m.def("gru_forward", &gru_forward);
   m.def("gru_backward", &gru_backward);
   m.def("gae_forward", &gae_forward);

@@ -1,280 +1,911 @@
 // GRU recurrence kernels for Hopper (sm_90a).
 //
 // Replace the Pallas kernels of repro/kernels/gru/kernel.py:
-//   gru_fwd  <- _gru_forward / _gru_kernel      (the recurrence over T)
-//   gru_bwd  <- _gru_backward / _gru_bwd_kernel (its reverse-time adjoint)
+//   gru_fwd                  <- _gru_forward / _gru_kernel (the recurrence)
+//   gru_bwd_gates, gru_bwd_chain, gru_bwd_weights, gru_bwd_weights_sum
+//                            <- _gru_backward / _gru_bwd_kernel (its adjoint)
 //
 // Layout (leading agent axis A; the reference vmaps the scan over agents):
 //   gi (A,T,B,3H) = x.W_i + b_i, precomputed outside;  wh (A,H,3H);
 //   bh (A,3H);  h0 (A,B,H);  resets (A,T,B);  hs (A,T,B,H).  All float32.
+// Every product is fp32 FFMA: no tensor cores (TF32 would break the
+// reference's 1e-5), no fast-math intrinsics, no atomics.
 //
-// Design. The recurrence is sequential in T and tiny per step (h.W_h is a
-// BT x H by H x 3H product), so on this card it is bound by the latency of
-// the T dependent steps, not by bytes (each input is read once) or FLOPs.
-// One block owns one (agent, batch tile): W_h stays in shared memory for
-// all T steps (rows padded to 3H+1 floats, so both the forward's column
-// reads and the backward's row reads are free of bank conflicts), and so
-// does h. Thread (j, row) computes hidden unit j of one batch row: three
-// length-H dot products with FFMA in fp32, the gates, the update. No
-// tensor cores and no fast-math intrinsics: the reference computes in
-// fp32 and the port is held to it at 1e-5.
+// What bounds it. The recurrence is T dependent steps of a small product
+// (h.W_h is R x H by H x 3H for a tile of R batch rows): a step's latency
+// sets the time, not the bytes (each input is read once) nor the card's
+// FLOPs. Inside a step, on one SM, the costs are (counted on the card with
+// clock64() marks in a development build):
+//  - shared-memory delivery to the product: an SM hands 128 bytes a clock
+//    from shared memory to registers, and a broadcast float4 load still
+//    costs a warp four of those clocks, so a product whose operand comes
+//    from shared memory is bound by it unless each float loaded feeds >= 4
+//    FFMA (128 FFMA lanes against 32 floats a clock);
+//  - the gate algebra (expf, the reciprocal, tanhf), issue-bound;
+//  - the L1 traffic of each lane's own loads of the step's inputs;
+//  - a load whose value is used at once: the lane waits for device memory.
+// The design:
+//  * Thread (v, s) owns UPT hidden units and slice s (of KS) of the
+//    reduction axis, and computes partial sums for all R rows of the tile
+//    at once (registers blocked over rows and units), so each weight is
+//    read once a step and each float of h (or dgh) it loads feeds 3*UPT
+//    (forward) or UPT (chain) FFMA. Forward: 1 unit, 4 lanes; chain: 2
+//    units, 8 lanes (the faster of the mappings tried on the card). The
+//    rows of h and dgh are laid out so that the KS lanes of a unit read
+//    consecutive float4s (slot() below): conflict-free broadcasts.
+//  * The KS partial sums are folded by warp shuffles that also scatter the
+//    rows (reduce-scatter): lane s ends with the finished sums of R/KS
+//    rows and runs the gate algebra of those rows for its units, so h
+//    (forward) and the carried adjoint (backward) stay in its registers
+//    from step to step. Only h (or dgh) goes through shared memory,
+//    double-buffered: one barrier a step.
+//  * A step's inputs (gi, resets; backward also gh, g, h_{t-1}) are loaded
+//    two steps ahead into one of two named register sets (the step loop is
+//    unrolled by two), raw, from addresses clamped into the tensors:
+//    nothing is computed from a loaded value before the step that uses it
+//    (a select or `1 - reset` at load time made every load wait).
+//  * H <= 64: W_h stays in registers for all T steps (the "persistent RNN"
+//    layout; 48 floats a thread). 64 < H <= 128: W_h (49,152 floats at
+//    H=128) cannot live in one block's registers, so it lives in shared
+//    memory (rows padded against bank conflicts) and is read once a step
+//    for all rows of the tile. This was chosen over a 2-block cluster
+//    splitting the 3H columns: a cluster doubles the blocks of a card the
+//    main path's 100 agents already nearly fill (132 SMs), and adds a
+//    cluster barrier and a DSMEM exchange to every step, to save weight
+//    reads that the row blocking already shares over R rows.
+//  * The wrapper picks R (2, 4 or 8 rows a tile) from the grid: fewer rows
+//    a block shorten its steps, so a card with idle SMs takes smaller
+//    tiles (kernels/gru/kernel.py, tile_rows).
 //
-// The backward walks T-1 -> 0, recomputing the gates from
-// h_{t-1} = (t ? hs[t-1] : h0) masked by the reset, as the reference does.
-// dW_h and db_h accumulate in shared memory; each element has one owning
-// thread that sums the tile's rows in a fixed order, and the per-tile
-// partials are summed over tiles in tile order by gru_sum_tiles (no
-// atomics), so the gradient is deterministic.
+// The backward splits the serial chain from the parallel work:
+//   1. gru_bwd_gates: gh = hp.W_h + b_h for all T.B rows of an agent at
+//      once, hp = [h0, hs[:-1]] masked by the reset: a tiled FFMA GEMM,
+//      parallel over (agent, 64-row tile, 192-column tile).
+//   2. gru_bwd_chain: the adjoint T-1 -> 0. Per step only the gate algebra,
+//      dgi, dgh = [da_r, da_z, da_n r] and dh_{t-1} = (d z + dgh.W_h^T)
+//      (1 - reset_t); W_h^T is held like the forward's W_h. It writes dgi
+//      and r (phase 3 rebuilds dgh from them).
+//   3. gru_bwd_weights: dW_h = sum_{t,b} hp^T dgh and db_h = sum dgh over
+//      all T.B rows of an agent, parallel over (agent, 64x192 tile of
+//      dW_h, slice of rows); gru_bwd_weights_sum then adds the slices in
+//      slice order. Rows are summed in a fixed order and nothing is
+//      atomic, so the result has the same bits from run to run.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// 1 / (1 + e^-x): the correctly rounded reciprocal is the correctly
+// rounded quotient 1 / y, in fewer instructions than the division
 __device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
+  return __frcp_rn(1.0f + expf(-x));
 }
 
-__global__ void gru_fwd(const float* __restrict__ gi,
-                        const float* __restrict__ wh,
-                        const float* __restrict__ bh,
-                        const float* __restrict__ h0,
-                        const float* __restrict__ resets,
-                        float* __restrict__ hs, int T, int B, int H) {
-  extern __shared__ float smem[];
-  const int H3 = 3 * H, ws = H3 + 1, BT = blockDim.y;
-  float* w_s = smem;            // H x ws
-  float* h_s = w_s + H * ws;    // BT x H
-  const int a = blockIdx.x, j = threadIdx.x, lb = threadIdx.y;
-  const int b = blockIdx.y * BT + lb;
-  const bool valid = b < B;
-  const int tid = lb * H + j, nthr = BT * H;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  const float* wa = wh + (size_t)a * H * H3;
-  for (int e = tid; e < H * H3; e += nthr) {
-    const int k = e / H3;
-    w_s[k * ws + (e - k * H3)] = wa[e];
+// Where element x (of a row cut into KS slices of KPT) is kept, so that
+// lane s reads its q-th float4 of the row at ((q * KS) + s) * 4.
+template <int KS, int KPT>
+__device__ __forceinline__ int slot(int x) {
+  const int s = x / KPT, i = x - s * KPT;
+  return ((i >> 2) * KS + s) * 4 + (i & 3);
+}
+
+// One exchange of the reduce-scatter over lanes s and s ^ M: rows [0, N)
+// of v become [0, N/2), this lane's half, summed over both lanes; with one
+// row left (N == 1) both lanes keep the whole sum.
+template <int N, int M, int G, int R>
+struct Fold {
+  static __device__ __forceinline__ void run(float (&v)[R][G], int s) {
+    if constexpr (N >= 2) {
+      const bool up = (s & M) != 0;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float send = up ? v[i][g] : v[i + N / 2][g];
+          const float keep = up ? v[i + N / 2][g] : v[i][g];
+          v[i][g] = keep + __shfl_xor_sync(FULL_MASK, send, M);
+        }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        v[0][g] += __shfl_xor_sync(FULL_MASK, v[0][g], M);
+    }
+    Fold<(N >= 2 ? N / 2 : 1), M / 2, G, R>::run(v, s);
   }
-  const float* ba = bh + (size_t)a * H3;
-  const float br = ba[j], bz = ba[H + j], bn = ba[2 * H + j];
-  float h = valid ? h0[((size_t)a * B + b) * H + j] : 0.0f;
-  h_s[lb * H + j] = h;
+};
+template <int N, int G, int R>
+struct Fold<N, 0, G, R> {
+  static __device__ __forceinline__ void run(float (&)[R][G], int) {}
+};
+
+// The rows a lane owns after the fold over KS lanes: [base, base + RL);
+// with R < KS, DUP lanes hold each row and the first of them writes it.
+template <int R, int KS>
+struct Rows {
+  static constexpr int RL = R >= KS ? R / KS : 1;
+  static constexpr int DUP = R >= KS ? 1 : KS / R;
+};
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+// One block per (agent, tile of R rows); NV * KS threads, NV = UP / UPT
+// unit groups (UP = H padded so that warps are whole, Cfg::units). Thread
+// (v, s) owns units v + p * NV (p < UPT) and elements [s * KPT, + KPT) of
+// the k axis: W_h in registers with KPT = 16 (H <= 64), in shared memory
+// with KPT = 32 (H <= 128).
+template <int UPT, int KS, int KPT, int R, bool WREG>
+__global__ void __launch_bounds__(WREG ? 256 : 512)
+gru_fwd(const float* __restrict__ gi, const float* __restrict__ wh,
+        const float* __restrict__ bh, const float* __restrict__ h0,
+        const float* __restrict__ resets, float* __restrict__ hs, int T,
+        int B, int H, int UP) {
+  constexpr int HP = KS * KPT, Q = KPT / 4, WST = HP + 16, G = 3 * UPT;
+  constexpr int RL = Rows<R, KS>::RL, DUP = Rows<R, KS>::DUP;
+  static_assert(HP % 32 == 0 && KPT % 4 == 0, "rows of whole float4s");
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                 // 2 x R x HP, double-buffered h
+  float* w_s = smem + 2 * R * HP;    // 3 UP x WST (W_h in shared memory)
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int NV = UP / UPT, v = tid / KS, s = tid % KS;
+  const int a = blockIdx.x, b0 = blockIdx.y * R;
+  const int H3 = 3 * H;
+  const int base = (s / DUP) * RL;
+  const bool lead = s % DUP == 0;
+  const float* wa = wh + (size_t)a * H * H3;
+  int u[UPT];
+  bool unit[UPT];
+#pragma unroll
+  for (int p = 0; p < UPT; ++p) {
+    u[p] = v + p * NV;
+    unit[p] = u[p] < H;
+  }
+
+  for (int e = tid; e < 2 * R * HP; e += nthr) h_s[e] = 0.0f;
+  if constexpr (!WREG)
+    for (int e = tid; e < 3 * UP * WST; e += nthr) w_s[e] = 0.0f;
+  float w[WREG ? UPT : 1][3][WREG ? KPT : 1];
+  if constexpr (WREG) {
+#pragma unroll
+    for (int p = 0; p < UPT; ++p)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+          const int k = s * KPT + i;
+          w[p][g][i] = (unit[p] && k < H)
+                           ? wa[(size_t)k * H3 + g * H + u[p]] : 0.0f;
+        }
+  }
+  float bias[UPT][3], h[RL][UPT];
+#pragma unroll
+  for (int p = 0; p < UPT; ++p)
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      bias[p][g] = unit[p] ? bh[(size_t)a * H3 + g * H + u[p]] : 0.0f;
+
+  // step t's inputs: gi of step t, and the reset of step t + 1 (h is
+  // masked by it at the end of step t, before step t + 1 reads it). Raw
+  // loads from addresses clamped into the tensors: nothing is computed
+  // from them before the step that uses them, so no lane waits on them.
+  struct In {
+    float gi[RL][UPT][3], reset_next[RL];
+  };
+  auto load = [&](int t, In& in) {
+    const int tc = min(t, T - 1), tn = min(t + 1, T - 1);
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int b = min(b0 + base + i, B - 1);
+      const size_t row = ((size_t)a * T + tc) * B + b;
+      in.reset_next[i] = resets[((size_t)a * T + tn) * B + b];
+#pragma unroll
+      for (int p = 0; p < UPT; ++p)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          in.gi[i][p][g] = gi[row * H3 + g * H + min(u[p], H - 1)];
+    }
+  };
+  In in0, in1;
+  load(0, in0);
+  load(1, in1);
+#pragma unroll
+  for (int i = 0; i < RL; ++i) {
+    const int b = b0 + base + i;
+    const float keep = b < B ? 1.0f - resets[(size_t)a * T * B + b] : 0.0f;
+#pragma unroll
+    for (int p = 0; p < UPT; ++p)
+      h[i][p] = (unit[p] && b < B)
+                    ? h0[((size_t)a * B + b) * H + u[p]] * keep : 0.0f;
+  }
+  __syncthreads();  // the zero fill is done before anything is written
+  if constexpr (!WREG)
+    for (int e = tid; e < H * H3; e += nthr) {   // coalesced in global
+      const int k = e / H3, c = e - k * H3, g = c / H, uu = c - g * H;
+      w_s[(g * UP + uu) * WST + slot<KS, KPT>(k)] = wa[e];
+    }
+  if (lead)
+#pragma unroll
+    for (int i = 0; i < RL; ++i)
+#pragma unroll
+      for (int p = 0; p < UPT; ++p)
+        if (unit[p]) h_s[(base + i) * HP + slot<KS, KPT>(u[p])] = h[i][p];
   __syncthreads();
 
-  const float* hrow = h_s + lb * H;
-  for (int t = 0; t < T; ++t) {
-    const size_t row = ((size_t)a * T + t) * B + b;
-    // this step's inputs are loaded before the dot products, so their
-    // memory latency overlaps the loop instead of following it
-    float keep = 0.0f, g_r = 0.0f, g_z = 0.0f, g_n = 0.0f;
-    if (valid) {
-      keep = 1.0f - resets[row];
-      const float* g = gi + row * H3;
-      g_r = g[j];
-      g_z = g[H + j];
-      g_n = g[2 * H + j];
+  auto step = [&](int t, const In& in) {
+    const float* hc = h_s + (t & 1) * R * HP;
+    float* hn_s = h_s + ((t + 1) & 1) * R * HP;
+    float acc[R][G];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < G; ++c) acc[r][c] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float wq[UPT][3][4];
+#pragma unroll
+      for (int p = 0; p < UPT; ++p)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          if constexpr (WREG) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) wq[p][g][e] = w[p][g][q * 4 + e];
+          } else {
+            const float4 x =
+                ld4(w_s + (g * UP + u[p]) * WST + (q * KS + s) * 4);
+            wq[p][g][0] = x.x; wq[p][g][1] = x.y;
+            wq[p][g][2] = x.z; wq[p][g][3] = x.w;
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 hv = ld4(hc + r * HP + (q * KS + s) * 4);
+#pragma unroll
+        for (int p = 0; p < UPT; ++p)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            float& c = acc[r][p * 3 + g];
+            c = fmaf(hv.x, wq[p][g][0], c);
+            c = fmaf(hv.y, wq[p][g][1], c);
+            c = fmaf(hv.z, wq[p][g][2], c);
+            c = fmaf(hv.w, wq[p][g][3], c);
+          }
+      }
     }
-    float ar = 0.0f, az = 0.0f, an = 0.0f;
-    for (int k = 0; k < H; ++k) {
-      const float hk = hrow[k] * keep;
-      const float* wk = w_s + k * ws;
-      ar = fmaf(hk, wk[j], ar);
-      az = fmaf(hk, wk[H + j], az);
-      an = fmaf(hk, wk[2 * H + j], an);
+    Fold<R, KS / 2, G, R>::run(acc, s);
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int b = b0 + base + i;
+      const float keep_next =
+          (b < B && t + 1 < T) ? 1.0f - in.reset_next[i] : 0.0f;
+#pragma unroll
+      for (int p = 0; p < UPT; ++p) {
+        const float r =
+            sigmoid_f32(in.gi[i][p][0] + (acc[i][p * 3] + bias[p][0]));
+        const float z =
+            sigmoid_f32(in.gi[i][p][1] + (acc[i][p * 3 + 1] + bias[p][1]));
+        const float n =
+            tanhf(in.gi[i][p][2] + r * (acc[i][p * 3 + 2] + bias[p][2]));
+        const float hn = (1.0f - z) * n + z * h[i][p];
+        const bool w_ok = lead && unit[p];
+        if (w_ok && b < B) hs[(((size_t)a * T + t) * B + b) * H + u[p]] = hn;
+        h[i][p] = hn * keep_next;   // masked as step t + 1 reads it
+        if (w_ok) hn_s[(base + i) * HP + slot<KS, KPT>(u[p])] = h[i][p];
+      }
     }
-    float hn = 0.0f;
-    if (valid) {
-      const float r = sigmoid_f32(g_r + (ar + br));
-      const float z = sigmoid_f32(g_z + (az + bz));
-      const float n = tanhf(g_n + r * (an + bn));
-      hn = (1.0f - z) * n + z * (h * keep);
-      hs[row * H + j] = hn;
-    }
-    __syncthreads();  // every read of h_s for step t is done
-    h_s[lb * H + j] = hn;
-    h = hn;
     __syncthreads();
+  };
+
+  // two named input sets: step t + 2's inputs load while step t + 1 runs
+  for (int t = 0; t < T; t += 2) {
+    step(t, in0);
+    load(t + 2, in0);
+    if (t + 1 < T) {
+      step(t + 1, in1);
+      load(t + 3, in1);
+    }
   }
 }
 
-__global__ void gru_bwd(const float* __restrict__ gi,
-                        const float* __restrict__ wh,
-                        const float* __restrict__ bh,
-                        const float* __restrict__ h0,
-                        const float* __restrict__ resets,
-                        const float* __restrict__ hs,
-                        const float* __restrict__ g,
-                        float* __restrict__ dgi,
-                        float* __restrict__ dwh_part,
-                        float* __restrict__ dbh_part,
-                        float* __restrict__ dh0, int T, int B, int H) {
-  extern __shared__ float smem[];
-  const int H3 = 3 * H, ws = H3 + 1, BT = blockDim.y;
-  float* w_s = smem;              // H x ws
-  float* dw_s = w_s + H * ws;     // H x H3
-  float* db_s = dw_s + H * H3;    // H3
-  float* hp_s = db_s + H3;        // BT x H   masked h_{t-1}
-  float* dg_s = hp_s + BT * H;    // BT x H3  adjoint on gh
-  const int a = blockIdx.x, j = threadIdx.x, lb = threadIdx.y;
-  const int b = blockIdx.y * BT + lb;
-  const bool valid = b < B;
-  const int tid = lb * H + j, nthr = BT * H;
-  const int rows = min(BT, B - (int)blockIdx.y * BT);
-
+// ---------------------------------------------------------------------------
+// backward, phase 2: the serial adjoint chain
+// ---------------------------------------------------------------------------
+// Thread (v, s) owns units v + p * NV (p < UPT): their outputs of
+// dh = dgh.W_h^T over slice s (of KS) of the 3H columns, and their gate
+// algebra for the rows it owns after the fold. W_h^T in registers with
+// KPT = 24 (H <= 64), in shared memory with KPT = 48 (H <= 128).
+template <int UPT, int KS, int KPT, int R, bool WREG>
+__global__ void __launch_bounds__(WREG ? 256 : 512)
+gru_bwd_chain(const float* __restrict__ gi, const float* __restrict__ wh,
+              const float* __restrict__ gh, const float* __restrict__ h0,
+              const float* __restrict__ resets, const float* __restrict__ hs,
+              const float* __restrict__ g, float* __restrict__ dgi,
+              float* __restrict__ rgate, float* __restrict__ dh0, int T,
+              int B, int H, int UP) {
+  constexpr int CP = KS * KPT, Q = KPT / 4, WST = CP + 16;
+  constexpr int RL = Rows<R, KS>::RL, DUP = Rows<R, KS>::DUP;
+  static_assert(CP % 32 == 0 && KPT % 4 == 0, "rows of whole float4s");
+  extern __shared__ __align__(16) float smem[];
+  float* dg_s = smem;                 // 2 x R x CP, double-buffered dgh
+  float* w_s = smem + 2 * R * CP;     // UP x WST (W_h in shared memory)
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int NV = UP / UPT, v = tid / KS, s = tid % KS;
+  const int a = blockIdx.x, b0 = blockIdx.y * R;
+  const int H3 = 3 * H;
+  const int base = (s / DUP) * RL;
+  const bool lead = s % DUP == 0;
   const float* wa = wh + (size_t)a * H * H3;
-  for (int e = tid; e < H * H3; e += nthr) {
-    const int k = e / H3;
-    w_s[k * ws + (e - k * H3)] = wa[e];
-    dw_s[e] = 0.0f;
+  int u[UPT];
+  bool unit[UPT];
+#pragma unroll
+  for (int p = 0; p < UPT; ++p) {
+    u[p] = v + p * NV;
+    unit[p] = u[p] < H;
   }
-  for (int c = tid; c < H3; c += nthr) db_s[c] = 0.0f;
-  const float* ba = bh + (size_t)a * H3;
-  const float br = ba[j], bz = ba[H + j], bn = ba[2 * H + j];
 
-  float dh = 0.0f;  // adjoint carried onto h_t
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t row = ((size_t)a * T + t) * B + b;
-    float keep = 0.0f, hp = 0.0f, g_r = 0.0f, g_z = 0.0f, g_n = 0.0f;
-    float g_out = 0.0f;  // this step's output cotangent
-    if (valid) {
-      keep = 1.0f - resets[row];
-      const float hprev = t > 0 ? hs[(row - B) * H + j]
-                                : h0[((size_t)a * B + b) * H + j];
-      hp = hprev * keep;
-      const float* gr = gi + row * H3;
-      g_r = gr[j];
-      g_z = gr[H + j];
-      g_n = gr[2 * H + j];
-      g_out = g[row * H + j];
-    }
-    hp_s[lb * H + j] = hp;
-    __syncthreads();
+  for (int e = tid; e < 2 * R * CP; e += nthr) dg_s[e] = 0.0f;
+  if constexpr (!WREG)
+    for (int e = tid; e < UP * WST; e += nthr) w_s[e] = 0.0f;
+  float w[WREG ? UPT : 1][WREG ? KPT : 1];
+  if constexpr (WREG) {
+#pragma unroll
+    for (int p = 0; p < UPT; ++p)
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const int c = s * KPT + i;
+        w[p][i] = (unit[p] && c < H3) ? wa[(size_t)u[p] * H3 + c] : 0.0f;
+      }
+  }
 
-    const float* hrow = hp_s + lb * H;
-    float ar = 0.0f, az = 0.0f, an = 0.0f;
-    for (int k = 0; k < H; ++k) {
-      const float hk = hrow[k];
-      const float* wk = w_s + k * ws;
-      ar = fmaf(hk, wk[j], ar);
-      az = fmaf(hk, wk[H + j], az);
-      an = fmaf(hk, wk[2 * H + j], an);
+  // step t's inputs for the rows and units this lane owns: raw loads from
+  // addresses clamped into the tensors, used only when the step runs (see
+  // the forward; rows past B get keep 0 at use)
+  struct In {
+    float reset[RL], hprev[RL][UPT], gout[RL][UPT], gh[RL][UPT][3],
+        gi[RL][UPT][3];
+  };
+  auto load = [&](int t, In& in) {
+    const int tc = max(t, 0);
+    const float* hrows = tc > 0 ? hs + ((size_t)a * T + tc - 1) * B * H
+                                : h0 + (size_t)a * B * H;
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int b = min(b0 + base + i, B - 1);
+      const size_t row = ((size_t)a * T + tc) * B + b;
+      in.reset[i] = resets[row];
+#pragma unroll
+      for (int p = 0; p < UPT; ++p) {
+        const int uc = min(u[p], H - 1);
+        in.hprev[i][p] = hrows[(size_t)b * H + uc];
+        in.gout[i][p] = g[row * H + uc];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          in.gh[i][p][q] = gh[row * H3 + q * H + uc];
+          in.gi[i][p][q] = gi[row * H3 + q * H + uc];
+        }
+      }
     }
-    float da_r = 0.0f, da_z = 0.0f, da_n = 0.0f, r = 0.0f, dhp = 0.0f;
-    if (valid) {
-      const float h_n = an + bn;
-      r = sigmoid_f32(g_r + (ar + br));
-      const float z = sigmoid_f32(g_z + (az + bz));
-      const float n = tanhf(g_n + r * h_n);
-      const float d = g_out + dh;  // total adjoint on h_t
-      const float dn = d * (1.0f - z);
-      const float dz = d * (hp - n);
-      dhp = d * z;
-      da_n = dn * (1.0f - n * n);
-      const float dr = da_n * h_n;
-      da_z = dz * z * (1.0f - z);
-      da_r = dr * r * (1.0f - r);
-      float* dgo = dgi + row * H3;
-      dgo[j] = da_r;
-      dgo[H + j] = da_z;
-      dgo[2 * H + j] = da_n;
-    }
-    float* dgrow = dg_s + lb * H3;
-    dgrow[j] = da_r;
-    dgrow[H + j] = da_z;
-    dgrow[2 * H + j] = da_n * r;
-    __syncthreads();
-
-    // adjoint on the masked h_{t-1}: d*z + dgh . W_h[j, :]
-    const float* wj = w_s + j * ws;
-    for (int c = 0; c < H3; ++c) dhp = fmaf(dgrow[c], wj[c], dhp);
-    dh = dhp * keep;
-    // dW_h += hp^T dgh and db_h += sum_rows dgh, one owner per element
-    for (int e = tid; e < H * H3; e += nthr) {
+  };
+  In in0, in1;
+  load(T - 1, in0);
+  load(T - 2, in1);
+  __syncthreads();  // the zero fill is done before anything is written
+  if constexpr (!WREG)
+    for (int e = tid; e < H * H3; e += nthr) {   // coalesced in global
       const int k = e / H3, c = e - k * H3;
-      float s = dw_s[e];
-      for (int rb = 0; rb < rows; ++rb)
-        s = fmaf(hp_s[rb * H + k], dg_s[rb * H3 + c], s);
-      dw_s[e] = s;
+      w_s[k * WST + slot<KS, KPT>(c)] = wa[e];
     }
-    for (int c = tid; c < H3; c += nthr) {
-      float s = db_s[c];
-      for (int rb = 0; rb < rows; ++rb) s += dg_s[rb * H3 + c];
-      db_s[c] = s;
-    }
-    __syncthreads();
-  }
 
-  if (valid) dh0[((size_t)a * B + b) * H + j] = dh;
-  const size_t part = (size_t)a * gridDim.y + blockIdx.y;
-  for (int e = tid; e < H * H3; e += nthr)
-    dwh_part[part * H * H3 + e] = dw_s[e];
-  for (int c = tid; c < H3; c += nthr) dbh_part[part * H3 + c] = db_s[c];
+  float dh[RL][UPT];  // adjoint carried onto h_t
+#pragma unroll
+  for (int i = 0; i < RL; ++i)
+#pragma unroll
+    for (int p = 0; p < UPT; ++p) dh[i][p] = 0.0f;
+
+  auto step = [&](int t, const In& in) {
+    float* dgc = dg_s + (t & 1) * R * CP;
+    float dz_h[RL][UPT];   // d * z, the direct path onto h_{t-1}
+    float keep[RL];
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int b = b0 + base + i;
+      keep[i] = b < B ? 1.0f - in.reset[i] : 0.0f;
+#pragma unroll
+      for (int p = 0; p < UPT; ++p) {
+        const float gh_n = in.gh[i][p][2];
+        const float r = sigmoid_f32(in.gi[i][p][0] + in.gh[i][p][0]);
+        const float z = sigmoid_f32(in.gi[i][p][1] + in.gh[i][p][1]);
+        const float n = tanhf(in.gi[i][p][2] + r * gh_n);
+        const float d = in.gout[i][p] + dh[i][p];  // total adjoint on h_t
+        const float dn = d * (1.0f - z);
+        const float dz = d * (in.hprev[i][p] * keep[i] - n);
+        dz_h[i][p] = d * z;
+        const float da_n = dn * (1.0f - n * n);
+        const float da_z = dz * z * (1.0f - z);
+        const float da_r = da_n * gh_n * r * (1.0f - r);
+        const bool w_ok = lead && unit[p];
+        if (w_ok && b < B) {
+          const size_t row = ((size_t)a * T + t) * B + b;
+          float* dgo = dgi + row * H3;
+          dgo[u[p]] = da_r;
+          dgo[H + u[p]] = da_z;
+          dgo[2 * H + u[p]] = da_n;
+          rgate[row * H + u[p]] = r;
+        }
+        if (w_ok) {
+          float* dgrow = dgc + (base + i) * CP;
+          dgrow[slot<KS, KPT>(u[p])] = da_r;
+          dgrow[slot<KS, KPT>(H + u[p])] = da_z;
+          dgrow[slot<KS, KPT>(2 * H + u[p])] = da_n * r;
+        }
+      }
+    }
+    __syncthreads();  // dgh of step t (and, once, W_h) is in shared memory
+
+    float acc[R][UPT];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int p = 0; p < UPT; ++p) acc[r][p] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float wq[UPT][4];
+#pragma unroll
+      for (int p = 0; p < UPT; ++p) {
+        if constexpr (WREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wq[p][e] = w[p][q * 4 + e];
+        } else {
+          const float4 x = ld4(w_s + u[p] * WST + (q * KS + s) * 4);
+          wq[p][0] = x.x; wq[p][1] = x.y; wq[p][2] = x.z; wq[p][3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 dv = ld4(dgc + r * CP + (q * KS + s) * 4);
+#pragma unroll
+        for (int p = 0; p < UPT; ++p) {
+          float& c = acc[r][p];
+          c = fmaf(dv.x, wq[p][0], c);
+          c = fmaf(dv.y, wq[p][1], c);
+          c = fmaf(dv.z, wq[p][2], c);
+          c = fmaf(dv.w, wq[p][3], c);
+        }
+      }
+    }
+    Fold<R, KS / 2, UPT, R>::run(acc, s);
+#pragma unroll
+    for (int i = 0; i < RL; ++i)
+#pragma unroll
+      for (int p = 0; p < UPT; ++p)
+        dh[i][p] = (dz_h[i][p] + acc[i][p]) * keep[i];
+  };
+
+  for (int t = T - 1; t >= 0; t -= 2) {   // as in the forward
+    step(t, in0);
+    load(t - 2, in0);
+    if (t >= 1) {
+      step(t - 1, in1);
+      load(t - 3, in1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RL; ++i) {
+    const int b = b0 + base + i;
+#pragma unroll
+    for (int p = 0; p < UPT; ++p)
+      if (lead && unit[p] && b < B)
+        dh0[((size_t)a * B + b) * H + u[p]] = dh[i][p];
+  }
 }
 
-// out[a, e] = sum over tiles, in tile order, of part[a, tile, e]
-__global__ void gru_sum_tiles(const float* __restrict__ part,
-                              float* __restrict__ out, int A, int tiles,
-                              int n) {
+// ---------------------------------------------------------------------------
+// backward, phases 1 and 3: tiled FFMA products over all T.B rows
+// ---------------------------------------------------------------------------
+constexpr int GEMM_THREADS = 256;       // 16 x 16
+constexpr int TM = 64;                  // tile rows: thread rows ty*4 + i
+constexpr int TN = 192;                 // tile columns: tx + 16 j, j < 12
+constexpr int XS = TM + 4;              // a shared row of the x operand
+constexpr int KC = 16;                  // phase 1: depth of a k chunk
+constexpr int MC = 16;                  // phase 3: rows of a chunk
+constexpr int SLICE_ROWS = 128;         // phase 3: rows of a slice (>= MC)
+constexpr int MAX_SLICES = 64;
+
+// hp[m][k] for row m = t * B + b of agent a is h_{t-1} (h0 at t = 0)
+// masked by reset_t, as the forward step saw it. The fetches below load
+// its two raw inputs from addresses clamped into the tensors, into
+// registers, and the product h * (1 - reset) is formed only when the
+// chunk is stored to shared memory: a fetch never waits on its loads.
+struct HpRaw {
+  float h, reset;
+};
+
+__device__ __forceinline__ HpRaw hp_raw(const float* __restrict__ h0,
+                                        const float* __restrict__ resets,
+                                        const float* __restrict__ hs, int a,
+                                        int m, int k, int T, int B, int H) {
+  m = min(m, T * B - 1);
+  k = min(k, H - 1);
+  const int t = m / B, b = m - t * B;
+  const size_t row = ((size_t)a * T + t) * B + b;
+  const float* src = t > 0 ? hs + (row - B) * H : h0 + ((size_t)a * B + b) * H;
+  return {src[k], resets[row]};
+}
+
+__device__ __forceinline__ float hp_of(HpRaw x, bool in_range) {
+  return in_range ? x.h * (1.0f - x.reset) : 0.0f;
+}
+
+// acc[i][j] += sum over the depth of x_s[d][ty*4+i] * y_s[d][tx+16j]
+template <int DEPTH>
+__device__ __forceinline__ void tile_mac(const float* x_s, const float* y_s,
+                                         float (&acc)[4][12], int ty,
+                                         int tx) {
+#pragma unroll 4
+  for (int d = 0; d < DEPTH; ++d) {
+    const float4 xv = ld4(x_s + d * XS + ty * 4);
+    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const float y = y_s[d * TN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(xs[i], y, acc[i][j]);
+    }
+  }
+}
+
+// phase 1: gh[a, m, :] = hp[m] . W_h + b_h; grid (A, m tiles, 3H tiles).
+// The next k chunk is loaded into registers while this one is multiplied.
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+gru_bwd_gates(const float* __restrict__ wh, const float* __restrict__ bh,
+              const float* __restrict__ h0, const float* __restrict__ resets,
+              const float* __restrict__ hs, float* __restrict__ gh, int T,
+              int B, int H) {
+  constexpr int XN = KC * TM / GEMM_THREADS, YN = KC * TN / GEMM_THREADS;
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                  // KC x XS: hp^T chunk
+  float* y_s = smem + KC * XS;        // KC x TN: W_h chunk
+  const int a = blockIdx.x, m0 = blockIdx.y * TM, n0 = blockIdx.z * TN;
+  const int M = T * B, H3 = 3 * H, tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const float* wa = wh + (size_t)a * H * H3;
+  HpRaw xr[XN];
+  float yr[YN];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < XN; ++i) {   // k fastest: coalesced rows of hp
+      const int e = tid + i * GEMM_THREADS, mm = e / KC, kk = e % KC;
+      xr[i] = hp_raw(h0, resets, hs, a, m0 + mm, k0 + kk, T, B, H);
+    }
+#pragma unroll
+    for (int i = 0; i < YN; ++i) {
+      const int e = tid + i * GEMM_THREADS, kk = e / TN, nn = e % TN;
+      yr[i] = wa[(size_t)min(k0 + kk, H - 1) * H3 + min(n0 + nn, H3 - 1)];
+    }
+  };
+  float acc[4][12] = {};
+  fetch(0);
+  for (int k0 = 0; k0 < H; k0 += KC) {
+#pragma unroll
+    for (int i = 0; i < XN; ++i) {
+      const int e = tid + i * GEMM_THREADS, mm = e / KC, kk = e % KC;
+      x_s[kk * XS + mm] = hp_of(xr[i], m0 + mm < M && k0 + kk < H);
+    }
+#pragma unroll
+    for (int i = 0; i < YN; ++i) {
+      const int e = tid + i * GEMM_THREADS, kk = e / TN, nn = e % TN;
+      y_s[e] = (k0 + kk < H && n0 + nn < H3) ? yr[i] : 0.0f;
+    }
+    __syncthreads();
+    if (k0 + KC < H) fetch(k0 + KC);
+    tile_mac<KC>(x_s, y_s, acc, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (m < M && n < H3)
+        gh[((size_t)a * M + m) * H3 + n] =
+            acc[i][j] + bh[(size_t)a * H3 + n];
+    }
+  }
+}
+
+// phase 3: over rows [slice * rows, + rows) of agent a, the partial sums
+// part[a, slice, k, n] = sum_m hp[m][k] dgh[m][n] (k < H) and
+// part[a, slice, H, n] = sum_m dgh[m][n], dgh = [dgi_r, dgi_z, dgi_n r];
+// grid (A, H tiles x 3H tiles, slices). Rows in order, one at a time;
+// the next chunk is loaded into registers while this one is multiplied.
+__global__ void __launch_bounds__(GEMM_THREADS)
+gru_bwd_weights(const float* __restrict__ h0,
+                const float* __restrict__ resets,
+                const float* __restrict__ hs, const float* __restrict__ dgi,
+                const float* __restrict__ rgate, float* __restrict__ part,
+                int T, int B, int H, int rows) {
+  constexpr int XN = MC * TM / GEMM_THREADS, YN = MC * TN / GEMM_THREADS;
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                  // MC x XS: hp rows
+  float* y_s = smem + MC * XS;        // MC x TN: dgh rows
+  const int H3 = 3 * H, n_tiles = (H3 + TN - 1) / TN;
+  const int a = blockIdx.x, k0 = (blockIdx.y / n_tiles) * TM;
+  const int n0 = (blockIdx.y % n_tiles) * TN, slice = blockIdx.z;
+  const int M = T * B, tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int r0 = slice * rows, r1 = min(M, r0 + rows);
+  const bool bias_sums = k0 == 0 && ty == 0;
+  const float* dga = dgi + (size_t)a * M * H3;
+  const float* ra = rgate + (size_t)a * M * H;
+  HpRaw xr[XN];
+  float yr[YN], rr[YN];   // dgi, and r where the column is an n gate
+  auto fetch = [&](int m0) {
+#pragma unroll
+    for (int i = 0; i < XN; ++i) {   // k fastest: coalesced rows of hp
+      const int e = tid + i * GEMM_THREADS, mm = e / TM, kk = e % TM;
+      xr[i] = hp_raw(h0, resets, hs, a, m0 + mm, k0 + kk, T, B, H);
+    }
+#pragma unroll
+    for (int i = 0; i < YN; ++i) {
+      const int e = tid + i * GEMM_THREADS, mm = e / TN, nn = e % TN;
+      const size_t m = min(m0 + mm, M - 1);
+      const int n = min(n0 + nn, H3 - 1);
+      yr[i] = dga[m * H3 + n];
+      rr[i] = ra[m * H + max(n - 2 * H, 0)];
+    }
+  };
+  float acc[4][12] = {}, db[12] = {};
+  fetch(r0);
+  for (int m0 = r0; m0 < r1; m0 += MC) {
+#pragma unroll
+    for (int i = 0; i < XN; ++i) {
+      const int e = tid + i * GEMM_THREADS, mm = e / TM, kk = e % TM;
+      x_s[mm * XS + kk] = hp_of(xr[i], m0 + mm < r1 && k0 + kk < H);
+    }
+#pragma unroll
+    for (int i = 0; i < YN; ++i) {
+      const int e = tid + i * GEMM_THREADS, mm = e / TN, nn = e % TN;
+      const int n = n0 + nn;
+      y_s[e] = (m0 + mm < r1 && n < H3)
+                   ? (n >= 2 * H ? yr[i] * rr[i] : yr[i]) : 0.0f;
+    }
+    __syncthreads();
+    if (m0 + MC < r1) fetch(m0 + MC);
+    tile_mac<MC>(x_s, y_s, acc, ty, tx);
+    if (bias_sums)
+      for (int mm = 0; mm < MC; ++mm)
+#pragma unroll
+        for (int j = 0; j < 12; ++j) db[j] += y_s[mm * TN + tx + 16 * j];
+    __syncthreads();
+  }
+  float* pa = part + ((size_t)a * gridDim.z + slice) * (H + 1) * H3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (k < H && n < H3) pa[(size_t)k * H3 + n] = acc[i][j];
+    }
+  }
+  if (bias_sums)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < H3) pa[(size_t)H * H3 + n] = db[j];
+    }
+}
+
+// dwh[a, e] (and dbh[a, n], row H) = sum over slices, in slice order
+__global__ void gru_bwd_weights_sum(const float* __restrict__ part,
+                                    float* __restrict__ dwh,
+                                    float* __restrict__ dbh, int A,
+                                    int slices, int H) {
+  const int n = (H + 1) * 3 * H;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)A * n) return;
   const size_t a = idx / n, e = idx - a * n;
-  const float* p = part + a * tiles * n + e;
-  float s = 0.0f;
-  for (int tile = 0; tile < tiles; ++tile) s += p[(size_t)tile * n];
-  out[idx] = s;
+  const float* p = part + a * slices * n + e;
+  float sum = 0.0f;
+  for (int sl = 0; sl < slices; ++sl) sum += p[(size_t)sl * n];
+  if (e < (size_t)H * 3 * H)
+    dwh[a * H * 3 * H + e] = sum;
+  else
+    dbh[a * 3 * H + e - (size_t)H * 3 * H] = sum;
 }
 
-cudaError_t allow_smem(const void* fn, size_t bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// ---------------------------------------------------------------------------
+// configuration and launch
+// ---------------------------------------------------------------------------
+constexpr int MAX_HIDDEN = 128;
+constexpr int REG_HIDDEN = 64;   // W_h in registers up to this width
+
+// A configuration of the recurrent kernels: UPT units a thread, KS lanes
+// over the reduction axis, KPT of its elements a lane (16 / 32 for the
+// forward's H, 24 / 48 for the chain's 3H), W_h in registers or not.
+template <int UPT_, int KS_, int KPT_, bool WREG_>
+struct Cfg {
+  static constexpr int UPT = UPT_, KS = KS_, KPT = KPT_;
+  static constexpr bool WREG = WREG_;
+  // units padded so the block's warps are whole
+  static int units(int H) {
+    const int m = 32 * UPT / KS;
+    return (H + m - 1) / m * m;
+  }
+  static int threads(int H) { return units(H) / UPT * KS; }
+};
+using FwdReg = Cfg<1, 4, 16, true>;
+using FwdSmem = Cfg<1, 4, 32, false>;
+using ChainReg = Cfg<2, 8, 24, true>;
+using ChainSmem = Cfg<2, 8, 48, false>;
+
+template <typename C>
+size_t fwd_smem_of(int H, int rows) {
+  const int hp = C::KS * C::KPT;
+  const size_t w = C::WREG ? 0 : (size_t)3 * C::units(H) * (hp + 16);
+  return ((size_t)2 * rows * hp + w) * sizeof(float);
+}
+
+template <typename C>
+size_t chain_smem_of(int H, int rows) {
+  const int cp = C::KS * C::KPT;
+  const size_t w = C::WREG ? 0 : (size_t)C::units(H) * (cp + 16);
+  return ((size_t)2 * rows * cp + w) * sizeof(float);
+}
+
+size_t fwd_smem(int H, int rows) {
+  return H <= REG_HIDDEN ? fwd_smem_of<FwdReg>(H, rows)
+                         : fwd_smem_of<FwdSmem>(H, rows);
+}
+
+size_t chain_smem(int H, int rows) {
+  return H <= REG_HIDDEN ? chain_smem_of<ChainReg>(H, rows)
+                         : chain_smem_of<ChainSmem>(H, rows);
+}
+
+int weight_slices(int M) {
+  return min(MAX_SLICES, max(1, (M + SLICE_ROWS - 1) / SLICE_ROWS));
+}
+
+// rows of a slice: a whole number of chunks, the slices cover M
+int slice_rows(int M, int slices) {
+  const int rows = (M + slices - 1) / slices;
+  return (rows + MC - 1) / MC * MC;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel fn, size_t bytes) {
+  return cudaFuncSetAttribute((const void*)fn,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+template <typename C, int R>
+cudaError_t fwd_at(const float* gi, const float* wh, const float* bh,
+                   const float* h0, const float* resets, float* hs, int A,
+                   int T, int B, int H, cudaStream_t stream) {
+  auto fn = gru_fwd<C::UPT, C::KS, C::KPT, R, C::WREG>;
+  const size_t smem = fwd_smem_of<C>(H, R);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(A, (B + R - 1) / R);
+  fn<<<grid, C::threads(H), smem, stream>>>(gi, wh, bh, h0, resets, hs, T,
+                                            B, H, C::units(H));
+  return cudaGetLastError();
+}
+
+template <typename C, int R>
+cudaError_t chain_at(const float* gi, const float* wh, const float* gh,
+                     const float* h0, const float* resets, const float* hs,
+                     const float* g, float* dgi, float* rgate, float* dh0,
+                     int A, int T, int B, int H, cudaStream_t stream) {
+  auto fn = gru_bwd_chain<C::UPT, C::KS, C::KPT, R, C::WREG>;
+  const size_t smem = chain_smem_of<C>(H, R);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(A, (B + R - 1) / R);
+  fn<<<grid, C::threads(H), smem, stream>>>(
+      gi, wh, gh, h0, resets, hs, g, dgi, rgate, dh0, T, B, H, C::units(H));
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t fwd_rows(const float* gi, const float* wh, const float* bh,
+                     const float* h0, const float* resets, float* hs, int A,
+                     int T, int B, int H, cudaStream_t stream) {
+  if (H <= REG_HIDDEN)
+    return fwd_at<FwdReg, R>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
+  return fwd_at<FwdSmem, R>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
+}
+
+template <int R>
+cudaError_t chain_rows(const float* gi, const float* wh, const float* gh,
+                       const float* h0, const float* resets, const float* hs,
+                       const float* g, float* dgi, float* rgate, float* dh0,
+                       int A, int T, int B, int H, cudaStream_t stream) {
+  if (H <= REG_HIDDEN)
+    return chain_at<ChainReg, R>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
+                                 dh0, A, T, B, H, stream);
+  return chain_at<ChainSmem, R>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
+                                dh0, A, T, B, H, stream);
+}
+
+bool supported(int H, int rows) {
+  return H >= 1 && H <= MAX_HIDDEN &&
+         (rows == 2 || rows == 4 || rows == 8);
 }
 
 }  // namespace
 
-size_t gru_forward_smem_bytes(int H, int block_rows) {
-  return ((size_t)H * (3 * H + 1) + (size_t)block_rows * H) * sizeof(float);
+size_t gru_forward_smem_bytes(int H, int rows) { return fwd_smem(H, rows); }
+
+size_t gru_backward_smem_bytes(int H, int rows) {
+  return chain_smem(H, rows);
 }
 
-size_t gru_backward_smem_bytes(int H, int block_rows) {
-  return ((size_t)H * (3 * H + 1) + (size_t)H * 3 * H + 3 * H +
-          (size_t)block_rows * 4 * H) * sizeof(float);
+// Floats of the backward's scratch for the dW_h/db_h partial sums.
+size_t gru_backward_part_floats(int A, int T, int B, int H) {
+  return (size_t)A * weight_slices(T * B) * (H + 1) * 3 * H;
 }
 
-// Each launcher returns the error of its configuration calls; the caller
-// checks the launch itself right after (cudaGetLastError).
+// Each launcher returns the first error of its configuration calls and
+// launches (cudaGetLastError after each launch).
 cudaError_t launch_gru_forward(const float* gi, const float* wh,
                                const float* bh, const float* h0,
                                const float* resets, float* hs, int A, int T,
-                               int B, int H, int block_rows,
-                               cudaStream_t stream) {
-  const size_t smem = gru_forward_smem_bytes(H, block_rows);
-  cudaError_t err = allow_smem((const void*)gru_fwd, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(A, (B + block_rows - 1) / block_rows), block(H, block_rows);
-  gru_fwd<<<grid, block, smem, stream>>>(gi, wh, bh, h0, resets, hs, T, B, H);
-  return cudaSuccess;
+                               int B, int H, int rows, cudaStream_t stream) {
+  if (!supported(H, rows)) return cudaErrorInvalidValue;
+  switch (rows) {
+    case 2: return fwd_rows<2>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
+    case 4: return fwd_rows<4>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
+    default: return fwd_rows<8>(gi, wh, bh, h0, resets, hs, A, T, B, H,
+                                stream);
+  }
 }
 
+// Scratch: gh (A,T,B,3H), written by phase 1 for phase 2; rgate
+// (A,T,B,H), the r gate, written by phase 2 for phase 3; part
+// (gru_backward_part_floats), phase 3's partial sums.
 cudaError_t launch_gru_backward(const float* gi, const float* wh,
                                 const float* bh, const float* h0,
                                 const float* resets, const float* hs,
-                                const float* g, float* dgi, float* dwh_part,
-                                float* dbh_part, float* dh0, int A, int T,
-                                int B, int H, int block_rows,
-                                cudaStream_t stream) {
-  const size_t smem = gru_backward_smem_bytes(H, block_rows);
-  cudaError_t err = allow_smem((const void*)gru_bwd, smem);
+                                const float* g, float* gh, float* rgate,
+                                float* part, float* dgi, float* dwh,
+                                float* dbh, float* dh0, int A, int T, int B,
+                                int H, int rows, cudaStream_t stream) {
+  if (!supported(H, rows)) return cudaErrorInvalidValue;
+  const int M = T * B, H3 = 3 * H, n_tiles = (H3 + TN - 1) / TN;
+  const dim3 gates_grid(A, (M + TM - 1) / TM, n_tiles);
+  gru_bwd_gates<<<gates_grid, GEMM_THREADS,
+                  (size_t)(KC * XS + KC * TN) * sizeof(float), stream>>>(
+      wh, bh, h0, resets, hs, gh, T, B, H);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(A, (B + block_rows - 1) / block_rows), block(H, block_rows);
-  gru_bwd<<<grid, block, smem, stream>>>(gi, wh, bh, h0, resets, hs, g, dgi,
-                                         dwh_part, dbh_part, dh0, T, B, H);
-  return cudaSuccess;
-}
-
-cudaError_t launch_gru_sum_tiles(const float* part, float* out, int A,
-                                 int tiles, int n, cudaStream_t stream) {
-  const size_t total = (size_t)A * n;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  gru_sum_tiles<<<blocks, threads, 0, stream>>>(part, out, A, tiles, n);
-  return cudaSuccess;
+  switch (rows) {
+    case 2: err = chain_rows<2>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
+                                dh0, A, T, B, H, stream); break;
+    case 4: err = chain_rows<4>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
+                                dh0, A, T, B, H, stream); break;
+    default: err = chain_rows<8>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
+                                 dh0, A, T, B, H, stream); break;
+  }
+  if (err != cudaSuccess) return err;
+  const int slices = weight_slices(M);
+  const size_t wsmem = (size_t)(MC * XS + MC * TN) * sizeof(float);
+  err = allow_smem(gru_bwd_weights, wsmem);
+  if (err != cudaSuccess) return err;
+  const dim3 weights_grid(A, ((H + TM - 1) / TM) * n_tiles, slices);
+  gru_bwd_weights<<<weights_grid, GEMM_THREADS, wsmem, stream>>>(
+      h0, resets, hs, dgi, rgate, part, T, B, H, slice_rows(M, slices));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)A * (H + 1) * H3;
+  gru_bwd_weights_sum<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      part, dwh, dbh, A, slices, H);
+  return cudaGetLastError();
 }

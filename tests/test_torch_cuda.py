@@ -5,7 +5,8 @@ on a GPU machine without them:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: GRU 1e-5 times max(1, largest magnitude); GAE forward bit
+Tolerances: GRU 1e-5 times max(1, largest magnitude), also for
+the kernel's dW_h and db_h against float64 sums; GAE forward bit
 for bit, its gradients 1e-6 likewise. Flash attention |err| <= tol +
 tol·|plain| with tol 2e-5 in float32 (the FFMA kernel) and 2e-2 in
 bfloat16 (the tensor-core kernel), the reference's own
@@ -57,19 +58,29 @@ def assert_close_scaled(actual, desired, tol):
     assert err <= tol * scale, f"max abs err {err:.3e} > {tol} * {scale:.3g}"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("a,t,b,h", [(3, 17, 5, 16), (2, 9, 21, 64),
-                                     (4, 1, 16, 64), (100, 128, 7, 64)])
-def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
-    """Forward and backward, with resets, over one and several batch
-    tiles (b=21 at h=64 spans three) and at the AIP training shape."""
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+def _gru_inputs(device, a, t, b, h, seed, reset_p=0.2):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
     ins = [rnd(a, t, b, 3 * h), rnd(a, h, 3 * h) / h ** 0.5,
            0.1 * rnd(a, 3 * h), rnd(a, b, h)]
-    resets = (torch.rand(a, t, b, generator=gen, device=cuda_device)
-              < 0.2).float()
-    g = rnd(a, t, b, h)
+    resets = (torch.rand(a, t, b, generator=gen, device=device)
+              < reset_p).float()
+    return ins, resets, rnd(a, t, b, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,t,b,h", [
+    (3, 17, 5, 16), (2, 9, 21, 64), (4, 1, 16, 64), (100, 128, 7, 64),
+    (100, 1, 16, 64),     # the rollout cell (T=1, two batch tiles)
+    (2, 33, 20, 128),     # H=128 (W_h in shared memory), three batch tiles
+    (1, 16, 64, 128),     # BENCH_kernels.json's policy shape
+    (2, 13, 9, 96),       # a hidden width that is not a power of two
+    (3, 7, 2, 128),       # two rows a tile: lanes share rows
+    (2, 5, 1, 40)])       # one row a tile
+def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
+    """Forward and backward, with resets, over one and several batch
+    tiles (b=21 spans three tiles of 8) and at the main path's shapes."""
+    ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=0)
     k_leaves = [x.clone().requires_grad_() for x in ins]
     p_leaves = [x.clone().requires_grad_() for x in ins]
     hs_k = gru_kernel.GRUScan.apply(*k_leaves, resets)
@@ -81,11 +92,11 @@ def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
 
 
 @pytest.mark.cuda
-def test_gru_backward_is_deterministic(cuda_device):
-    """dW_h is reduced over batch tiles in a fixed order: two runs give
-    the same bits."""
+@pytest.mark.parametrize("a,t,b,h", [(4, 12, 40, 64), (2, 20, 24, 128)])
+def test_gru_backward_is_deterministic(cuda_device, a, t, b, h):
+    """dW_h and db_h sum all T.B rows in a fixed order, with no atomics:
+    two runs give the same bits."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    a, t, b, h = 4, 12, 40, 64
     rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
     ins = (rnd(a, t, b, 3 * h), rnd(a, h, 3 * h) / 8, rnd(a, 3 * h),
            rnd(a, b, h), torch.zeros(a, t, b, device=cuda_device))
@@ -95,6 +106,24 @@ def test_gru_backward_is_deterministic(cuda_device):
     second = gru_kernel.backward(*ins, hs, g)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,t,b,h", [(2, 128, 64, 64), (1, 64, 64, 128)])
+def test_gru_weight_grads_match_float64_sums(cuda_device, a, t, b, h):
+    """dW_h and db_h, summed by the kernel over all T.B rows in float32,
+    against the plain version run in float64 on the same inputs (its
+    dW_h a float64 sum over the same rows), at GRU_TOL times max(1,
+    largest magnitude)."""
+    ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=4,
+                                 reset_p=0.05)
+    hs = gru_kernel.forward(*ins, resets)
+    _, dwh, dbh, _ = gru_kernel.backward(*ins, resets, hs, g)
+    leaves = [x.double().requires_grad_() for x in ins]
+    hs64 = gru_ref.gru_scan(*leaves, resets.double())
+    _, dwh64, dbh64, _ = torch.autograd.grad(hs64, leaves, g.double())
+    assert_close_scaled(dwh, dwh64, GRU_TOL)
+    assert_close_scaled(dbh, dbh64, GRU_TOL)
 
 
 @pytest.mark.cuda
@@ -128,6 +157,11 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda_device):
                            wh, bh, h0, resets)
     with pytest.raises(ValueError, match="shape"):
         gru_kernel.forward(gi, wh, bh, h0[:, :2], resets)
+    wide = torch.zeros(1, 2, 3, 3 * 136, device=cuda_device)
+    with pytest.raises(ValueError, match="hidden 136"):
+        gru_kernel.forward(wide, torch.zeros(1, 136, 408, device=cuda_device),
+                           torch.zeros(1, 408, device=cuda_device),
+                           torch.zeros(1, 3, 136, device=cuda_device), resets)
     r = torch.zeros(4, 5, device=cuda_device)
     with pytest.raises(ValueError, match="shape"):
         gae_kernel.forward(r, r, r, r[:3], 0.9, 0.9)

@@ -77,7 +77,8 @@ SEQ_FNS = {
 
 @pytest.mark.parametrize("path", sorted(SEQ_FNS))
 @pytest.mark.parametrize("a,b,t,din,h", [(1, 2, 16, 8, 16),
-                                         (3, 4, 33, 12, 32)])
+                                         (3, 4, 33, 12, 32),
+                                         (1, 2, 9, 8, 128)])
 def test_gru_sequence_and_grads_match_reference(path, a, b, t, din, h):
     params, xs, h0, resets, g = _gru_case(a, b, t, din, h)
     jhs, jgrads = _jax_seq_grads(params, xs, h0, resets, g)
@@ -108,6 +109,21 @@ def test_gru_ops_dtype_contract():
     assert hs.dtype == last.dtype == torch.bfloat16
     hs, _ = gru_ops.gru_sequence(tp, xs16, torch.from_numpy(h0))
     assert hs.dtype == torch.float32
+
+
+@pytest.mark.parametrize("batch,agents,min_blocks,rows", [
+    (7, 100, 132, 4),    # AIP training: 100 tiles of 8 leave SMs idle
+    (7, 100, 66, 8),     # the backward's threshold: 100 tiles of 8 do
+    (1, 100, 132, 2),    # eval_ce: one row, the smallest tile
+    (16, 100, 132, 8),   # the rollout cell: 200 tiles of 8
+    (64, 1, 132, 2),     # the policy shape at one agent
+    (256, 1, 66, 2),
+    (3, 1, 1, 4),        # a tile as small as the batch allows
+    (40, 4, 1, 8)])
+def test_gru_tile_rows(batch, agents, min_blocks, rows):
+    """Rows a block carries: 2, 4 or 8, halved while the grid of agents
+    x tiles is smaller than the card's blocks."""
+    assert gru_kernel.tile_rows(batch, agents, min_blocks) == rows
 
 
 def _gae_case(shape, seed=0):
