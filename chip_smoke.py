@@ -12,21 +12,28 @@ It
      ``cuobjdump``: registers, stack, local memory and HGMMA (tensor-core)
      instructions of each flash kernel (the bf16 one must have HGMMA), and
      registers, stack and local memory of each GRU kernel (those that keep
-     W_h in registers must not spill);
+     W_h in registers must not spill), and the same with HGMMA for each
+     instantiation of the bf16 SSD kernel ``ssd_chunk_sm90`` (each must
+     have HGMMA);
   3. holds every kernel against its plain torch version on the card at
      the shapes its path gives it and times kernel, plain version and,
      where one exists, the one PyTorch call for the same function, with
      CUDA events: GRU (1e-5 times max(1, largest magnitude)) forward and
      backward at each of the forward's three main-path shapes and at
      hidden 128 (1x16x64 and 1x128x256), the backward twice for its bits,
-     times per launch and per step at each; GAE (1e-6) forward and
-     backward; flash attention at gemma2-9b's prefill
+     times per launch and per step at each; GAE forward (bit for bit) and
+     backward (1e-6), each with its device time per launch
+     (``torch.profiler``) beside its host-inclusive time per call; flash
+     attention at gemma2-9b's prefill
      shapes on bf16 inputs (the tensor-core kernel), against the plain
      version in float32 on the same inputs (1e-3 + 8e-3 |plain|), with its
      achieved TFLOP/s and share of the bf16 bound beside compiled
      ``flex_attention``, and one float32 shape (2e-5, the FFMA kernel); the
      SSD intra-chunk block and the SSD op at mamba2-780m's layer width, in
-     float32 (2e-4) and bf16;
+     float32 (2e-4, the FFMA kernel ``ssd_chunk``) and bf16 (the
+     tensor-core kernel ``ssd_chunk_sm90`` and, as its "before",
+     ``ssd_chunk`` on the same inputs), both bf16 routes timed, and at
+     zamba2-1.2b's width (64 heads, state 64);
   4. drives the DIALS main path — two loop rounds on warehouse side=10
      (100 agents) at the library's default widths with the GRU AIP,
      ``use_kernels="on"`` — and checks every round record; then checks
@@ -40,8 +47,9 @@ It
      32-token prompt; then profiles one prefill and 8 decode steps
      (device busy share, device time by kernel, flash's share);
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
-     (2, 8192, 1536) bf16 activations (one SSD launch) against
-     ``use_kernel=False``;
+     (2, 8192, 1536) bf16 activations (one launch of ``ssd_chunk_sm90``)
+     against ``use_kernel=False``, then times both warm (median of 7) and
+     profiles the kernel call (the SSD kernel's share of its device time);
   7. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -102,7 +110,11 @@ PROFILE_DECODE_STEPS = 8
 # mamba2-780m's SSM layer (src/repro/configs/mamba2_780m.py:15-17) on
 # (2, 8192, 1536) activations
 MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
+# zamba2-1.2b's SSM layer (src/repro/configs/zamba2_1_2b.py:28): d_model
+# 2048, expand 2, heads of 64, state 64
+ZAMBA2 = dict(heads=64, state=64)
 SSM_INPUT = (2, 8192)
+SSM_TIMED = 7
 
 
 class PhaseError(RuntimeError):
@@ -138,11 +150,43 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, match: str):
+    """Device milliseconds per launch of the kernels whose name contains
+    ``match``, from ``torch.profiler``: the mean of the last ``iters`` of
+    ``iters + 2`` traced calls of ``fn`` after one untraced warm-up call
+    (the tracer may miss a launch at its start): the kernel's own time,
+    without the host's cost of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters + 2):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and match in ev.name)
+    check(len(spans) >= iters, f"profiler saw {len(spans)} launches of "
+                               f"{match} in {iters + 2} calls")
+    return sum(end - start for start, end in spans[-iters:]) / 1e3 / iters
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     """The least time of the card for this work, and what bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launched(table, key: str, fn):
+    """``fn()``, checking that it launched the ``key`` kernel once by its
+    wrapper's count in ``table``."""
+    before = table[key]
+    out = fn()
+    check(table[key] == before + 1, f"the {key} kernel was not launched")
+    return out
 
 
 def max_err(a, b) -> float:
@@ -298,9 +342,11 @@ def check_gae(gen, device, t, b, gamma, lam):
     d = (torch.rand(t, b, generator=gen, device=device) < 0.05).float()
     g = torch.randn(t, b, generator=gen, device=device)
     kw = dict(gamma=gamma, lam=lam)
-    fwd_err = allclose_err(
-        [("gae_forward", ak.forward(r, v, nv, d, gamma, lam),
-          aref.gae_reverse_scan(r, v, nv, d, **kw))], GAE_TOL)
+    adv_k = ak.forward(r, v, nv, d, gamma, lam)
+    adv_p = aref.gae_reverse_scan(r, v, nv, d, **kw)
+    check(torch.equal(adv_k, adv_p), "gae_forward: not bit for bit equal to "
+                                     "the plain version")
+    fwd_err = max_err(adv_k, adv_p)
     leaves = [x.clone().requires_grad_() for x in (r, v, nv)]
     grads_k = torch.autograd.grad(
         ak.GAEScan.apply(*leaves, d, gamma, lam), leaves, g)
@@ -313,24 +359,33 @@ def check_gae(gen, device, t, b, gamma, lam):
         GAE_TOL)
     iters = 200
     n = t * b
-    return [
+    fwd = lambda: ak.forward(r, v, nv, d, gamma, lam)
+    bwd = lambda: ak.backward(g, d, gamma, lam)
+    rows = [
         dict(name="gae_forward", route="cuda",
              source="src/repro_torch/kernels/csrc/gae.cu",
              replaces="src/repro/kernels/gae/kernel.py:45",
-             max_abs_err=fwd_err,
-             ms=cuda_ms(lambda: ak.forward(r, v, nv, d, gamma, lam), iters),
+             max_abs_err=fwd_err, ms=device_ms(fwd, iters, "gae_fwd"),
+             call_ms=cuda_ms(fwd, iters),
              plain_ms=cuda_ms(
                  lambda: aref.gae_reverse_scan(r, v, nv, d, **kw), iters),
              bound=bound_ms(4.0 * 5 * n, 8.0 * n)),
         dict(name="gae_backward", route="cuda",
              source="src/repro_torch/kernels/csrc/gae.cu",
              replaces="src/repro/kernels/gae/kernel.py:80",
-             max_abs_err=bwd_err,
-             ms=cuda_ms(lambda: ak.backward(g, d, gamma, lam), iters),
+             max_abs_err=bwd_err, ms=device_ms(bwd, iters, "gae_bwd"),
+             call_ms=cuda_ms(bwd, iters),
              plain_ms=cuda_ms(lambda: torch.autograd.grad(
                  adv_p, ref_leaves, g, retain_graph=True), iters),
              bound=bound_ms(4.0 * 4 * n, 6.0 * n)),
     ]
+    for row in rows:
+        print(f"{row['name']} ({t}x{b}): device time {row['ms']:.5f} ms a "
+              f"launch (torch.profiler, {iters} launches); host-inclusive "
+              f"{row['call_ms']:.5f} ms a call (CUDA events over {iters} "
+              f"back-to-back wrapper calls); bound {row['bound'][0]:.6f} ms",
+              flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -364,20 +419,14 @@ def check_flash(gen, device):
                                     device=device).to(dtype)
         return rnd(h), rnd(hkv), rnd(hkv)
 
-    def launched(entry, fn):
-        before = fk.LAUNCHES[entry]
-        out = fn()
-        check(fk.LAUNCHES[entry] == before + 1,
-              f"flash: the {entry} kernel was not launched")
-        return out
-
     # float32 at the reference's 2e-5 on the FFMA kernel (a shorter prompt:
     # the plain version materialises the (T, T) scores in float32)
     q, k, v = inputs(1, 2048, torch.float32)
     kw = dict(causal=True, sliding_window=1024, softcap=cap)
     worst = max(worst, allclose_rel(
         "flash float32 T=2048",
-        launched("flash_fwd", lambda: fk.forward(q, k, v, **kw)),
+        launched(fk.LAUNCHES, "flash_fwd",
+                 lambda: fk.forward(q, k, v, **kw)),
         fr.attention_bhsd(q, k, v, **kw), *FLASH_TOL["float32"]))
     ffma_ms = cuda_ms(lambda: fk.forward(q, k, v, **kw), 5)
     ffma_plain_ms = cuda_ms(lambda: fr.attention_bhsd(q, k, v, **kw), 3)
@@ -394,7 +443,8 @@ def check_flash(gen, device):
     cases = [dict(causal=True, sliding_window=w, softcap=cap)
              for w in (window, None)]
     for kw in cases:
-        got = launched("flash_fwd_sm90", lambda: fk.forward(q, k, v, **kw))
+        got = launched(fk.LAUNCHES, "flash_fwd_sm90",
+                       lambda: fk.forward(q, k, v, **kw))
         want = torch.cat([fr.attention_bhsd(
             q[i * h:(i + 1) * h].float(), k[i * hkv:(i + 1) * hkv].float(),
             v[i * hkv:(i + 1) * hkv].float(), **kw) for i in range(b)])
@@ -498,8 +548,9 @@ def kernel_resources():
             d = n if name.endswith("sm90") else 64 * n
             usage[(name, d)] = dict(re.findall(r"(\w+):(\d+)", line))
             fn = None
+    sass = run("-sass")
     hgmma, fn = {}, None
-    for line in run("-sass").splitlines():
+    for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = flash.search(m.group(1))
@@ -522,7 +573,42 @@ def kernel_resources():
         check(hgmma.get(("flash_fwd_sm90", d), 0) > 0,
               f"flash_fwd_sm90 D={d} issues no HGMMA: not on the tensor "
               f"cores")
+    ssd_resources(res_usage, sass, ext)
     gru_resources(res_usage, ext)
+
+
+def ssd_resources(res_usage: str, sass: str, ext):
+    """Registers, stack, local memory, dynamic shared memory and HGMMA
+    count of each instantiation (chunk L, state N) of ``ssd_chunk_sm90``;
+    fails unless all four are built and every one issues HGMMA."""
+    import re
+    pat = re.compile(r"ssd_chunk_sm90ILi(\d+)ELi(\d+)E")
+    usage, hgmma, fn = {}, {}, None
+    for line in res_usage.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = pat.search(m.group(1))
+        elif fn and "REG:" in line:
+            usage[fn.groups()] = dict(re.findall(r"(\w+):(\d+)", line))
+            fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = pat.search(m.group(1))
+        elif fn and "HGMMA" in line:
+            hgmma[fn.groups()] = hgmma.get(fn.groups(), 0) + 1
+    for (lc, nc), use in sorted(usage.items()):
+        print(f"resources ssd_chunk_sm90 L={lc} N={nc}: REG {use.get('REG')}"
+              f" (at entry), STACK {use.get('STACK')}, LOCAL "
+              f"{use.get('LOCAL')}, dynamic shared "
+              f"{ext.ssd_sm90_smem_bytes(int(lc), 64, int(nc))}, HGMMA "
+              f"{hgmma.get((lc, nc), 0)}", flush=True)
+    for lc in ("64", "128"):
+        for nc in ("64", "128"):
+            check((lc, nc) in usage,
+                  f"ssd_chunk_sm90 L={lc} N={nc} not in the library")
+            check(hgmma.get((lc, nc), 0) > 0,
+                  f"ssd_chunk_sm90 L={lc} N={nc} issues no HGMMA")
 
 
 def gru_resources(res_usage: str, ext):
@@ -572,11 +658,49 @@ def gru_resources(res_usage: str, ext):
                   f"{use.get('LOCAL')}")
 
 
+def ssd_ffma(xw, la, bm, c, chunk):
+    """``ssd.cu`` on the given inputs whatever their dtype and shape, past
+    the wrapper's route: the bf16 "before" of ``ssd_chunk_sm90``, for the
+    comparison only (it counts no launch)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd import kernel as sk
+    bsz, t, h, p = xw.shape
+    n, nc = bm.shape[-1], t // chunk
+    sms = torch.cuda.get_device_properties(xw.device).multi_processor_count
+    y = torch.empty_like(xw)
+    st = torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
+                     device=xw.device)
+    cd = torch.empty((bsz, nc, h), dtype=torch.float32, device=xw.device)
+    build.extension().ssd_intra_chunk(xw, la, bm, c, y, st, cd, chunk,
+                                      sk.heads_per_block(bsz, nc, h, sms))
+    return y, st, cd
+
+
+def ssd_bound(bsz, t, h, p, n, chunk):
+    """Each input read once and each output written once (bf16 x, b, c and
+    y, f32 la, states and decay); C·Bᵀ once per (b, chunk) and per head
+    the causal half of M·X, the decay-weighted M and the chunk state, on
+    the bf16 tensor cores."""
+    nc = t // chunk
+    nbytes = (2.0 * (2 * bsz * t * h * p + 2 * bsz * t * n)
+              + 4.0 * (bsz * t * h + bsz * nc * h * p * n + bsz * nc * h))
+    ops = bsz * nc * (2.0 * chunk * chunk * n + h * (
+        p * chunk * (chunk + 1) + 2.0 * chunk * chunk
+        + 2.0 * chunk * p * n + chunk * n))
+    return bound_ms(nbytes, ops, PEAK_BF16_PER_S)
+
+
 def check_ssd(gen, device):
-    """mamba2-780m's SSD at layer width (B=2, T=8192, 48 heads of 64, state
-    128, chunk 128): the kernel's three outputs against the plain
-    intra-chunk block, and ``ops.ssd`` against ``ssd_chunked``, in float32
-    and bf16. Returns the kernel row (timed in bf16, the layer's dtype)."""
+    """The SSD intra-chunk block at mamba2-780m's layer width (B=2,
+    T=8192, 48 heads of 64, state 128, chunk 128): in float32 on the FFMA
+    kernel ``ssd_chunk`` (2e-4), in bf16 on the tensor-core kernel
+    ``ssd_chunk_sm90`` and, as its "before", on ``ssd_chunk`` (y 1e-2,
+    states and decay 2e-4, scaled), each output against the plain
+    intra-chunk block in float32 on the same inputs; ``ops.ssd`` against
+    ``ssd_chunked`` in both dtypes. Times both bf16 routes and the plain
+    version there, and both routes at zamba2-1.2b's width (64 heads, state
+    64). Returns the kernel row (bf16, the layer's dtype)."""
     import torch
     from repro_torch.kernels.ssd import kernel as sk, ops as so, ref as sr
     from repro_torch.configs import common
@@ -586,46 +710,88 @@ def check_ssd(gen, device):
     bsz, t = SSM_INPUT
     h, p, n, chunk = cfg.num_heads, cfg.head_dim, cfg.state, cfg.chunk
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+
+    def inputs(h, n, dtype):
         rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
         x = rnd(bsz, t, h, p).to(dtype)
         dt = torch.nn.functional.softplus(rnd(bsz, t, h) - 3.0)
         a = -torch.exp(rnd(h) * 0.5)
         bm, c = rnd(bsz, t, n).to(dtype), rnd(bsz, t, n).to(dtype)
         xw = (x * dt[..., None].to(dtype)).contiguous()
-        la = (dt * a).contiguous()
-        name = str(dtype).replace("torch.", "")
-        got = sk.forward(xw, la, bm, c, chunk=chunk)
-        want = sr.intra_chunk(xw, la, bm, c, chunk=chunk)
+        return x, dt, a, bm, c, xw, (dt * a).contiguous()
+
+    def held(label, got, want, name):
         tols = (SSD_TOL[name], SSD_TOL["float32"], SSD_TOL["float32"])
+        err = 0.0
         for what, g, w, tol in zip(("y", "states", "chunk_decay"), got,
                                    want, tols):
-            err = allclose_err([(f"ssd {name} {what}", g, w)], tol)
-            print(f"ssd {name} {what}: max abs err {err:.3e}, max |plain| "
+            e = allclose_err([(f"{label} {what}", g, w)], tol)
+            print(f"{label} {what}: max abs err {e:.3e}, max |plain| "
                   f"{float(w.abs().max()):.4f}, allowed {tol} * max(1, "
                   f"max |plain|)", flush=True)
-            worst = max(worst, err)
+            err = max(err, e)
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, a, bm, c, xw, la = inputs(h, n, dtype)
+        name = str(dtype).replace("torch.", "")
+        key = sk.route(dtype, p, n, chunk)
+        check(key == ("ssd_chunk_sm90" if dtype == torch.bfloat16
+                      else "ssd_chunk"), f"ssd {name} routed to {key}")
+        got = launched(sk.LAUNCHES, key,
+                       lambda: sk.forward(xw, la, bm, c, chunk=chunk))
+        want = sr.intra_chunk(xw, la, bm, c, chunk=chunk)
+        worst = max(worst, held(f"ssd {name} {key}", got, want, name))
+        if dtype == torch.bfloat16:
+            held("ssd bfloat16 ssd_chunk (before)",
+                 ssd_ffma(xw, la, bm, c, chunk), want, name)
+        del got, want
         y_k, s_k = so.ssd(x, dt, a, bm, c, chunk=chunk)
         y_p, s_p = ssm.ssd_chunked(x, dt, a, bm, c, chunk=chunk)
         allclose_err([(f"ops.ssd {name} y", y_k, y_p)], SSD_TOL[name])
         allclose_err([(f"ops.ssd {name} state", s_k, s_p)],
                      SSD_TOL["float32"])
-    ms = cuda_ms(lambda: sk.forward(xw, la, bm, c, chunk=chunk), 20)
+        del y_k, s_k, y_p, s_p
+    torch.cuda.empty_cache()
+
+    fn = lambda: sk.forward(xw, la, bm, c, chunk=chunk)
+    ffma = lambda: ssd_ffma(xw, la, bm, c, chunk)
+    ms, ffma_ms = cuda_ms(fn, 20), cuda_ms(ffma, 20)
+    dev_ms = device_ms(fn, 20, "ssd_chunk_sm90")
     plain_ms = cuda_ms(lambda: sr.intra_chunk(xw, la, bm, c, chunk=chunk), 3)
-    nc = t // chunk
-    nbytes = (2.0 * (2 * bsz * t * h * p + 2 * bsz * t * n)
-              + 4.0 * (bsz * t * h + bsz * nc * h * p * n + bsz * nc * h))
-    # C·Bᵀ once per (b, chunk); per head the causal half of M·X, the
-    # decay-weighted M and the chunk state
-    ops = bsz * nc * (2.0 * chunk * chunk * n + h * (
-        p * chunk * (chunk + 1) + 2.0 * chunk * chunk
-        + 2.0 * chunk * p * n + chunk * n))
+    ms_again = cuda_ms(fn, 20)
+    bound = ssd_bound(bsz, t, h, p, n, chunk)
+    print(f"ssd bf16 {bsz}x{t}x{h}x{p} N {n} L {chunk}: ssd_chunk_sm90 "
+          f"{ms:.4f} / {ms_again:.4f} ms a launch (CUDA events), device "
+          f"{dev_ms:.4f} ms (torch.profiler), {bound[0] / ms:.4f} of the "
+          f"bound ({bound[0]:.5f} ms by {bound[1]}); ssd_chunk (before) "
+          f"{ffma_ms:.4f} ms, {ffma_ms / ms:.2f}x; plain {plain_ms:.3f} ms",
+          flush=True)
+    by_route = {"ssd_chunk_sm90": ms, "ssd_chunk": ffma_ms}
+
+    # zamba2-1.2b's SSM layer: d_inner 4096 in 64 heads of 64, state 64
+    zh, zn = ZAMBA2["heads"], ZAMBA2["state"]
+    *_, zbm, zc, zxw, zla = inputs(zh, zn, torch.bfloat16)
+    check(sk.route(torch.bfloat16, p, zn, chunk) == "ssd_chunk_sm90",
+          "zamba2's shape does not route to ssd_chunk_sm90")
+    held("ssd bfloat16 zamba2 ssd_chunk_sm90",
+         sk.forward(zxw, zla, zbm, zc, chunk=chunk),
+         sr.intra_chunk(zxw, zla, zbm, zc, chunk=chunk), "bfloat16")
+    zms = cuda_ms(lambda: sk.forward(zxw, zla, zbm, zc, chunk=chunk), 20)
+    zffma = cuda_ms(lambda: ssd_ffma(zxw, zla, zbm, zc, chunk), 20)
+    zbound = ssd_bound(bsz, t, zh, p, zn, chunk)
+    print(f"ssd bf16 zamba2 {bsz}x{t}x{zh}x{p} N {zn} L {chunk}: "
+          f"ssd_chunk_sm90 {zms:.4f} ms a launch, {zbound[0] / zms:.4f} of "
+          f"the bound ({zbound[0]:.5f} ms by {zbound[1]}); ssd_chunk "
+          f"{zffma:.4f} ms", flush=True)
     return dict(name="ssd_intra_chunk", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd.cu",
+                source="src/repro_torch/kernels/csrc/ssd_sm90.cu",
                 replaces="src/repro/kernels/ssd/kernel.py:65",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound=bound_ms(nbytes, ops, PEAK_BF16_PER_S),
-                library_ms=None)
+                max_abs_err=worst, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound=bound, library_ms=None,
+                ms_by_route=by_route,
+                zamba2=dict(shape=f"{bsz}x{t}x{zh}x{p}xN{zn}", ms=zms,
+                            ffma_ms=zffma, bound_ms=zbound[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -902,9 +1068,14 @@ def profile_serving(run_prefill, run_serve_step):
 
 def run_ssm_path(device):
     """``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
-    (2, 8192, 1536) bf16 activations, against ``use_kernel=False``.
-    Returns the launch counts of the kernel call."""
+    (2, 8192, 1536) bf16 activations, against ``use_kernel=False``: the
+    counted call (one launch of ``ssd_chunk_sm90``), then one untimed
+    warm-up call of each and the median of SSM_TIMED synchronised calls of
+    each, then one traced kernel call for the SSD kernel's share of the
+    layer's device time. Returns the launch counts of the counted call."""
+    import statistics
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import common
     from repro_torch.nn import ssm
     cfg = common.ssm_layer(MAMBA2["d_model"], MAMBA2["state"],
@@ -914,28 +1085,50 @@ def run_ssm_path(device):
     b, t = SSM_INPUT
     x = torch.randn(b, t, cfg.d_model, generator=gen,
                     device=device).to(cfg.dtype)
+    layer = {k: (lambda k=k: ssm.ssm_layer(params, x, cfg, use_kernel=k))
+             for k in (True, False)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
     with torch.inference_mode():
         reset_counts()
-        t0 = time.perf_counter()
-        y_k = ssm.ssm_layer(params, x, cfg, use_kernel=True)
-        torch.cuda.synchronize()
-        kernel_s = time.perf_counter() - t0
+        cold_s, y_k = timed(layer[True])
         counts = launch_counts()
-        t0 = time.perf_counter()
-        y_p = ssm.ssm_layer(params, x, cfg, use_kernel=False)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-    check(counts["ssd_intra_chunk"] == 1,
-          f"ssm_layer launched the SSD kernel {counts['ssd_intra_chunk']} "
-          f"times, not once")
+        _, y_p = timed(layer[False])
+        warm = {}
+        for k, fn in layer.items():
+            fn()
+            warm[k] = statistics.median(timed(fn)[0]
+                                        for _ in range(SSM_TIMED))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timed(layer[True])
+    check(counts["ssd_intra_chunk"] == 1 and counts["ssd_chunk_sm90"] == 1
+          and counts["ssd_chunk"] == 0,
+          f"ssm_layer launched the SSD kernels {counts['ssd_intra_chunk']} "
+          f"times ({counts['ssd_chunk_sm90']} ssd_chunk_sm90, "
+          f"{counts['ssd_chunk']} ssd_chunk), not ssd_chunk_sm90 once")
     check(tuple(y_k.shape) == (b, t, cfg.d_model) and y_k.dtype == cfg.dtype,
           f"ssm_layer output {tuple(y_k.shape)} {y_k.dtype}")
     err = allclose_err([("ssm_layer, kernel vs plain", y_k, y_p)],
                        SSM_LAYER_TOL)
+    spans = [(ev.name, ev.time_range.end - ev.time_range.start)
+             for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    layer_us = sum(us for _, us in spans)
+    ssd_us = sum(us for name, us in spans if "ssd_chunk_sm90" in name)
     print(f"ssm layer: {cfg.num_heads} heads x {cfg.head_dim}, state "
           f"{cfg.state}, chunk {cfg.chunk}, on ({b}, {t}, {cfg.d_model}) "
-          f"bf16: {kernel_s:.3f} s with the kernel, {plain_s:.3f} s plain; "
-          f"max abs diff {err:.4e} (max |y| {float(y_p.abs().max()):.4f})",
+          f"bf16: cold {cold_s:.4f} s; warm median of {SSM_TIMED} "
+          f"{warm[True] * 1e3:.3f} ms with the kernel, "
+          f"{warm[False] * 1e3:.3f} ms plain; traced: {len(spans)} kernels, "
+          f"{layer_us / 1e3:.3f} ms of device time, ssd_chunk_sm90 "
+          f"{ssd_us / 1e3:.4f} ms ({ssd_us / layer_us:.4f} of it); max abs "
+          f"diff {err:.4e} (max |y| {float(y_p.abs().max()):.4f})",
           flush=True)
     return counts
 
@@ -1040,7 +1233,7 @@ def main() -> int:
             device).items() if k.startswith("flash")})
         counts.update({k: v for k, v in phase(
             "mamba2 ssm layer path", run_ssm_path,
-            device).items() if k == "ssd_intra_chunk"})
+            device).items() if k.startswith("ssd")})
         for name in ("flash_attention", "ssd_intra_chunk"):
             check(counts[name] > 0, f"its path never launched {name}")
     except Exception as exc:       # every phase failure ends the run
@@ -1054,8 +1247,9 @@ def main() -> int:
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
               "bound_by": r["bound"][1],
               "library_ms": r.get("library_ms"),
-              **{k: r[k] for k in ("library", "shape", "ms_by_shape")
-                 if k in r},
+              **{k: r[k] for k in ("library", "shape", "ms_by_shape",
+                                   "call_ms", "device_ms", "ms_by_route",
+                                   "zamba2") if k in r},
               **({"launches_by_shape": by_shape[r["name"]]}
                  if r["name"] in by_shape else {})}
              for r in rows]

@@ -18,7 +18,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
 SOURCES = ("bindings.cpp", "gru.cu", "gae.cu", "flash_attention.cu",
-           "flash_attention_sm90.cu", "ssd.cu")
+           "flash_attention_sm90.cu", "ssd.cu", "ssd_sm90.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 NAME = "repro_torch_kernels"
 LIBRARY = BUILD_DIR / f"{NAME}.so"

@@ -1,6 +1,7 @@
 // PyTorch bindings of the port's CUDA kernels. The only source that
 // includes torch/extension.h (slow to compile); the kernels themselves
-// (gru.cu, gae.cu, flash_attention.cu, flash_attention_sm90.cu, ssd.cu)
+// (gru.cu, gae.cu, flash_attention.cu, flash_attention_sm90.cu, ssd.cu,
+// ssd_sm90.cu)
 // see only the CUDA runtime. Outputs are allocated by the
 // Python wrappers (repro_torch/kernels/*/kernel.py), which also check
 // shapes; this layer checks device, dtype and contiguity, launches on
@@ -49,6 +50,12 @@ cudaError_t launch_ssd_chunk(const void* xw, const float* la, const void* b,
                              const void* c, void* y, float* st, float* cd,
                              bool bf16, int B, int T, int H, int P, int N,
                              int L, int G, cudaStream_t stream);
+size_t ssd_sm90_smem_bytes(int L, int P, int N);
+cudaError_t launch_ssd_chunk_sm90(const void* xw, const float* la,
+                                  const void* b, const void* c, void* y,
+                                  float* st, float* cd, int B, int T, int H,
+                                  int P, int N, int L, int G,
+                                  cudaStream_t stream);
 
 namespace {
 
@@ -176,6 +183,22 @@ void ssd_intra_chunk(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// bf16 only, P 64, L and N 64 or 128: the tensor-core kernel (ssd_sm90.cu)
+void ssd_intra_chunk_sm90(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
+                          torch::Tensor c, torch::Tensor y, torch::Tensor st,
+                          torch::Tensor cd, int64_t chunk,
+                          int64_t heads_per_block) {
+  const c10::cuda::CUDAGuard guard(xw.device());
+  TORCH_CHECK(half_or_float({xw, b, c, y}, {"xw", "b", "c", "y"}),
+              "xw must be bfloat16");
+  C10_CUDA_CHECK(launch_ssd_chunk_sm90(
+      xw.data_ptr(), in(la, "la"), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+      out(st, "states"), out(cd, "chunk_decay"), xw.size(0), xw.size(1),
+      xw.size(2), xw.size(3), b.size(2), (int)chunk, (int)heads_per_block,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -191,4 +214,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_sm90_smem_bytes", &flash_attention_sm90_smem_bytes);
   m.def("ssd_smem_bytes", &ssd_smem_bytes);
   m.def("ssd_intra_chunk", &ssd_intra_chunk);
+  m.def("ssd_sm90_smem_bytes", &ssd_sm90_smem_bytes);
+  m.def("ssd_intra_chunk_sm90", &ssd_intra_chunk_sm90);
 }

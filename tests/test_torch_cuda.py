@@ -18,7 +18,9 @@ bf16 inputs within 1e-3 + 8e-3·|plain| (``chip_smoke.py``'s limit: p and
 the output rounded to bf16, 2^-9 and 2^-8 relative). SSD
 2e-4 likewise in float32 (``tests/test_kernels.py``); in bfloat16 the
 outputs stored in bf16 within 1e-2 times max(1, largest magnitude) (two
-roundings of 2^-8 each), the float32 states within 2e-4 likewise.
+roundings of 2^-8 each), the float32 states within 2e-4 likewise, on
+both kernels (``ssd_chunk_sm90`` for bf16 at the shapes it takes,
+``ssd_chunk`` otherwise).
 """
 import pytest
 import torch
@@ -127,11 +129,16 @@ def test_gru_weight_grads_match_float64_sums(cuda_device, a, t, b, h):
 
 
 @pytest.mark.cuda
-def test_gae_kernels_match_plain_bitwise(cuda_device):
+@pytest.mark.parametrize("t,b", [(16, 1600), (256, 7), (16, 1601),
+                                 (37, 96)])
+def test_gae_kernels_match_plain_bitwise(cuda_device, t, b):
+    """The forward bit for bit and the gradients within 1e-6 at the DIALS
+    shape, a long T (several load tiles), an odd B and a T that is no
+    multiple of the tile."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    r, v, nv, g = (torch.randn(16, 1600, generator=gen, device=cuda_device)
+    r, v, nv, g = (torch.randn(t, b, generator=gen, device=cuda_device)
                    for _ in range(4))
-    d = (torch.rand(16, 1600, generator=gen, device=cuda_device)
+    d = (torch.rand(t, b, generator=gen, device=cuda_device)
          < 0.1).float()
     k_leaves = [x.clone().requires_grad_() for x in (r, v, nv)]
     p_leaves = [x.clone().requires_grad_() for x in (r, v, nv)]
@@ -264,6 +271,17 @@ def test_flash_routes_by_dtype(cuda_device):
         fa_kernel.forward(odd, kb, vb, **kw)
 
 
+def _ragged_heads(device, b, t, chunk):
+    """A head count that the tensor-core kernel's heads_per_block does not
+    divide on this card: its last block takes fewer heads."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for h in (13, 11, 17, 19, 23, 7, 5):
+        g = ssd_kernel.heads_per_block_sm90(b, t // chunk, h, sms)
+        if h % g:
+            return h
+    raise AssertionError(f"no ragged head count at {sms} SMs")
+
+
 def _ssd_inputs(gen, device, b, t, h, p, n, dtype):
     rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
     x = rnd(b, t, h, p).to(dtype)
@@ -276,19 +294,30 @@ def _ssd_inputs(gen, device, b, t, h, p, n, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,p,n,chunk", [
     (1, 128, 2, 16, 16, 32), (2, 256, 4, 32, 32, 64),
-    (1, 64, 1, 8, 64, 64), (2, 512, 6, 64, 128, 128)])
+    (1, 64, 1, 8, 64, 64), (2, 512, 6, 64, 128, 128),
+    (1, 1024, 48, 64, 128, 128),      # mamba2-780m's widths
+    (1, 512, 64, 64, 64, 128),        # zamba2-1.2b's widths
+    (2, 512, 6, 64, 128, 64), (1, 256, 4, 64, 64, 64),   # chunk 64
+    (1, 8192, None, 64, 128, 128)])   # H no multiple of a block's heads
 def test_ssd_kernel_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
     """The kernel's three outputs against the plain intra-chunk block,
-    and ``ops.ssd`` (with an initial state) against ``ssd_chunked``."""
+    and ``ops.ssd`` (with an initial state, over several chunks) against
+    ``ssd_chunked``; bf16 at head_dim 64 runs the tensor-core kernel."""
+    h = h or _ragged_heads(cuda_device, b, t, chunk)
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, p, n, dtype)
     xw = (x * dt[..., None].to(dtype)).contiguous()
     la = (dt * a).contiguous()
-    before = ssd_kernel.LAUNCHES["ssd_intra_chunk"]
+    key = ssd_kernel.route(dtype, p, n, chunk)
+    assert key == ("ssd_chunk_sm90" if dtype == torch.bfloat16 and p == 64
+                   else "ssd_chunk")
+    before = dict(ssd_kernel.LAUNCHES)
     got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
     want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_kernel.LAUNCHES["ssd_intra_chunk"] == before + 1
+    assert ssd_kernel.LAUNCHES["ssd_intra_chunk"] == \
+        before["ssd_intra_chunk"] + 1
+    assert ssd_kernel.LAUNCHES[key] == before[key] + 1
     assert got[0].dtype == dtype
     if dtype == torch.float32:
         for g, w in zip(got, want):
@@ -308,6 +337,38 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
     else:
         assert_close_scaled(y_k, y_p, SSD_BF16_TOL)
         assert_close_scaled(s_k, s_p, SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_routes_by_dtype_and_shape(cuda_device):
+    """bf16 at mamba2's widths goes to ``ssd_chunk_sm90``; float32, and
+    bf16 at chunk 32, go to ``ssd_chunk``; each launch also counts once in
+    ``ssd_intra_chunk``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    cases = [(torch.bfloat16, 128, "ssd_chunk_sm90"),
+             (torch.float32, 128, "ssd_chunk"),
+             (torch.bfloat16, 32, "ssd_chunk")]
+    for dtype, chunk, key in cases:
+        x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, 1, 256, 4, 64, 128,
+                                      dtype)
+        xw = (x * dt[..., None].to(dtype)).contiguous()
+        la = (dt * a).contiguous()
+        counts = dict(ssd_kernel.LAUNCHES)
+        got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
+        assert ssd_kernel.route(dtype, 64, 128, chunk) == key
+        assert {k: ssd_kernel.LAUNCHES[k] - counts[k] for k in counts} == {
+            "ssd_intra_chunk": 1, "ssd_chunk_sm90": int(key != "ssd_chunk"),
+            "ssd_chunk": int(key == "ssd_chunk")}
+        want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
+        tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
+        assert_close_scaled(got[0], want[0], tol)
+        for g, w in zip(got[1:], want[1:]):
+            assert_close_scaled(g, w, SSD_TOL)
+    flat = torch.zeros(256 * 4 * 64 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 256, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_kernel.forward(odd, la, bm.bfloat16(), c.bfloat16(), chunk=128)
 
 
 @pytest.mark.cuda

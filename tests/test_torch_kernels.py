@@ -23,6 +23,7 @@ from repro_torch.kernels.gae import ref as gae_ref
 from repro_torch.kernels.gru import kernel as gru_kernel
 from repro_torch.kernels.gru import ops as gru_ops
 from repro_torch.kernels.gru import ref as gru_ref
+from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.marl import gae as tgae
 from repro_torch.nn import gru as tgru
 
@@ -168,6 +169,40 @@ def test_gae_ops_round_trips_bf16():
                            torch.from_numpy(v).to(torch.bfloat16),
                            torch.from_numpy(d), torch.from_numpy(last))
     assert adv.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the SSD wrapper's route and grid, decided in Python before any launch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,p,n,chunk,kernel", [
+    (torch.bfloat16, 64, 128, 128, "ssd_chunk_sm90"),   # mamba2-780m
+    (torch.bfloat16, 64, 64, 128, "ssd_chunk_sm90"),    # zamba2-1.2b
+    (torch.bfloat16, 64, 128, 64, "ssd_chunk_sm90"),
+    (torch.bfloat16, 64, 64, 64, "ssd_chunk_sm90"),
+    (torch.float32, 64, 128, 128, "ssd_chunk"),         # no TF32
+    (torch.bfloat16, 64, 128, 32, "ssd_chunk"),
+    (torch.bfloat16, 16, 16, 16, "ssd_chunk"),          # reduced configs
+    (torch.bfloat16, 32, 128, 128, "ssd_chunk"),
+    (torch.bfloat16, 64, 32, 128, "ssd_chunk")])
+def test_ssd_route(dtype, p, n, chunk, kernel):
+    """bf16 at head_dim 64, chunk and state 64 or 128 goes to the
+    tensor-core kernel; float32 and every other shape to the FFMA one."""
+    assert ssd_kernel.route(dtype, p, n, chunk) == kernel
+
+
+@pytest.mark.parametrize("bsz,nc,h,sms,g", [
+    (2, 64, 48, 132, 16),   # mamba2-780m's layer: 384 blocks
+    (2, 64, 64, 132, 16),   # zamba2-1.2b's: 512 blocks
+    (4, 64, 48, 132, 16),   # capped at 16 heads a block
+    (1, 8, 48, 132, 2),     # a short prompt: 192 blocks
+    (1, 64, 13, 132, 6),    # groups of 6, 6 and 1 heads
+    (1, 1, 4, 132, 1)])     # fewer (chunk, head) cells than SMs
+def test_ssd_sm90_heads_per_block(bsz, nc, h, sms, g):
+    """One block an SM: the most heads a block (up to 16) that still
+    gives every SM a block where the cells allow it."""
+    assert ssd_kernel.heads_per_block_sm90(bsz, nc, h, sms) == g
+    blocks = bsz * nc * -(-h // g)
+    assert blocks >= min(sms, bsz * nc * h)
 
 
 # ---------------------------------------------------------------------------

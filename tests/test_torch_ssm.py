@@ -7,7 +7,10 @@ the plain intra-chunk block and the op 2e-4, the reference's own
 kernel-against-oracle tolerance (``tests/test_kernels.py``); the layer and
 its decode 1e-4 in float32 (a matmul, a norm and a gate around the scan),
 and 2e-2 times max(1, largest magnitude) in bfloat16 (each side rounds to
-bf16 at the same points, a rounding flip costs 2^-8 relative). The CUDA
+bf16 at the same points, a rounding flip costs 2^-8 relative). The bf16
+tensor-core kernel's roundings, emulated here, hold the reference kernel's
+bf16 outputs within 1e-2 times max(1, largest magnitude) for y (two bf16
+roundings of 2^-8) and 2e-4 for the f32 states and decay. The CUDA
 kernel itself is held to its plain version on the card by
 ``test_torch_cuda.py``.
 """
@@ -30,6 +33,7 @@ from repro_torch.nn import ssm as tssm
 from repro_torch.tree import leaves
 
 SSD_TOL, LAYER_TOL, BF16_TOL = 2e-4, 1e-4, 2e-2
+BF16_Y_TOL = 1e-2      # a bf16 output of the SSD block (test_torch_cuda.py)
 
 
 def assert_close(actual, desired, tol):
@@ -88,6 +92,53 @@ def test_plain_intra_chunk_matches_reference_kernel():
                                 (xw, la, bm, c)), chunk=32)
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g.numpy(), w, SSD_TOL)
+
+
+def _sm90_roundings(xw, la, b, c, *, chunk):
+    """The tensor-core kernel's arithmetic (``csrc/ssd_sm90.cu``) in torch
+    on the CPU: C, B and X taken as bf16 with exact products summed in
+    f32; M and X·w each split into bf16 hi + lo; y rounded to bf16."""
+    bsz, t, h, p = xw.shape
+    n = b.shape[-1]
+    nc = t // chunk
+    split = lambda v: (v.bfloat16().float(),
+                       (v - v.bfloat16().float()).bfloat16().float())
+    x = xw.reshape(bsz, nc, chunk, h, p).float()
+    lac = torch.movedim(la.reshape(bsz, nc, chunk, h).float(), -1, 2)
+    bc = b.reshape(bsz, nc, chunk, n).float()
+    cc = c.reshape(bsz, nc, chunk, n).float()
+    cs = torch.cumsum(lac, dim=-1)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    m = torch.where(tri, torch.einsum("bcin,bcjn->bcij", cc, bc)[:, :, None]
+                    * torch.exp(cs[..., :, None] - cs[..., None, :]), 0.0)
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", part, x) for part in split(m))
+    xw_w = x * torch.movedim(torch.exp(cs[..., -1:] - cs), 2, 3)[..., None]
+    states = sum(torch.einsum("bcjhp,bcjn->bchpn", part, bc)
+                 for part in split(xw_w))
+    return (y.reshape(bsz, t, h, p).bfloat16(), states,
+            torch.exp(cs[..., -1]))
+
+
+def test_sm90_roundings_hold_reference_kernel():
+    """The precision design of the bf16 tensor-core kernel, checked before
+    the card does: its roundings, emulated in torch, against the
+    reference's Pallas kernel (interpret mode) on the same bf16 inputs at
+    mamba2's head and state widths; y within the bf16 limit, the f32
+    states and decay within 2e-4."""
+    x, dt, a, bm, c, _ = ssd_inputs(6, 1, 256, 4, 64, 128)
+    la = (dt * a[None, None, :]).astype(np.float32)
+    bf = lambda v: torch.from_numpy(v).bfloat16()
+    txw, tb, tc = bf(x * dt[..., None]), bf(bm), bf(c)
+    jb = lambda v: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+    want = jssd_kernel.ssd_intra_chunk(jb(txw), jnp.asarray(la), jb(tb),
+                                       jb(tc), chunk=128, interpret=True)
+    got = _sm90_roundings(txw, torch.from_numpy(la), tb, tc, chunk=128)
+    assert got[0].dtype == torch.bfloat16
+    assert_close_scaled(got[0].float().numpy(),
+                        np.asarray(want[0].astype(jnp.float32)), BF16_Y_TOL)
+    for g, w in zip(got[1:], want[1:]):
         assert g.shape == w.shape
         assert_close(g.numpy(), w, SSD_TOL)
 
