@@ -1,8 +1,9 @@
 """Where one DIALS round of the PyTorch/CUDA port spends its time on a GPU.
 
-Runs the loop driver at ``chip_smoke.py``'s main-path configuration
-(warehouse side=10, default widths, GRU AIP, ``use_kernels="on"``, F=5)
-for one round untraced, then the same round again under
+Runs the loop driver at ``chip_smoke.py``'s DIALS configuration (side=10,
+default widths, GRU AIP, ``use_kernels="on"``, F=5; ``--env`` and
+``--policy`` pick the scenario and the policy kind, warehouse and fnn by
+default) for one round untraced, then the same round again under
 ``torch.profiler``, and prints:
 
 * the untraced and the traced round's wall seconds and phase seconds
@@ -14,10 +15,11 @@ for one round untraced, then the same round again under
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 benchmarks/torch_round_profile.py
+    python3 benchmarks/torch_round_profile.py [--env traffic] [--policy gru]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -31,6 +33,10 @@ PHASES = ("collect_s", "aip_s", "inner_s", "eval_s", "round_s")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--env", default="warehouse")
+    ap.add_argument("--policy", default="fnn", choices=("fnn", "gru"))
+    args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -44,8 +50,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     print(f"card: {chip_smoke.smi_line()}", flush=True)
     trainer = chip_smoke.make_trainer(
-        chip_smoke.SIDE, device=device, use_kernels="on", rounds=1,
-        refresh=chip_smoke.AIP_REFRESH)
+        args.env, chip_smoke.SIDE, device=device, use_kernels="on",
+        rounds=1, refresh=chip_smoke.AIP_REFRESH, policy_kind=args.policy)
     _, (untraced,) = trainer.run(R.key(0, device=device))
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -70,6 +76,7 @@ def main() -> int:
             reach = end
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
+        "env": args.env, "policy": args.policy,
         "untraced": {k: untraced[k] for k in PHASES},
         "traced": {k: traced[k] for k in PHASES},
         "traced_wall_s": wall,

@@ -19,8 +19,10 @@ It
      the shapes its path gives it and times kernel, plain version and,
      where one exists, the one PyTorch call for the same function, with
      CUDA events: GRU (1e-5 times max(1, largest magnitude)) forward and
-     backward at each of the forward's three main-path shapes and at
-     hidden 128 (1x16x64 and 1x128x256), the backward twice for its bits,
+     backward at each of the forward's three FNN-policy path shapes, at
+     the recurrent policy's (100x16x4, 100x1x16 and 100x1x8 at hidden
+     128) and at 1x16x64 and 1x128x256 at hidden 128, the backward twice
+     for its bits,
      times per launch and per step at each; GAE forward (bit for bit) and
      backward (1e-6), each with its device time per launch
      (``torch.profiler``) beside its host-inclusive time per call; flash
@@ -34,9 +36,19 @@ It
      tensor-core kernel ``ssd_chunk_sm90`` and, as its "before",
      ``ssd_chunk`` on the same inputs), both bf16 routes timed, and at
      zamba2-1.2b's width (64 heads, state 64);
-  4. drives the DIALS main path — two loop rounds on warehouse side=10
-     (100 agents) at the library's default widths with the GRU AIP,
-     ``use_kernels="on"`` — and checks every round record; then checks
+  4. drives the DIALS paths at side=10 (100 agents) at the library's
+     default widths with the GRU AIP, ``use_kernels="on"``, checking every
+     round record and printing each round's phase seconds: warehouse with
+     the FNN policy (one round); warehouse with the paper's recurrent
+     policy (gru_hidden 128; two rounds, the GRU kernels launched at
+     hidden 128 in the rollout cell and ppo_loss); traffic with the FNN
+     policy (one round), then the GS-trained baseline (``make_gs_trainer``,
+     5 timed ``train_fn`` steps and one ``eval_fn``, launching the GAE
+     kernel); powergrid and supplychain, a 32-step GS trajectory each on
+     the card and on the CPU, bit for bit, and one narrow-width round each;
+     the recurrent-policy path again through a checkpoint: stopped after
+     round 0, resumed by a new trainer for round 1, its record and state
+     against the uninterrupted run (max abs differences printed); then
      the kernel path against the plain path on a small input (one round,
      warehouse side=2);
   5. drives the serving path of gemma2-9b at full width (bf16, random
@@ -53,8 +65,9 @@ It
   7. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Each path (4, 5, 6) runs with every launch count set to 0 just before it
-and read just after; each phase prints its seconds. Any failed phase
+Each path (each of 4's, 5, 6) runs with every launch count set to 0 just
+before it and read just after (the kernels line gives each kernel's
+launches by path); each phase prints its seconds. Any failed phase
 exits non-zero without the last line. Without CUDA, or without the
 repository beside it, it exits non-zero at once.
 """
@@ -95,11 +108,18 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 LOGIT_TOL = 5e-2
 SSM_LAYER_TOL = 2e-2
 
-# The first slice's configuration: warehouse side=10, library default
-# widths.
+# The DIALS paths: side=10 (100 agents), the library's default widths,
+# DIALSConfig() cut to a few rounds and F=5. The first slice's path
+# (warehouse, FNN policy) runs one round; the recurrent policy's path two,
+# the second of which the checkpoint resume repeats; traffic one round and
+# the GS baseline GS_TRAIN_STEPS steps; powergrid and supplychain an
+# ENV_STEPS-step GS trajectory each, card against CPU.
 SIDE = 10
-OUTER_ROUNDS = 2
 AIP_REFRESH = 5
+FNN_ROUNDS = 1
+GRU_POLICY_ROUNDS = 2
+GS_TRAIN_STEPS = 5
+ENV_STEPS = 32
 
 # The serving slice: gemma2-9b at full width (src/repro/configs/gemma2_9b.py),
 # prompt B=2 x T=8192 (prefill_32k cut from B=32 x 32768), greedy decode of
@@ -301,7 +321,7 @@ def check_gru(gen, device, shapes):
         f_ms = cuda_ms(lambda: gk.forward(*ins), iters)
         b_ms = cuda_ms(lambda: gk.backward(*ins, hs, g), iters)
         fb, bb = gru_bounds(a, t, b, hdim)
-        timed[(a, t, b, hdim)] = (f_ms, b_ms, ins, g, hs)
+        timed[(a, t, b, hdim)] = (f_ms, b_ms, ins, g, hs, fb[0], bb[0])
         print(f"gru {a}x{t}x{b}x{hdim}: forward {f_ms:.4f} ms a launch, "
               f"{f_ms * 1e3 / t:.3f} us a step (bound {fb[0]:.5f} ms); "
               f"backward {b_ms:.4f} ms, {b_ms * 1e3 / t:.3f} us a step "
@@ -310,14 +330,16 @@ def check_gru(gen, device, shapes):
         torch.cuda.empty_cache()
 
     key = shapes["gru_backward"]
-    f_ms, b_ms, ins, g, hs = timed[key]
+    f_ms, b_ms, ins, g, hs = timed[key][:5]
     ref_leaves = [x.clone().requires_grad_() for x in ins[:4]]
     hs_p = gref.gru_scan(*ref_leaves, ins[4])
     fb, bb = gru_bounds(*key)
     by_shape = lambda d: {"x".join(map(str, k)): v for k, v in d.items()}
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/gru.cu",
                   shape="x".join(map(str, key)),
-                  ms_by_shape=by_shape({k: v[0] for k, v in timed.items()}))
+                  ms_by_shape=by_shape({k: v[0] for k, v in timed.items()}),
+                  bound_ms_by_shape=by_shape({k: v[5]
+                                              for k, v in timed.items()}))
     return [
         dict(name="gru_forward",
              replaces="src/repro/kernels/gru/kernel.py:64",
@@ -330,7 +352,9 @@ def check_gru(gen, device, shapes):
              plain_ms=cuda_ms(lambda: torch.autograd.grad(
                  hs_p, ref_leaves, g, retain_graph=True), 10), bound=bb,
              **dict(common, ms_by_shape=by_shape(
-                 {k: v[1] for k, v in timed.items()}))),
+                 {k: v[1] for k, v in timed.items()}),
+                 bound_ms_by_shape=by_shape(
+                     {k: v[6] for k, v in timed.items()}))),
     ]
 
 
@@ -795,30 +819,36 @@ def check_ssd(gen, device):
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# the DIALS paths
 # ---------------------------------------------------------------------------
-def make_trainer(side, *, device, use_kernels, small=False, rounds=1,
-                 refresh=1):
+def make_trainer(env, side, *, device, use_kernels, small=False, rounds=1,
+                 refresh=1, policy_kind="fnn", ckpt_dir=None):
+    """The loop driver on ``env`` at ``side``: the library's default
+    widths with a GRU AIP (``small``: narrow widths), ``DIALSConfig()``
+    cut to ``rounds`` and F=``refresh``."""
     from repro_torch.core import dials, influence
     from repro_torch.envs import registry
     from repro_torch.marl import policy, ppo
-    env_mod, env_cfg = registry.make("warehouse", side=side)
+    env_mod, env_cfg = registry.make(env, side=side)
     info = env_cfg.info()
     if small:
-        pc = policy.PolicyConfig(info.obs_dim, info.n_actions, hidden=(32,))
+        pc = policy.PolicyConfig(info.obs_dim, info.n_actions,
+                                 kind=policy_kind, hidden=(32,),
+                                 gru_hidden=16)
         ac = influence.AIPConfig(info.alsh_dim, info.n_influence,
                                  kind="gru", hidden=(32,), gru_hidden=16,
                                  epochs=5)
         dc = dials.DIALSConfig(outer_rounds=rounds, aip_refresh=refresh,
                                collect_envs=4, collect_steps=32, n_envs=4,
                                rollout_steps=8, eval_episodes=2,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, ckpt_dir=ckpt_dir)
     else:
-        pc = policy.PolicyConfig(info.obs_dim, info.n_actions)
+        pc = policy.PolicyConfig(info.obs_dim, info.n_actions,
+                                 kind=policy_kind)
         ac = influence.AIPConfig(info.alsh_dim, info.n_influence,
                                  kind="gru")
         dc = dials.DIALSConfig(outer_rounds=rounds, aip_refresh=refresh,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, ckpt_dir=ckpt_dir)
     return dials.DIALSTrainer(env_mod, env_cfg, pc, ac, ppo.PPOConfig(), dc,
                               device=device)
 
@@ -851,54 +881,251 @@ def shape_counts():
             for name, tbl in gk.SHAPE_LAUNCHES.items()}
 
 
-def run_main_path(device):
-    import torch
-    from repro_torch import random as R
-    from repro_torch.obs import metrics as obs_metrics
-    trainer = make_trainer(SIDE, device=device, use_kernels="on",
-                           rounds=OUTER_ROUNDS, refresh=AIP_REFRESH)
-
+def round_log(label):
     def log(rec):
         phases = {k: round(rec[k], 4) for k in
                   ("collect_s", "aip_s", "inner_s", "eval_s", "round_s")}
-        print(f"main path round {rec['round']}: {phases} "
+        print(f"{label} round {rec['round']}: {phases} "
               f"gs_return={rec['gs_return']:.6f} "
               f"aip_ce {rec['aip_ce_before']:.6f}->"
               f"{rec['aip_ce_after']:.6f} "
               f"ials_reward={rec['ials_reward']:.6f} "
               f"launches so far={launch_counts()}", flush=True)
+    return log
 
+
+def drive_dials(label, trainer, key, rounds, kernels):
+    """One run of ``trainer`` from ``key`` with every count set to 0 just
+    before it and read just after; checks every round record (the fields
+    of the round record, finite numbers, the kernel routing
+    ``kernels``). Returns (state, history, counts, counts by shape)."""
+    import torch
+    from repro_torch.obs import metrics as obs_metrics
     reset_counts()
     t0 = time.perf_counter()
-    state, history = trainer.run(R.key(0, device=device), log=log)
+    state, history = trainer.run(key, log=round_log(label))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
-    by_shape = shape_counts()
-    print(f"main path: {OUTER_ROUNDS} rounds in {wall:.3f} s, launches "
+    counts, by_shape = launch_counts(), shape_counts()
+    print(f"{label}: {len(history)} round(s) in {wall:.3f} s, launches "
           f"{counts}; GRU launches by shape (A x T x B x H) {by_shape}",
           flush=True)
-
-    check(len(history) == OUTER_ROUNDS, "main path: missing round records")
+    check(len(history) == rounds, f"{label}: {len(history)} round records")
     for rec in history:
         check(set(rec) == set(obs_metrics.ROUND_KEYS),
-              f"round {rec['round']}: fields differ from the round record")
+              f"{label} round {rec['round']}: fields differ from the round "
+                 f"record")
         for k, v in rec.items():
             if isinstance(v, float):
-                check(math.isfinite(v), f"round {rec['round']}: {k}={v}")
-        check(rec["kernels"] == "policy=cuda,aip=cuda,ppo=cuda",
-              f"kernel routing {rec['kernels']!r}")
+                check(math.isfinite(v),
+                      f"{label} round {rec['round']}: {k}={v}")
+        check(rec["kernels"] == kernels,
+              f"{label}: kernel routing {rec['kernels']!r}")
     for leaf in (state["aips"]["gru"]["wh"], state["ials"]["obs"]):
         check(bool(torch.isfinite(leaf.float()).all()),
-              "main path: non-finite state")
+              f"{label}: non-finite state")
+    for name, by in by_shape.items():
+        check(sum(by.values()) == counts[name],
+              f"{label}: {name} launches by shape do not add up")
+    return state, history, counts, by_shape
+
+
+def run_main_path(device):
+    """Warehouse side=10 with the FNN policy and the GRU AIP (the first
+    slice's path), FNN_ROUNDS round(s)."""
+    from repro_torch import random as R
+    trainer = make_trainer("warehouse", SIDE, device=device,
+                           use_kernels="on", rounds=FNN_ROUNDS,
+                           refresh=AIP_REFRESH)
+    state, _, counts, by_shape = drive_dials(
+        "main path", trainer, R.key(0, device=device), FNN_ROUNDS,
+        "policy=cuda,aip=cuda,ppo=cuda")
     n_agents = trainer.info.n_agents
     check(tuple(state["aips"]["gru"]["wh"].shape) == (n_agents, 64, 192),
           "main path: AIP GRU weights of the wrong shape")
     for name in ("gru_forward", "gru_backward", "gae_forward"):
         check(counts[name] > 0, f"main path never launched {name}")
-    for name, by in by_shape.items():
-        check(sum(by.values()) == counts[name],
-              f"{name}: launches by shape do not add up to its count")
+    return counts, by_shape
+
+
+def run_gru_policy_path(device):
+    """Warehouse side=10 with the paper's recurrent policy (hidden (256,
+    128), gru_hidden 128) and the GRU AIP at the library defaults,
+    GRU_POLICY_ROUNDS rounds: the GRU kernels at hidden 128 in the
+    rollout cell and in ppo_loss. Returns (counts, by shape, the final
+    state and the history) for the resume check."""
+    from repro_torch import random as R
+    from repro_torch.marl.ppo import PPOConfig
+    trainer = make_trainer("warehouse", SIDE, device=device,
+                           use_kernels="on", rounds=GRU_POLICY_ROUNDS,
+                           refresh=AIP_REFRESH, policy_kind="gru")
+    state, history, counts, by_shape = drive_dials(
+        "gru-policy path", trainer, R.key(0, device=device),
+        GRU_POLICY_ROUNDS, "policy=cuda,aip=cuda,ppo=cuda")
+    n_agents = trainer.info.n_agents
+    wh = tuple(state["ials"]["params"]["gru"]["wh"].shape)
+    check(wh == (n_agents, 128, 384),
+          f"gru-policy path: policy GRU weights {wh}, not "
+          f"({n_agents}, 128, 384)")
+    cfg, ppo_cfg = trainer.cfg, PPOConfig()
+    batch = cfg.n_envs // ppo_cfg.minibatches
+    want = {"gru_forward": [(n_agents, cfg.rollout_steps, batch, 128),
+                            (n_agents, 1, cfg.n_envs, 128),
+                            (n_agents, 1, cfg.collect_envs, 128)],
+            "gru_backward": [(n_agents, cfg.rollout_steps, batch, 128)]}
+    for name, shapes in want.items():
+        for shape in shapes:
+            key = "x".join(map(str, shape))
+            check(by_shape[name].get(key, 0) > 0,
+                  f"gru-policy path never launched {name} at {key}")
+    check(counts["gae_forward"] > 0, "gru-policy path never launched "
+                                     "gae_forward")
+    return counts, by_shape, state, history
+
+
+def run_traffic_path(device):
+    """Traffic side=10 (100 intersections, lane_len 8, horizon 100) with
+    the paper's FNN policy and the GRU AIP at the defaults, one round at
+    F=AIP_REFRESH; then the GS-trained baseline (``make_gs_trainer``,
+    RunConfig(16, 16)): GS_TRAIN_STEPS ``train_fn`` steps and one
+    ``eval_fn``, timed, which must launch the GAE kernel."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.envs import registry
+    from repro_torch.marl import policy, ppo, runner
+    from repro_torch.kernels.gae import kernel as ak
+    trainer = make_trainer("traffic", SIDE, device=device, use_kernels="on",
+                           rounds=1, refresh=AIP_REFRESH)
+    check(trainer.env_cfg.lane_len == 8 and trainer.env_cfg.horizon == 100,
+          "traffic path: not the default lane length and horizon")
+    _, _, counts, by_shape = drive_dials(
+        "traffic path", trainer, R.key(0, device=device), 1,
+        "policy=cuda,aip=cuda,ppo=cuda")
+
+    env_mod, env_cfg = registry.make("traffic", side=SIDE)
+    info = env_cfg.info()
+    init_fn, train_fn, eval_fn = runner.make_gs_trainer(
+        env_mod, env_cfg, policy.PolicyConfig(info.obs_dim, info.n_actions),
+        ppo.PPOConfig(), runner.RunConfig(n_envs=16, rollout_steps=16),
+        device=device)
+    gae_before = ak.LAUNCHES["gae_forward"]
+    state = init_fn(R.key(0, device=device))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(GS_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_fn(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ret = float(eval_fn(state["params"], R.key(1, device=device),
+                        episodes=8))
+    eval_s = time.perf_counter() - t0
+    gae = ak.LAUNCHES["gae_forward"] - gae_before
+    print(f"traffic GS baseline (E=16, T=16): train_fn steps "
+          f"{[round(t, 4) for t in times]} s, eval_fn (8 episodes) "
+          f"{eval_s:.4f} s, return {ret:.6f}, reward "
+          f"{float(metrics['reward']):.6f}, gae_forward launches {gae}",
+          flush=True)
+    check(gae == GS_TRAIN_STEPS, f"GS baseline launched gae_forward {gae} "
+                                 f"times in {GS_TRAIN_STEPS} steps")
+    check(math.isfinite(ret) and all(
+        math.isfinite(float(v)) for v in metrics.values()),
+        "GS baseline: non-finite metrics")
+    counts["gae_forward"] += gae
+    return counts, by_shape
+
+
+def run_envs_on_card(device):
+    """Powergrid and supplychain at side=10 (100 buses, 100 cells): a GS
+    pool trajectory of ENV_STEPS steps with auto-reset under fixed seeded
+    actions on the card and on the CPU, every state field, observation,
+    reward and influence bit equal; then one narrow-width DIALS round of
+    each on the card."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.core import env_pool
+    from repro_torch.envs import registry
+    counts, by_shape = None, {}
+    for env in ("powergrid", "supplychain"):
+        mod, cfg = registry.make(env, side=SIDE)
+        info = cfg.info()
+        runs = {}
+        for dev in ("cpu", device):
+            pool = env_pool.GSPool(mod, cfg, 16)
+            skeys = env_pool.stream_keys(R.key(3, device=dev), 16)
+            state = pool.init(skeys)
+            out = []
+            for t in range(ENV_STEPS):
+                k_act, k_env, k_reset = env_pool.step_keys(skeys, t, 3)
+                action = R.randint(k_act, (info.n_agents,), 0,
+                                   info.n_actions)
+                state, obs, rew, u, done = pool.step_reset(
+                    state, action, k_env, k_reset)
+                out += [*(state[k] for k in sorted(state)), obs, rew, u,
+                        done]
+            runs[str(dev)] = [x.cpu() for x in out]
+        same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                   zip(runs["cpu"], runs[str(device)]))
+        print(f"{env} side={SIDE} ({info.n_agents} agents): {ENV_STEPS} GS "
+              f"steps x 16 streams, card vs CPU bit for bit: {same}",
+              flush=True)
+        check(same, f"{env}: the card's GS trajectory differs from the CPU's")
+        trainer = make_trainer(env, SIDE, device=device, use_kernels="on",
+                               small=True, rounds=1, refresh=2)
+        _, _, c, _ = drive_dials(f"{env} narrow round", trainer,
+                                 R.key(0, device=device), 1,
+                                 "policy=cuda,aip=cuda,ppo=cuda")
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+    return counts, by_shape
+
+
+def run_resume_path(device, straight):
+    """The GRU-policy path again with ``ckpt_dir`` under build/, stopped
+    after round 0; a new trainer on the same ``ckpt_dir`` with
+    GRU_POLICY_ROUNDS rounds runs round 1 from the checkpoint. Its record
+    and its final state against the uninterrupted run's (``straight``:
+    the gru-policy path's state and history): max abs differences
+    printed, expected 0, held to the CPU round tolerances."""
+    import shutil
+    import torch
+    from repro_torch import random as R
+    from repro_torch.tree import leaves
+    d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    reset_counts()
+    first = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
+                         rounds=1, refresh=AIP_REFRESH, policy_kind="gru",
+                         ckpt_dir=d)
+    first.run(R.key(0, device=device), log=round_log("resume: first run"))
+    check(first.manager.steps() == [1], "resume: no checkpoint of round 0")
+    resumed = make_trainer("warehouse", SIDE, device=device,
+                           use_kernels="on", rounds=GRU_POLICY_ROUNDS,
+                           refresh=AIP_REFRESH, policy_kind="gru",
+                           ckpt_dir=d)
+    state, history = resumed.run(R.key(0, device=device),
+                                 log=round_log("resume: resumed run"))
+    counts, by_shape = launch_counts(), shape_counts()
+    ref_state, ref_history = straight
+    check([r["round"] for r in history] == list(range(
+        1, GRU_POLICY_ROUNDS)), "resume: the resumed run's rounds")
+    rec_err = {k: abs(history[0][k] - ref_history[1][k]) for k in
+               ("aip_ce_before", "aip_ce_after", "gs_return",
+                "ials_reward")}
+    param_err = max(max_err(a, b) for a, b in zip(
+        leaves(state["ials"]["params"]) + leaves(state["aips"]),
+        leaves(ref_state["ials"]["params"]) + leaves(ref_state["aips"])))
+    exact = [a.dtype == b.dtype and bool(torch.equal(a, b)) for a, b in zip(
+        leaves(state["ials"]) + leaves(state["aips"]),
+        leaves(ref_state["ials"]) + leaves(ref_state["aips"]))]
+    print(f"resume on the card: round 1 record max abs diff {rec_err}, "
+          f"params max abs diff {param_err:.3e}, state leaves bit for bit "
+          f"equal {sum(exact)} of {len(exact)}", flush=True)
+    tol = {"aip_ce_before": 1e-5, "aip_ce_after": 1e-5, "gs_return": 1e-6,
+           "ials_reward": 1e-6}
+    check(all(rec_err[k] <= tol[k] for k in tol) and param_err <= 1e-5,
+          "resume: the resumed round differs from the uninterrupted one")
+    shutil.rmtree(d, ignore_errors=True)
     return counts, by_shape
 
 
@@ -1141,8 +1368,9 @@ def check_small_against_plain(device):
     from repro_torch.tree import leaves
     out = {}
     for mode in ("on", "off"):
-        trainer = make_trainer(2, device=device, use_kernels=mode,
-                               small=True, rounds=1, refresh=2)
+        trainer = make_trainer("warehouse", 2, device=device,
+                               use_kernels=mode, small=True, rounds=1,
+                               refresh=2)
         state, hist = trainer.run(R.key(1, device=device))
         out[mode] = (state, hist[0])
     (s_on, h_on), (s_off, h_off) = out["on"], out["off"]
@@ -1204,14 +1432,19 @@ def main() -> int:
         ppo_cfg = PPOConfig()
         n_agents = SIDE * SIDE
         # main-path shapes: AIP training (S=7 train streams, T=128), held-
-        # out eval_ce (S=1), the rollout cell (T=1, E=16), GAE over N*E
+        # out eval_ce (S=1), the AIP's rollout cell (T=1, E=16), GAE over
+        # N*E
         shapes = {"gru_forward": [(n_agents, 128, 7, 64),
                                   (n_agents, 128, 1, 64),
                                   (n_agents, 1, 16, 64)],
                   "gru_backward": (n_agents, 128, 7, 64),
-                  # the recurrent policy's width: BENCH_kernels.json's
+                  # the recurrent policy at hidden 128: ppo_loss (T=16,
+                  # a minibatch of 4 streams), the rollout cell (E=16),
+                  # collect and eval (8 streams); BENCH_kernels.json's
                   # policy shape, and a long batch of tiles
-                  "gru_h128": [(1, 16, 64, 128), (1, 128, 256, 128)]}
+                  "gru_h128": [(n_agents, 16, 4, 128), (n_agents, 1, 16, 128),
+                               (n_agents, 1, 8, 128), (1, 16, 64, 128),
+                               (1, 128, 256, 128)]}
         rows = phase("gru/gae kernels vs plain", lambda: check_gru(
             gen, device, shapes) + check_gae(
             gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam))
@@ -1224,17 +1457,38 @@ def main() -> int:
                   f"ms by {row['bound'][1]}, library "
                   f"{row.get('library_ms')})", flush=True)
 
-        # each path runs with every count set to 0 just before it
-        counts, by_shape = phase("dials main path", run_main_path, device)
+        # each path runs with every count set to 0 just before it and
+        # read just after: path -> (counts, GRU counts by shape)
+        paths = {"dials warehouse fnn-policy": phase(
+            "dials main path", run_main_path, device)}
+        *gru_path, state, history = phase(
+            "dials warehouse gru-policy path", run_gru_policy_path, device)
+        paths["dials warehouse gru-policy"] = tuple(gru_path)
+        paths["dials traffic"] = phase("dials traffic path",
+                                       run_traffic_path, device)
+        paths["envs"] = phase("envs on the card", run_envs_on_card, device)
+        paths["checkpoint resume"] = phase(
+            "checkpoint resume on the card", run_resume_path, device,
+            (state, history))
+        del state, history
         phase("dials small input vs plain", check_small_against_plain,
               device)
-        counts.update({k: v for k, v in phase(
-            "gemma2-9b serving path", run_serving_path,
-            device).items() if k.startswith("flash")})
-        counts.update({k: v for k, v in phase(
-            "mamba2 ssm layer path", run_ssm_path,
-            device).items() if k.startswith("ssd")})
-        for name in ("flash_attention", "ssd_intra_chunk"):
+        paths["gemma2-9b serving"] = (phase(
+            "gemma2-9b serving path", run_serving_path, device), {})
+        paths["mamba2 ssm layer"] = (phase(
+            "mamba2 ssm layer path", run_ssm_path, device), {})
+        counts, by_shape, by_path = {}, {}, {}
+        for path, (c, shapes_of) in paths.items():
+            for k, n in c.items():
+                counts[k] = counts.get(k, 0) + n
+                if n:
+                    by_path.setdefault(k, {})[path] = n
+            for k, tbl in shapes_of.items():
+                merged = by_shape.setdefault(k, {})
+                for shape, n in tbl.items():
+                    merged[shape] = merged.get(shape, 0) + n
+        for name in ("gru_forward", "gru_backward", "gae_forward",
+                     "flash_attention", "ssd_intra_chunk"):
             check(counts[name] > 0, f"its path never launched {name}")
     except Exception as exc:       # every phase failure ends the run
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
@@ -1248,8 +1502,10 @@ def main() -> int:
               "bound_by": r["bound"][1],
               "library_ms": r.get("library_ms"),
               **{k: r[k] for k in ("library", "shape", "ms_by_shape",
-                                   "call_ms", "device_ms", "ms_by_route",
-                                   "zamba2") if k in r},
+                                   "bound_ms_by_shape", "call_ms",
+                                   "device_ms", "ms_by_route", "zamba2")
+                 if k in r},
+              "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}
                  if r["name"] in by_shape else {})}
              for r in rows]

@@ -4,7 +4,8 @@ driver.
 
 Each round:
   1. collect per-agent (ALSH, u) datasets from the GS under the current
-     joint policy (Algorithm 2; ``repro_torch.core.gs``),
+     joint policy (Algorithm 2; ``repro_torch.core.gs``) into the
+     device ring's next slot (``repro_torch.distributed.async_collect``),
   2. the AIP round: held-out CE, all AIPs trained together, the
      bounded-staleness gate, CE again,
   3. F inner steps of IALS rollouts + PPO for every agent at once
@@ -13,9 +14,13 @@ Each round:
 and emits one round record (``repro_torch.obs.metrics``). The key stream
 is the reference's: round r draws from ``split(fold_in(key, r), 3)``.
 
-Not ported yet, and refused rather than ignored: the async collect, the
-checkpoint manager, telemetry sinks, the sharded runtime and the
-region-decomposed GS.
+With ``ckpt_dir`` the state is checkpointed after every round
+(``repro_torch.checkpoint``, the reference's layout) with the per-agent
+``reports`` vector, and ``run`` resumes from the newest valid step: the
+rounds after a restore are those of the uninterrupted run.
+
+Not ported yet, and refused rather than ignored: the async collect,
+telemetry sinks, the sharded runtime and the region-decomposed GS.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import random as R
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import gs as gs_mod
 from repro_torch.core import ials as ials_mod
 from repro_torch.core import influence
+from repro_torch.distributed import async_collect as async_mod
 from repro_torch.distributed import fault
 from repro_torch.kernels import dispatch
 from repro_torch.marl import policy as policy_mod
@@ -53,7 +60,8 @@ class DIALSConfig:
     ials_streams: Optional[int] = None
     max_aip_staleness: int = 2     # rounds; straggler tolerance
     async_collect: bool = False    # not ported: must stay False
-    ckpt_dir: Optional[str] = None  # not ported: must stay None
+    ckpt_dir: Optional[str] = None
+    ckpt_keep: int = 3
     shards: Optional[int] = None   # only the single-device path: <= 1/None
     sharded_gs: str = "auto"       # "on" needs the sharded runtime
     use_kernels: str = "auto"      # "on"/"off" override the sub-configs
@@ -62,7 +70,6 @@ class DIALSConfig:
 
 def _refuse_unported(cfg: DIALSConfig) -> None:
     unported = {"async_collect=True": cfg.async_collect,
-                "ckpt_dir": cfg.ckpt_dir is not None,
                 "telemetry_dir": cfg.telemetry_dir is not None,
                 "shards>1": cfg.shards is not None and cfg.shards > 1,
                 "sharded_gs='on'": cfg.sharded_gs == "on"}
@@ -107,16 +114,28 @@ class DIALSTrainer:
         self.ppo_cfg, self.cfg = ppo_cfg, cfg
         self.info = env_cfg.info()
         self.n_eval_seqs = holdout_sequences(cfg)
+        n_collect = collect_stream_count(cfg)
         self.collect = gs_mod.make_collector(
-            env_mod, env_cfg, policy_cfg,
-            n_envs=collect_stream_count(cfg), steps=cfg.collect_steps,
-            device=self.device)
+            env_mod, env_cfg, policy_cfg, n_envs=n_collect,
+            steps=cfg.collect_steps, device=self.device)
+        # the in-place twin and its ring: after the first two rounds a
+        # collect writes into the retired slot, allocating no dataset
+        self.collect_into = gs_mod.make_collector_into(
+            env_mod, env_cfg, policy_cfg, n_envs=n_collect,
+            steps=cfg.collect_steps, device=self.device)
+        self._ring = async_mod.DeviceRing(
+            self.collect_into, lambda: gs_mod.zero_dataset(
+                env_cfg, n_envs=n_collect, steps=cfg.collect_steps,
+                device=self.device))
         self.ials_init, self.ials_train = ials_mod.make_ials_trainer(
             env_mod, env_cfg, policy_cfg, aip_cfg, ppo_cfg,
             n_envs=ials_stream_count(cfg), rollout_steps=cfg.rollout_steps,
             device=self.device)
         self.gs_eval = runner_mod.make_gs_eval(env_mod, env_cfg, policy_cfg,
                                                device=self.device)
+        self.manager = (CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
+                        if cfg.ckpt_dir else None)
+        self._resume_extra = {}    # checkpoint extra of the restored step
 
     # -- the AIP round -------------------------------------------------------
     def aip_round(self, aips, data, aip_keys, fresh_mask, reports, rnd,
@@ -145,6 +164,29 @@ class DIALSTrainer:
                     R.split(ks[1], self.info.n_agents), self.aip_cfg),
                 "round": 0, "key": key}
 
+    def restore_or_init(self, key):
+        """The newest valid checkpoint of ``ckpt_dir`` (restored into this
+        trainer's state structure, dtypes and device), else
+        ``init(key)``."""
+        state = self.init(key)
+        self._resume_extra = {}
+        if self.manager is not None:
+            tree, step = self.manager.restore_latest(state)
+            if tree is not None:
+                self._resume_extra = dict(self.manager.last_extra)
+                tree["round"] = int(step)
+                return tree
+        return state
+
+    def _restored_reports(self, state):
+        """The resumed ``reports`` vector: the checkpointed one when
+        present, else every AIP counted fresh as of the last round."""
+        saved = self._resume_extra.get("reports")
+        if saved is not None and len(saved) == self.info.n_agents:
+            return torch.tensor(saved, dtype=torch.int64, device=self.device)
+        return torch.full((self.info.n_agents,), state["round"] - 1,
+                          dtype=torch.int64, device=self.device)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -155,18 +197,22 @@ class DIALSTrainer:
         """Runs rounds ``state["round"] .. outer_rounds-1`` of (collect ->
         AIP train -> F inner steps -> GS eval). ``state`` starts from a
         given state (e.g. one carried over from the JAX package by
-        ``repro_torch.convert``) instead of ``init(key)``.
+        ``repro_torch.convert``) instead of :meth:`restore_or_init`.
         ``straggler_mask(round) -> (N,) {0,1}`` simulates late AIP
         updates. Returns (state, history of round records); every phase
         ends in a device synchronise, so the phase seconds are device
         time."""
         cfg, n = self.cfg, self.info.n_agents
         key = key.to(self.device)
-        state = self.init(key) if state is None else dict(state)
+        if state is None:
+            state = self.restore_or_init(key)
+        else:
+            state, self._resume_extra = dict(state), {}
         kernels = obs_metrics.kernel_summary(
             self.policy_cfg, self.aip_cfg, self.ppo_cfg, self.device)
-        reports = torch.full((n,), state["round"] - 1, dtype=torch.int64,
-                             device=self.device)
+        # collection round of each agent's newest trained-on dataset,
+        # checkpointed so a resume keeps the schedule
+        reports = self._restored_reports(state)
         history = []
         t_start = time.time()
         for rnd in range(state["round"], cfg.outer_rounds):
@@ -176,7 +222,7 @@ class DIALSTrainer:
             phases = {}
 
             t0 = time.perf_counter()
-            data = self.collect(state["ials"]["params"], kc)
+            data = self._ring.collect(state["ials"]["params"], kc)
             self._sync()
             phases["collect"] = time.perf_counter() - t0
 
@@ -229,4 +275,11 @@ class DIALSTrainer:
             if log:
                 log(rec)
             state["round"] = rnd + 1
+            if self.manager is not None:
+                # beyond the state, an exact resume needs the per-agent
+                # data-report rounds (staleness bookkeeping)
+                self.manager.save(rnd + 1, state,
+                                  extra={"reports": reports.tolist()})
+        if self.manager is not None:
+            self.manager.wait()
         return state, history

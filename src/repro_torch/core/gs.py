@@ -7,7 +7,11 @@ every agent i, stream s and step t, the ALSH feature (local obs x_i^t ++
 one-hot of a_i^{t-1}) and the realised influence sources u_i^t. Each
 stream draws its joint action from its OWN step key, so the sampled bits
 depend on (key, s, t) and never on S. Each step writes its (S, N, ...)
-record into the t-th time slice of preallocated (N, S, T, ...) buffers.
+record into the t-th time slice of (N, S, T, ...) buffers:
+:func:`make_collector` allocates them per call, :func:`make_collector_into`
+writes into the caller's (``repro_torch.distributed.async_collect.
+DeviceRing``'s retired slots), so a steady-state collect allocates no
+dataset.
 """
 from __future__ import annotations
 
@@ -35,24 +39,32 @@ def split_dataset(data, n_eval: int):
             tree_map(lambda x: x[:, n_seq - n_eval:], data))
 
 
-def make_collector(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
-                   *, n_envs: int, steps: int, device="cuda"):
-    """``collect(policy_params, key) -> dataset`` with leaves
-    (N, n_envs, steps, ...): feats, u, resets, on ``device`` (CUDA unless
-    the caller asks for the CPU; the params must live there)."""
+def zero_dataset(env_cfg, *, n_envs: int, steps: int, device="cuda"):
+    """Zero (N, n_envs, steps, ...) buffers of a collect's dataset: feats,
+    u, resets."""
+    dev = resolve_device(device)
+    info = env_cfg.info()
+    shape = (info.n_agents, n_envs, steps)
+    return {"feats": torch.zeros(shape + (info.alsh_dim,), device=dev),
+            "u": torch.zeros(shape + (info.n_influence,), device=dev),
+            "resets": torch.zeros(shape, device=dev)}
+
+
+def make_collector_into(env_mod, env_cfg,
+                        policy_cfg: policy_mod.PolicyConfig,
+                        *, n_envs: int, steps: int, device="cuda"):
+    """``collect_into(bufs, policy_params, key) -> bufs``: the collect
+    written in place into the caller's (N, n_envs, steps, ...) buffers
+    (the shapes of :func:`zero_dataset`) on ``device`` (CUDA unless the
+    caller asks for the CPU; the params must live there). Every cell is
+    overwritten, so the result is independent of what the buffers held."""
     dev = resolve_device(device)
     info = env_cfg.info()
     n_agents = info.n_agents
     pool = env_pool.GSPool(env_mod, env_cfg, n_envs)
 
-    def apply_agents(params, obs, h):
-        # (S, N, ...) stream-major <-> (N, S, ...) agent-major
-        logits, _, h2 = policy_mod.policy_apply(
-            params, obs.transpose(0, 1), h.transpose(0, 1), policy_cfg)
-        return logits.transpose(0, 1), h2.transpose(0, 1)
-
     @torch.no_grad()
-    def collect(policy_params, key):
+    def collect_into(bufs, policy_params, key):
         skeys = env_pool.stream_keys(key.to(dev), n_envs)
         env = pool.init(skeys)
         obs = pool.obs(env)
@@ -61,27 +73,35 @@ def make_collector(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
         prev_a = torch.zeros((n_envs, n_agents), dtype=torch.int64,
                              device=dev)
         prev_done = torch.ones((n_envs,), dtype=torch.bool, device=dev)
-        bufs = {"feats": torch.empty((n_agents, n_envs, steps,
-                                      info.alsh_dim), device=dev),
-                "u": torch.empty((n_agents, n_envs, steps,
-                                  info.n_influence), device=dev),
-                "resets": torch.empty((n_agents, n_envs, steps),
-                                      device=dev)}
         for t in range(steps):
             k_act, k_env, k_reset = env_pool.step_keys(skeys, t, 3)
             feat = torch.cat([obs, torch.nn.functional.one_hot(
                 prev_a, info.n_actions).float()], dim=-1)
-            logits, h2 = apply_agents(policy_params, obs, h)
+            logits, _, h2 = policy_mod.policy_apply_streams(
+                policy_params, obs, h, policy_cfg)
             action, _ = policy_mod.sample_action(k_act, logits)
             env, obs, _rew, u, done = pool.step_reset(env, action, k_env,
                                                       k_reset)
             h, prev_a = env_pool.zero_on_done(done, (h2, action))
             # the reset flag marks "a new episode starts HERE" (before
             # this feat)
-            bufs["feats"][:, :, t] = feat.transpose(0, 1)
-            bufs["u"][:, :, t] = u.transpose(0, 1)
-            bufs["resets"][:, :, t] = prev_done[None, :].float()
+            bufs["feats"][:, :, t].copy_(feat.transpose(0, 1))
+            bufs["u"][:, :, t].copy_(u.transpose(0, 1))
+            bufs["resets"][:, :, t].copy_(prev_done[None, :].float())
             prev_done = done
         return bufs
 
-    return collect
+    return collect_into
+
+
+def make_collector(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
+                   *, n_envs: int, steps: int, device="cuda"):
+    """``collect(policy_params, key) -> dataset`` with leaves
+    (N, n_envs, steps, ...): feats, u, resets, on ``device`` (CUDA unless
+    the caller asks for the CPU; the params must live there)."""
+    collect_into = make_collector_into(env_mod, env_cfg, policy_cfg,
+                                       n_envs=n_envs, steps=steps,
+                                       device=device)
+    return lambda params, key: collect_into(
+        zero_dataset(env_cfg, n_envs=n_envs, steps=steps, device=device),
+        params, key)

@@ -1,2 +1,3 @@
 """Environments of the port; importing registers the built-ins."""
-from repro_torch.envs import warehouse  # noqa: F401
+from repro_torch.envs import (powergrid, supplychain, traffic,  # noqa: F401
+                              warehouse)

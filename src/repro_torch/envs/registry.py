@@ -1,6 +1,6 @@
 """Environment registry — the port of ``repro/envs/registry.py``.
 
-Env modules self-register at import (the bottom of ``warehouse.py``);
+Env modules self-register at import (the bottom of each env module);
 ``make(name, side=...)`` resolves a name to ``(module, cfg)``.
 """
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Actor-critic policy networks — the port of ``repro/marl/policy.py``.
 
 Params are per-agent stacks with a leading agent axis A (the reference
-vmaps one agent's network over agents); inputs are (A, ..., O). This
-slice carries the FNN policy every repo configuration uses; the
-recurrent policy (``kind="gru"``) comes with the next slice and raises
-here.
+vmaps one agent's network over agents); inputs are (A, ..., O). Two
+kinds, as in the paper (Table 5): the FNN policy (traffic) and the
+recurrent policy (``kind="gru"``, warehouse), whose GRU runs the rollout
+cell and the PPO sequence through the scan kernels under
+``use_kernels``.
 """
 from __future__ import annotations
 
@@ -23,16 +24,11 @@ from repro_torch.nn import init as initializers
 class PolicyConfig:
     obs_dim: int
     n_actions: int
-    kind: str = "fnn"             # fnn (the GRU policy is not ported yet)
+    kind: str = "fnn"             # fnn | gru
     hidden: Tuple[int, ...] = (256, 128)
     gru_hidden: int = 128
     use_kernels: str = "auto"     # GRU scan of the recurrent policy:
     #                               auto (kernel on CUDA) | on | off
-
-    def __post_init__(self):
-        if self.kind != "fnn":
-            raise NotImplementedError(
-                f"policy kind {self.kind!r} is not ported yet (fnn only)")
 
 
 def dense_init(key, din, dout, scale=math.sqrt(2.0)):
@@ -56,9 +52,15 @@ def policy_init(key, cfg: PolicyConfig):
     for i, h in enumerate(cfg.hidden):
         trunk.append(dense_init(keys[..., i, :], din, h))
         din = h
-    return {"trunk": trunk,
-            "pi": dense_init(keys[..., 4, :], din, cfg.n_actions, scale=0.01),
-            "v": dense_init(keys[..., 5, :], din, 1, scale=1.0)}
+    params = {"trunk": trunk}
+    if cfg.kind == "gru":
+        params["gru"] = gru_mod.gru_init(
+            keys[..., 3, :], gru_mod.GRUConfig(in_dim=din,
+                                               hidden=cfg.gru_hidden))
+        din = cfg.gru_hidden
+    params["pi"] = dense_init(keys[..., 4, :], din, cfg.n_actions, scale=0.01)
+    params["v"] = dense_init(keys[..., 5, :], din, 1, scale=1.0)
+    return params
 
 
 def initial_hidden(cfg: PolicyConfig, *batch, device=None):
@@ -75,14 +77,32 @@ def policy_apply(params, obs, h, cfg: PolicyConfig):
     """One step. obs (A, ..., O); h (A, ..., H). Returns (logits, value,
     h')."""
     x = _trunk(params, obs)
+    if cfg.kind == "gru":
+        a = x.shape[0]
+        hf = gru_mod.gru_cell(params["gru"], h.reshape(a, -1, h.shape[-1]),
+                              x.reshape(a, -1, x.shape[-1]),
+                              use_kernels=cfg.use_kernels)
+        h = x = hf.reshape(h.shape)
     return dense(params["pi"], x), dense(params["v"], x)[..., 0], h
 
 
+def policy_apply_streams(params, obs, h, cfg: PolicyConfig):
+    """:func:`policy_apply` on the GS's stream-major layout: obs (S, A, O),
+    h (S, A, H) -> (logits, value, h') stream-major."""
+    logits, value, h2 = policy_apply(params, obs.transpose(0, 1),
+                                     h.transpose(0, 1), cfg)
+    return logits.transpose(0, 1), value.transpose(0, 1), h2.transpose(0, 1)
+
+
 def policy_sequence(params, obs_seq, h0, reset_mask, cfg: PolicyConfig):
-    """Recompute over a rollout chunk for PPO. obs_seq (A, B, T, O).
-    Returns (logits (A,B,T,nA), values (A,B,T))."""
-    del h0, reset_mask                 # the FNN policy carries no state
+    """Recompute over a rollout chunk for PPO. obs_seq (A, B, T, O); h0
+    (A, B, H); reset_mask (A, B, T). Returns (logits (A,B,T,nA), values
+    (A,B,T))."""
     x = _trunk(params, obs_seq)
+    if cfg.kind == "gru":
+        x, _ = gru_mod.gru_sequence(params["gru"], x, h0,
+                                    reset_mask=reset_mask,
+                                    use_kernels=cfg.use_kernels)
     return dense(params["pi"], x), dense(params["v"], x)[..., 0]
 
 

@@ -78,7 +78,9 @@ def _gru_inputs(device, a, t, b, h, seed, reset_p=0.2):
     (1, 16, 64, 128),     # BENCH_kernels.json's policy shape
     (2, 13, 9, 96),       # a hidden width that is not a power of two
     (3, 7, 2, 128),       # two rows a tile: lanes share rows
-    (2, 5, 1, 40)])       # one row a tile
+    (2, 5, 1, 40),        # one row a tile
+    (100, 16, 4, 128),    # the recurrent policy's ppo_loss
+    (100, 1, 16, 128)])   # the recurrent policy's rollout cell
 def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
     """Forward and backward, with resets, over one and several batch
     tiles (b=21 spans three tiles of 8) and at the main path's shapes."""
@@ -94,7 +96,8 @@ def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a,t,b,h", [(4, 12, 40, 64), (2, 20, 24, 128)])
+@pytest.mark.parametrize("a,t,b,h", [(4, 12, 40, 64), (2, 20, 24, 128),
+                                     (100, 16, 4, 128), (100, 1, 16, 128)])
 def test_gru_backward_is_deterministic(cuda_device, a, t, b, h):
     """dW_h and db_h sum all T.B rows in a fixed order, with no atomics:
     two runs give the same bits."""
@@ -126,6 +129,70 @@ def test_gru_weight_grads_match_float64_sums(cuda_device, a, t, b, h):
     _, dwh64, dbh64, _ = torch.autograd.grad(hs64, leaves, g.double())
     assert_close_scaled(dwh, dwh64, GRU_TOL)
     assert_close_scaled(dbh, dbh64, GRU_TOL)
+
+
+@pytest.mark.cuda
+def test_recurrent_policy_sequence_kernel_matches_plain(cuda_device):
+    """``policy_sequence`` of the GRU policy (with resets and a non-zero
+    h0) through the scan kernels against ``use_kernels="off"`` on the
+    same params: outputs and parameter gradients within GRU_TOL times
+    max(1, largest magnitude)."""
+    from repro_torch import random as R
+    from repro_torch.marl import policy
+    a, b, t, obs_dim = 3, 6, 11, 9
+    cfgs = {mode: policy.PolicyConfig(obs_dim, 4, kind="gru", hidden=(32,),
+                                      gru_hidden=24, use_kernels=mode)
+            for mode in ("on", "off")}
+    params = policy.policy_init(R.split(R.key(0, cuda_device), a),
+                                cfgs["on"])
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    obs = torch.randn(a, b, t, obs_dim, generator=gen, device=cuda_device)
+    h0 = 0.5 * torch.randn(a, b, 24, generator=gen, device=cuda_device)
+    resets = (torch.rand(a, b, t, generator=gen, device=cuda_device)
+              < 0.2).float()
+    outs = {}
+    launched = dict(gru_kernel.LAUNCHES)
+    for mode, cfg in cfgs.items():
+        leaves = [p.clone().requires_grad_() for p in
+                  (params["gru"]["wi"], params["gru"]["wh"],
+                   params["gru"]["bh"])]
+        p = {**params, "gru": {**params["gru"], "wi": leaves[0],
+                               "wh": leaves[1], "bh": leaves[2]}}
+        logits, values = policy.policy_sequence(p, obs, h0, resets, cfg)
+        grads = torch.autograd.grad(logits.square().sum() + values.sum(),
+                                    leaves)
+        outs[mode] = (logits, values) + grads
+    # "on" went through both kernels, once each
+    for name in ("gru_forward", "gru_backward"):
+        assert gru_kernel.LAUNCHES[name] == launched[name] + 1, name
+    for k, p in zip(outs["on"], outs["off"]):
+        assert_close_scaled(k, p, GRU_TOL)
+
+
+@pytest.mark.cuda
+def test_traffic_gs_trajectory_on_card_equals_cpu(cuda_device):
+    """A traffic GS pool (side 4, 8 streams) under seeded actions for 40
+    steps with auto-reset: every state field, observation, reward and
+    influence bit equal on the card and on the CPU."""
+    from repro_torch import random as R
+    from repro_torch.core import env_pool
+    from repro_torch.envs import registry
+    mod, cfg = registry.make("traffic", side=4, horizon=16)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        pool = env_pool.GSPool(mod, cfg, 8)
+        skeys = env_pool.stream_keys(R.key(5, dev), 8)
+        env = pool.init(skeys)
+        out = []
+        for t in range(40):
+            k_act, k_env, k_reset = env_pool.step_keys(skeys, t, 3)
+            action = R.randint(k_act, (cfg.n_agents,), 0, 2)
+            env, obs, rew, u, done = pool.step_reset(env, action, k_env,
+                                                     k_reset)
+            out += [env["lanes"], env["phase"], env["t"], obs, rew, u, done]
+        runs[str(dev)] = [x.cpu() for x in out]
+    for x, y in zip(runs["cpu"], runs[str(cuda_device)]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -96,9 +96,9 @@ def test_port_round_records_validate_and_refuse_unported_options():
     for rec in hist:
         assert jmetrics.validate_round(rec) == []
         assert rec["kernels"] == "policy=plain,aip=plain,ppo=plain"
-    for bad in (dict(async_collect=True), dict(ckpt_dir="ckpt"),
-                dict(telemetry_dir="tel"), dict(shards=2),
-                dict(sharded_gs="on")):
+    # ckpt_dir is ported (tests/test_torch_checkpoint.py); these are not
+    for bad in (dict(async_collect=True), dict(telemetry_dir="tel"),
+                dict(shards=2), dict(sharded_gs="on")):
         with pytest.raises(NotImplementedError, match="not ported"):
             _port_trainer(**bad)
 
@@ -120,7 +120,11 @@ def test_trainer_defaults_to_cuda(monkeypatch):
             lambda: gs.make_collector(mod, cfg, pc, n_envs=2, steps=2),
             lambda: ials.make_ials_trainer(mod, cfg, pc, ac, ppo.PPOConfig(),
                                            n_envs=2, rollout_steps=2),
-            lambda: runner.make_gs_eval(mod, cfg, pc)):
+            lambda: runner.make_gs_eval(mod, cfg, pc),
+            lambda: runner.make_gs_trainer(mod, cfg, pc, ppo.PPOConfig(),
+                                           runner.RunConfig()),
+            lambda: gs.make_collector_into(mod, cfg, pc, n_envs=2,
+                                           steps=2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             factory()
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):

@@ -1,6 +1,7 @@
-"""The port's MARL pieces against the reference: FNN policy and action
-sampling, AdamW and clipping, and one full ``ppo_update`` per agent
-(params within 1e-5), the reference vmapped over agents."""
+"""The port's MARL pieces against the reference: the FNN and recurrent
+policies and action sampling, AdamW and clipping, and one full
+``ppo_update`` per agent with each policy (params within 1e-5), the
+reference vmapped over agents."""
 import jax
 import numpy as np
 import torch
@@ -16,9 +17,12 @@ from repro_torch.optim import adamw, clip
 OBS, ACT, AGENTS = 7, 5, 3
 
 
-def _policy(seed=0, hidden=(16, 8)):
-    jpc = jpol.PolicyConfig(OBS, ACT, hidden=hidden, use_kernels="off")
-    pc = policy.PolicyConfig(OBS, ACT, hidden=hidden)
+GRU_TOL = 1e-5
+
+
+def _policy(seed=0, hidden=(16, 8), **kw):
+    jpc = jpol.PolicyConfig(OBS, ACT, hidden=hidden, use_kernels="off", **kw)
+    pc = policy.PolicyConfig(OBS, ACT, hidden=hidden, **kw)
     params = jax.jit(jax.vmap(lambda k: jpol.policy_init(k, jpc)))(
         jax.random.split(jax.random.PRNGKey(seed), AGENTS))
     return jpc, pc, jax.device_get(params)
@@ -66,8 +70,55 @@ def test_adamw_and_clip_match():
     assert tree_maxdiff(jopt, topt) < 1e-6
 
 
+def test_recurrent_policy_init_layout_matches():
+    """``kind="gru"`` adds the reference's ``gru`` subtree (in_dim = the
+    trunk's last width, hidden = gru_hidden) and heads on gru_hidden."""
+    jpc, pc, params = _policy(kind="gru", gru_hidden=12)
+    mine = policy.policy_init(
+        torch.tensor(np.asarray(jax.random.split(jax.random.PRNGKey(0),
+                                                 AGENTS)).astype(np.int64)),
+        pc)
+    shapes = lambda tree: jax.tree.map(lambda x: tuple(x.shape), tree)
+    assert shapes(to_torch(params)) == shapes(mine)
+    assert tuple(mine["gru"]["wh"].shape) == (AGENTS, 12, 36)
+
+
+def test_recurrent_policy_apply_and_sequence_match():
+    jpc, pc, params = _policy(seed=2, kind="gru", gru_hidden=12)
+    rng = np.random.RandomState(1)
+    b, t = 5, 9
+    obs = rng.randn(AGENTS, b, OBS).astype(np.float32)
+    h = (0.5 * rng.randn(AGENTS, b, 12)).astype(np.float32)
+    jl, jv, jh = jax.jit(jax.vmap(
+        lambda p, o, hh: jpol.policy_apply(p, o, hh, jpc)))(params, obs, h)
+    tl, tv, th = policy.policy_apply(to_torch(params), torch.from_numpy(obs),
+                                     torch.from_numpy(h), pc)
+    for j, m in ((jl, tl), (jv, tv), (jh, th)):
+        np.testing.assert_allclose(m.numpy(), np.asarray(j), atol=GRU_TOL)
+    seq = rng.randn(AGENTS, b, t, OBS).astype(np.float32)
+    resets = (rng.rand(AGENTS, b, t) < 0.2).astype(np.float32)
+    jl, jv = jax.jit(jax.vmap(
+        lambda p, o, hh, r: jpol.policy_sequence(p, o, hh, r, jpc)))(
+        params, seq, h, resets)
+    tl, tv = policy.policy_sequence(to_torch(params), torch.from_numpy(seq),
+                                    torch.from_numpy(h),
+                                    torch.from_numpy(resets), pc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=GRU_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=GRU_TOL)
+
+
 def test_ppo_update_params_match_after_one_call():
-    jpc, pc, params = _policy(seed=1)
+    _ppo_update_case("fnn")
+
+
+def test_recurrent_ppo_update_params_match_after_one_call():
+    """The GRU policy's sequence recompute (with resets and a non-zero
+    h0) under the gradient: params within GRU_TOL after one call."""
+    _ppo_update_case("gru")
+
+
+def _ppo_update_case(kind):
+    jpc, pc, params = _policy(seed=1, kind=kind, gru_hidden=8)
     e, t = 8, 10
     rng = np.random.RandomState(3)
     traj = {"obs": rng.randn(AGENTS, e, t, OBS).astype(np.float32),
@@ -77,7 +128,8 @@ def test_ppo_update_params_match_after_one_call():
             "ret": rng.randn(AGENTS, e, t).astype(np.float32),
             "values_old": rng.randn(AGENTS, e, t).astype(np.float32),
             "resets": (rng.rand(AGENTS, e, t) < 0.15).astype(np.float32),
-            "h0": np.zeros((AGENTS, e, pc.gru_hidden), np.float32)}
+            "h0": (0.3 * rng.randn(AGENTS, e, pc.gru_hidden))
+            .astype(np.float32)}
     jcfg = jppo.PPOConfig(epochs=2, minibatches=2, use_kernels="off")
     cfg = ppo.PPOConfig(epochs=2, minibatches=2)
     keys = jax.random.split(jax.random.PRNGKey(31), AGENTS)
