@@ -48,8 +48,13 @@ It
      the card and on the CPU, bit for bit, and one narrow-width round each;
      the recurrent-policy path again through a checkpoint: stopped after
      round 0, resumed by a new trainer for round 1, its record and state
-     against the uninterrupted run (max abs differences printed); then
-     the kernel path against the plain path on a small input (one round,
+     against the uninterrupted run (max abs differences printed); the
+     recurrent-policy path with the overlapped GS collect: three rounds
+     serial, three with ``async_collect=True`` (bound 2, telemetry on:
+     the tags [0, 0, 1] and [True, False, False], the JSONL log valid,
+     ``gru_forward`` launched by the collect worker on its own stream) and
+     two at bound 0, bit for bit the serial run's records; then the
+     kernel path against the plain path on a small input (one round,
      warehouse side=2);
   5. drives the serving path of gemma2-9b at full width (bf16, random
      weights from a seed): the prefill step over a B=2 x T=8192 prompt
@@ -120,6 +125,10 @@ FNN_ROUNDS = 1
 GRU_POLICY_ROUNDS = 2
 GS_TRAIN_STEPS = 5
 ENV_STEPS = 32
+# the overlapped collect on the recurrent-policy path: serial, async
+# (bound 2) and async at bound 0 (the serial schedule)
+ASYNC_ROUNDS = 3
+ASYNC_ZERO_ROUNDS = 2
 
 # The serving slice: gemma2-9b at full width (src/repro/configs/gemma2_9b.py),
 # prompt B=2 x T=8192 (prefill_32k cut from B=32 x 32768), greedy decode of
@@ -822,10 +831,11 @@ def check_ssd(gen, device):
 # the DIALS paths
 # ---------------------------------------------------------------------------
 def make_trainer(env, side, *, device, use_kernels, small=False, rounds=1,
-                 refresh=1, policy_kind="fnn", ckpt_dir=None):
+                 refresh=1, policy_kind="fnn", **dials_kw):
     """The loop driver on ``env`` at ``side``: the library's default
     widths with a GRU AIP (``small``: narrow widths), ``DIALSConfig()``
-    cut to ``rounds`` and F=``refresh``."""
+    cut to ``rounds`` and F=``refresh``; ``dials_kw`` sets further
+    ``DIALSConfig`` fields (``ckpt_dir``, the async collect, telemetry)."""
     from repro_torch.core import dials, influence
     from repro_torch.envs import registry
     from repro_torch.marl import policy, ppo
@@ -841,14 +851,14 @@ def make_trainer(env, side, *, device, use_kernels, small=False, rounds=1,
         dc = dials.DIALSConfig(outer_rounds=rounds, aip_refresh=refresh,
                                collect_envs=4, collect_steps=32, n_envs=4,
                                rollout_steps=8, eval_episodes=2,
-                               use_kernels=use_kernels, ckpt_dir=ckpt_dir)
+                               use_kernels=use_kernels, **dials_kw)
     else:
         pc = policy.PolicyConfig(info.obs_dim, info.n_actions,
                                  kind=policy_kind)
         ac = influence.AIPConfig(info.alsh_dim, info.n_influence,
                                  kind="gru")
         dc = dials.DIALSConfig(outer_rounds=rounds, aip_refresh=refresh,
-                               use_kernels=use_kernels, ckpt_dir=ckpt_dir)
+                               use_kernels=use_kernels, **dials_kw)
     return dials.DIALSTrainer(env_mod, env_cfg, pc, ac, ppo.PPOConfig(), dc,
                               device=device)
 
@@ -870,8 +880,9 @@ def reset_counts():
     for table in _count_tables():
         for k in table:
             table[k] = 0
-    for by_shape in gk.SHAPE_LAUNCHES.values():
-        by_shape.clear()
+    for tables in (gk.SHAPE_LAUNCHES, gk.STREAM_LAUNCHES):
+        for by_key in tables.values():
+            by_key.clear()
 
 
 def shape_counts():
@@ -886,6 +897,8 @@ def round_log(label):
         phases = {k: round(rec[k], 4) for k in
                   ("collect_s", "aip_s", "inner_s", "eval_s", "round_s")}
         print(f"{label} round {rec['round']}: {phases} "
+              f"data_round={rec['data_round']} "
+              f"forced_sync={rec['forced_sync']} "
               f"gs_return={rec['gs_return']:.6f} "
               f"aip_ce {rec['aip_ce_before']:.6f}->"
               f"{rec['aip_ce_after']:.6f} "
@@ -1127,6 +1140,84 @@ def run_resume_path(device, straight):
           "resume: the resumed round differs from the uninterrupted one")
     shutil.rmtree(d, ignore_errors=True)
     return counts, by_shape
+
+
+def run_async_path(device, smi):
+    """The recurrent-policy warehouse path (side=10, ``use_kernels="on"``,
+    F=AIP_REFRESH) ASYNC_ROUNDS rounds serial, then ASYNC_ROUNDS rounds
+    with the overlapped collect (``async_collect=True``,
+    ``max_aip_staleness=2``, ``telemetry_dir`` under build/), then
+    ASYNC_ZERO_ROUNDS rounds at ``max_aip_staleness=0``. Checks the tags
+    (``data_round`` [0, 0, 1], ``forced_sync`` [True, False, False]), the
+    telemetry log (every round record valid, rounds monotone, the
+    run_start/collect_obtain/round/run_end events), ``gru_forward``
+    launched by the collect worker on a stream other than the driver's,
+    and the staleness-0 records bit for bit the serial run's."""
+    import shutil
+    import torch
+    from repro_torch import random as R
+    from repro_torch.kernels.gru import kernel as gk
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import sinks
+    tel_dir = os.path.join(ROOT, "build", "chip_smoke_telemetry")
+    shutil.rmtree(tel_dir, ignore_errors=True)
+    driver = torch.cuda.current_stream(device).cuda_stream
+    runs, counts = {}, None
+    for label, rounds, kw in (
+            ("serial", ASYNC_ROUNDS, {}),
+            ("async", ASYNC_ROUNDS, dict(async_collect=True,
+                                         max_aip_staleness=2,
+                                         telemetry_dir=tel_dir)),
+            ("staleness 0", ASYNC_ZERO_ROUNDS, dict(async_collect=True,
+                                                    max_aip_staleness=0))):
+        trainer = make_trainer("warehouse", SIDE, device=device,
+                               use_kernels="on", rounds=rounds,
+                               refresh=AIP_REFRESH, policy_kind="gru", **kw)
+        _, history, c, _ = drive_dials(
+            f"gru-policy {label}", trainer, R.key(0, device=device), rounds,
+            "policy=cuda,aip=cuda,ppo=cuda")
+        streams = dict(gk.STREAM_LAUNCHES["gru_forward"])
+        runs[label] = (history, streams)
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+    (serial, serial_streams), (lagged, streams), (zero, _) = runs.values()
+    side = sum(n for s, n in streams.items() if s != driver)
+    round_s = {label: [round(r["round_s"], 4) for r in h]
+               for label, (h, _) in runs.items()}
+    print(f"async collect on {smi}: round_s {round_s}; async collect_s "
+          f"(obtain wait) {[round(r['collect_s'], 4) for r in lagged]}; "
+          f"gru_forward launches by stream {streams} (driver {driver}): "
+          f"{side} on the collect's stream", flush=True)
+    check([r["data_round"] for r in lagged] == [0, 0, 1],
+          "async: data_round tags are not [0, 0, 1]")
+    check([r["forced_sync"] for r in lagged] == [True, False, False],
+          "async: forced_sync is not [True, False, False]")
+    check(set(serial_streams) == {driver},
+          "serial: gru_forward launched on another stream than the driver's")
+    check(side > 0, "async: the collect worker launched no gru_forward on "
+                    "its own stream")
+    keys = ("gs_return", "aip_ce_before", "aip_ce_after", "ials_reward",
+            "data_round")
+    check([[r[k] for k in keys] for r in zero] ==
+          [[r[k] for k in keys] for r in serial[:ASYNC_ZERO_ROUNDS]],
+          "staleness 0: the records differ from the serial run's")
+    check(all(r["forced_sync"] for r in zero),
+          "staleness 0: a round was not force-synced")
+    events = sinks.read_jsonl(sinks.proc_path(tel_dir, 0))
+    kinds = [e["event"] for e in events]
+    rounds = [e for e in events if e["event"] == "round"]
+    print(f"async telemetry: {len(events)} events {kinds}", flush=True)
+    check(all(k in kinds for k in ("run_start", "collect_obtain", "round",
+                                   "run_end")),
+          "async telemetry: an event kind is missing")
+    check(all(obs_metrics.validate_round(e) == [] for e in rounds),
+          "async telemetry: an invalid round record")
+    check([e["round"] for e in rounds] == list(range(ASYNC_ROUNDS)),
+          "async telemetry: round indices not monotone")
+    check([e["data_round"] for e in events
+           if e["event"] == "collect_obtain"] == [0, 0, 1],
+          "async telemetry: collect_obtain tags")
+    shutil.rmtree(tel_dir, ignore_errors=True)
+    return counts, {}
 
 
 def run_serving_path(device):
@@ -1471,6 +1562,8 @@ def main() -> int:
             "checkpoint resume on the card", run_resume_path, device,
             (state, history))
         del state, history
+        paths["dials async collect"] = phase(
+            "dials async collect path", run_async_path, device, smi)
         phase("dials small input vs plain", check_small_against_plain,
               device)
         paths["gemma2-9b serving"] = (phase(

@@ -2,15 +2,23 @@
 4-agent networked system with (a) the global simulator, (b) DIALS, (c)
 untrained-DIALS, and compare final returns and wall time — the
 counterpart of ``examples/traffic_gs_vs_dials.py`` on the single-device
-loop driver (no ``--shards``, no ``--async-collect``). Defaults to the
-2x2 traffic grid; any env of the port's registry works.
+loop driver (no ``--shards``). Defaults to the 2x2 traffic grid; any env
+of the port's registry works.
 
 Run:  PYTHONPATH=src python examples/torch_traffic_gs_vs_dials.py \\
-          [--rounds N] [--inner F] [--env traffic] [--device cuda|cpu]
+          [--rounds N] [--inner F] [--env traffic] [--device cuda|cpu] \\
+          [--async-collect] [--telemetry-dir DIR]
 
 ``--device`` defaults to ``cuda`` and raises without a card.
+``--async-collect`` overlaps each round's GS collect with the previous
+round's inner steps (one-round dataset lag, bounded by
+``max_aip_staleness``; on the card the collect runs on a CUDA stream of
+its own). ``--telemetry-dir`` writes each DIALS run's JSONL event log
+into a subdirectory of DIR (check it with ``python -m
+tools.telemetry_report DIR/DIALS --check``).
 """
 import argparse
+import os
 import time
 
 import torch
@@ -28,6 +36,10 @@ def main():
     ap.add_argument("--inner", type=int, default=20)
     ap.add_argument("--env", default="traffic", choices=registry.names())
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--async-collect", action="store_true",
+                    help="double-buffered overlapped GS collect")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="per-run JSONL telemetry under this directory")
     args = ap.parse_args()
     device = resolve_device(args.device)
 
@@ -50,7 +62,10 @@ def main():
         cfg = dials.DIALSConfig(
             outer_rounds=args.rounds, aip_refresh=args.inner,
             collect_envs=8, collect_steps=64, n_envs=8, rollout_steps=16,
-            untrained=untrained, eval_episodes=8)
+            untrained=untrained, eval_episodes=8,
+            async_collect=args.async_collect,
+            telemetry_dir=(os.path.join(args.telemetry_dir, name)
+                           if args.telemetry_dir else None))
         t0 = time.time()
         _, hist = dials.DIALSTrainer(
             env_mod, env_cfg, pc, ac, ppo_cfg, cfg, device=device).run(

@@ -14,13 +14,33 @@ Each round:
 and emits one round record (``repro_torch.obs.metrics``). The key stream
 is the reference's: round r draws from ``split(fold_in(key, r), 3)``.
 
+``async_collect=True`` overlaps round k+1's GS collect with round k's
+AIP round and F inner steps: an ``AsyncCollector`` worker thread queues
+it on a CUDA stream of its own (a plain thread on the CPU). Round k
+trains on the dataset collected under round k-1's entry policy
+(``data_round`` in the record: the one-round lag Lemma 2 licenses);
+round 0 primes with a blocking collect, and a dataset older than
+``max_aip_staleness`` rounds is replaced by a blocking one
+(``forced_sync``), so ``max_aip_staleness=0`` is the serial schedule.
+
+Every phase is a span of the tracer (``repro_torch.obs``), fenced by
+default (``telemetry_fence``) on the driver's stream only: a fence
+waits for the phase's own device work and never for the collect on the
+other stream. The phases are measured with telemetry off too;
+``telemetry_dir`` adds the per-process JSONL event log (``run_start``,
+``collect_obtain``, ``round``, ``run_end``).
+
 With ``ckpt_dir`` the state is checkpointed after every round
 (``repro_torch.checkpoint``, the reference's layout) with the per-agent
-``reports`` vector, and ``run`` resumes from the newest valid step: the
-rounds after a restore are those of the uninterrupted run.
+``reports`` vector and the in-flight collect's round tag
+(``async_round``), and ``run`` resumes from the newest valid step: the
+rounds after a restore are those of the uninterrupted run. An async
+resume re-submits the interrupted run's in-flight collect from the
+checkpointed params of the round it was submitted in; when that step has
+been rotated away, the first round force-syncs.
 
-Not ported yet, and refused rather than ignored: the async collect,
-telemetry sinks, the sharded runtime and the region-decomposed GS.
+Not ported yet, and refused rather than ignored: the sharded runtime
+(``shards > 1``) and the region-decomposed GS (``sharded_gs="on"``).
 """
 from __future__ import annotations
 
@@ -30,6 +50,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch import random as R
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import gs as gs_mod
@@ -58,26 +79,33 @@ class DIALSConfig:
     rollout_steps: int = 16
     collect_streams: Optional[int] = None
     ials_streams: Optional[int] = None
-    max_aip_staleness: int = 2     # rounds; straggler tolerance
-    async_collect: bool = False    # not ported: must stay False
+    max_aip_staleness: int = 2     # rounds; straggler/async-lag tolerance
+    async_collect: bool = False    # overlap round k+1's GS collect with
+    #                                round k's inner steps (one-round
+    #                                dataset lag, bounded by
+    #                                max_aip_staleness)
     ckpt_dir: Optional[str] = None
     ckpt_keep: int = 3
     shards: Optional[int] = None   # only the single-device path: <= 1/None
     sharded_gs: str = "auto"       # "on" needs the sharded runtime
     use_kernels: str = "auto"      # "on"/"off" override the sub-configs
-    telemetry_dir: Optional[str] = None  # not ported: must stay None
+    telemetry_dir: Optional[str] = None  # JSONL event logs (repro_torch.obs)
+    # Fence every phase span on the driver's stream, so the phase seconds
+    # include their device work. On by default, unlike the reference's
+    # (whose JAX loop avoids host syncs): the port's phase seconds have
+    # always been fenced, and PERF.md's round tables compare them.
+    telemetry_fence: bool = True
 
 
 def _refuse_unported(cfg: DIALSConfig) -> None:
-    unported = {"async_collect=True": cfg.async_collect,
-                "telemetry_dir": cfg.telemetry_dir is not None,
-                "shards>1": cfg.shards is not None and cfg.shards > 1,
+    unported = {"shards>1": cfg.shards is not None and cfg.shards > 1,
                 "sharded_gs='on'": cfg.sharded_gs == "on"}
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(
             f"not ported yet: {', '.join(asked)} (the port runs the "
-            f"single-device loop driver only)")
+            f"single-device loop driver only; the sharded runtime is "
+            f"ROADMAP queue 1 item 9)")
     if cfg.sharded_gs not in ("auto", "on", "off"):
         raise ValueError(
             f"sharded_gs must be auto|on|off, got {cfg.sharded_gs!r}")
@@ -187,9 +215,56 @@ class DIALSTrainer:
         return torch.full((self.info.n_agents,), state["round"] - 1,
                           dtype=torch.int64, device=self.device)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    # -- key plumbing --------------------------------------------------------
+    def _collect_key(self, base_key, rnd: int):
+        """The round-``rnd`` collect key of the per-round fold-in stream,
+        as the serial round draws it, so async and serial runs draw the
+        same collect randomness for a given round."""
+        return R.split(R.fold_in(base_key, rnd), 3)[0]
+
+    # -- checkpoint-resume plumbing ------------------------------------------
+    def _ckpt_extra(self, collector, reports) -> dict:
+        """What a checkpoint carries beyond the state for an exact resume:
+        the in-flight async collect's round tag and the per-agent
+        data-report rounds (staleness bookkeeping)."""
+        return {"async_round": (collector.pending_round
+                                if collector is not None else None),
+                "reports": reports.tolist()}
+
+    def _params_at_round(self, p: int, state):
+        """The joint policy params at the TOP of round ``p``, which the
+        interrupted run submitted its tag-``p`` collect with: the step-``p``
+        checkpoint (end of round p-1), or the init for p == 0. None when
+        step ``p`` was rotated away."""
+        if p <= 0:
+            return self.init(state["key"])["ials"]["params"]
+        tree, _ = self.manager.restore_step(p, self.init(state["key"]))
+        return None if tree is None else tree["ials"]["params"]
+
+    def _reprime_collector(self, collector, state) -> bool:
+        """Exact async resume: re-submit the interrupted run's in-flight
+        collect (same params from the prior checkpoint, same key, same
+        round tag), so the resumed staleness schedule is the uninterrupted
+        one. False: the first obtain() force-syncs instead (fresher data,
+        safe under Lemma 2)."""
+        p = self._resume_extra.get("async_round")
+        if p is None:
+            return False
+        params = self._params_at_round(int(p), state)
+        if params is None:
+            return False
+        collector.submit(params, self._collect_key(state["key"], int(p) + 1),
+                         int(p))
+        return True
+
+    def _make_collector_executor(self, telemetry=obs.DISABLED):
+        """The loop path's executor: a worker thread driving the ring's
+        collect on its own CUDA stream. The ring's slots are allocated
+        here, on the driver's stream, before the worker can touch them."""
+        self._ring.allocate()
+        return async_mod.AsyncCollector(self._ring.collect, mode="thread",
+                                        device=self.device,
+                                        telemetry=telemetry)
 
     # -- Algorithm 1 --------------------------------------------------------
     def run(self, key, *, state=None, log: Optional[Callable] = None,
@@ -199,87 +274,130 @@ class DIALSTrainer:
         given state (e.g. one carried over from the JAX package by
         ``repro_torch.convert``) instead of :meth:`restore_or_init`.
         ``straggler_mask(round) -> (N,) {0,1}`` simulates late AIP
-        updates. Returns (state, history of round records); every phase
-        ends in a device synchronise, so the phase seconds are device
-        time."""
+        updates. Returns (state, history of round records). An exception
+        in the collect worker is raised here, at the harvest."""
         cfg, n = self.cfg, self.info.n_agents
         key = key.to(self.device)
         if state is None:
             state = self.restore_or_init(key)
         else:
             state, self._resume_extra = dict(state), {}
+        tel = obs.maybe(cfg.telemetry_dir, fence=cfg.telemetry_fence)
+        # the phases are measured with telemetry off too
+        tracer = (tel.tracer if tel.enabled
+                  else obs.Tracer(fenced=cfg.telemetry_fence))
         kernels = obs_metrics.kernel_summary(
             self.policy_cfg, self.aip_cfg, self.ppo_cfg, self.device)
+        collector = (self._make_collector_executor(tel)
+                     if cfg.async_collect else None)
         # collection round of each agent's newest trained-on dataset,
         # checkpointed so a resume keeps the schedule
         reports = self._restored_reports(state)
+        if collector is not None and state["round"] > 0 \
+                and cfg.max_aip_staleness > 0:
+            # re-prime the interrupted in-flight collect; failing that,
+            # the first obtain() below force-syncs
+            self._reprime_collector(collector, state)
         history = []
         t_start = time.time()
-        for rnd in range(state["round"], cfg.outer_rounds):
-            t_round = time.perf_counter()
-            ks = R.split(R.fold_in(state["key"], rnd), 3)
-            kc, kt, ke = ks[0], ks[1], ks[2]
-            phases = {}
+        tel.emit("run_start", path="loop", env=self.info.name, n_shards=1,
+                 start_round=state["round"], outer_rounds=cfg.outer_rounds,
+                 async_collect=cfg.async_collect, kernels=kernels)
+        try:
+            for rnd in range(state["round"], cfg.outer_rounds):
+                tracer.reset()
+                t_round = time.perf_counter()
+                ks = R.split(R.fold_in(state["key"], rnd), 3)
+                kc, kt, ke = ks[0], ks[1], ks[2]
 
-            t0 = time.perf_counter()
-            data = self._ring.collect(state["ials"]["params"], kc)
-            self._sync()
-            phases["collect"] = time.perf_counter() - t0
+                # (1) Algorithm 2. Async: take the double buffer's dataset
+                # (freshness-gated; round 0 primes with a blocking
+                # collect) and launch the NEXT round's collect under THIS
+                # round's entry policy, overlapping the rest of the round
+                with tracer.span("collect") as sp:
+                    if collector is not None:
+                        tagged, forced_sync = collector.obtain(
+                            rnd, state["ials"]["params"], kc,
+                            max_staleness=cfg.max_aip_staleness)
+                        # unless the bound forbids any lag (a tag-rnd
+                        # dataset could never be consumed at rnd+1)
+                        if (rnd + 1 < cfg.outer_rounds and collector.idle()
+                                and cfg.max_aip_staleness > 0):
+                            collector.submit(
+                                state["ials"]["params"],
+                                self._collect_key(state["key"], rnd + 1),
+                                rnd)
+                        data, data_round = tagged.data, tagged.round
+                    else:
+                        data = self._ring.collect(state["ials"]["params"],
+                                                  kc)
+                        data_round, forced_sync = rnd, False
+                    sp.fence(data)
 
-            t0 = time.perf_counter()
-            mask = (torch.as_tensor(straggler_mask(rnd), dtype=torch.float32,
-                                    device=self.device)
-                    if straggler_mask is not None
-                    else torch.ones((n,), device=self.device))
-            (state["aips"], reports, ce_before, ce_after,
-             forced) = self.aip_round(state["aips"], data, R.split(kt, n),
-                                      mask, reports, rnd, rnd)
-            stale_forced = int(forced.sum())
-            self._sync()
-            phases["aip_train"] = time.perf_counter() - t0
+                # (2) the AIP round: held-out CE, training, the gate
+                with tracer.span("aip_train") as sp:
+                    mask = (torch.as_tensor(straggler_mask(rnd),
+                                            dtype=torch.float32,
+                                            device=self.device)
+                            if straggler_mask is not None
+                            else torch.ones((n,), device=self.device))
+                    (state["aips"], reports, ce_before, ce_after,
+                     forced) = self.aip_round(state["aips"], data,
+                                              R.split(kt, n), mask, reports,
+                                              rnd, data_round)
+                    stale_forced = int(forced.sum())
+                    sp.fence((ce_before, ce_after))
 
-            t0 = time.perf_counter()
-            metrics = None
-            for _ in range(cfg.aip_refresh):
-                state["ials"], metrics = self.ials_train(state["ials"],
-                                                         state["aips"])
-            self._sync()
-            phases["inner_steps"] = time.perf_counter() - t0
+                # (3) F inner IALS+PPO steps, AIPs frozen
+                with tracer.span("inner_steps") as sp:
+                    metrics = None
+                    for _ in range(cfg.aip_refresh):
+                        state["ials"], metrics = self.ials_train(
+                            state["ials"], state["aips"])
+                    sp.fence(state["ials"])
 
-            t0 = time.perf_counter()
-            ret = self.gs_eval(state["ials"]["params"], ke,
-                               episodes=cfg.eval_episodes)
-            self._sync()
-            phases["gs_eval"] = time.perf_counter() - t0
-
-            stats = obs_metrics.staleness_stats(reports, rnd)
-            env_steps = collect_stream_count(cfg) * cfg.collect_steps
-            rec = obs_metrics.round_record(
-                round=rnd, gs_return=ret,
-                ials_reward=None if metrics is None else metrics["reward"],
-                aip_ce_before=ce_before.mean(),
-                aip_ce_after=ce_after.mean(),
-                data_round=rnd, forced_sync=False,
-                stale_forced=stale_forced,
-                staleness_min=stats["staleness_min"],
-                staleness_mean=stats["staleness_mean"],
-                staleness_max=stats["staleness_max"],
-                n_shards=1, reassigned=0, dead_hosts=[], kernels=kernels,
-                collect_s=phases["collect"],
-                env_steps_per_s=env_steps / phases["collect"],
-                aip_s=phases["aip_train"], inner_s=phases["inner_steps"],
-                eval_s=phases["gs_eval"], mirror_s=None,
-                round_s=time.perf_counter() - t_round,
-                wall_s=time.time() - t_start)
-            history.append(rec)
-            if log:
-                log(rec)
-            state["round"] = rnd + 1
-            if self.manager is not None:
-                # beyond the state, an exact resume needs the per-agent
-                # data-report rounds (staleness bookkeeping)
-                self.manager.save(rnd + 1, state,
-                                  extra={"reports": reports.tolist()})
+                with tracer.span("gs_eval") as sp:
+                    ret = sp.fence(self.gs_eval(
+                        state["ials"]["params"], ke,
+                        episodes=cfg.eval_episodes))
+                phases = tracer.phase_seconds()
+                stats = obs_metrics.staleness_stats(reports, rnd)
+                # collect throughput on the serial path only: the async
+                # span measures the obtain wait, not the simulator
+                env_steps = collect_stream_count(cfg) * cfg.collect_steps
+                env_rate = (env_steps / phases["collect"]
+                            if collector is None else None)
+                rec = obs_metrics.round_record(
+                    round=rnd, gs_return=ret,
+                    ials_reward=(None if metrics is None
+                                 else metrics["reward"]),
+                    aip_ce_before=ce_before.mean(),
+                    aip_ce_after=ce_after.mean(),
+                    data_round=data_round, forced_sync=forced_sync,
+                    stale_forced=stale_forced,
+                    staleness_min=stats["staleness_min"],
+                    staleness_mean=stats["staleness_mean"],
+                    staleness_max=stats["staleness_max"],
+                    n_shards=1, reassigned=0, dead_hosts=[],
+                    kernels=kernels, collect_s=phases["collect"],
+                    env_steps_per_s=env_rate, aip_s=phases["aip_train"],
+                    inner_s=phases["inner_steps"], eval_s=phases["gs_eval"],
+                    mirror_s=None, round_s=time.perf_counter() - t_round,
+                    wall_s=time.time() - t_start)
+                tel.emit_round(rec)
+                history.append(rec)
+                if log:
+                    log(rec)
+                state["round"] = rnd + 1
+                if self.manager is not None:
+                    self.manager.save(rnd + 1, state,
+                                      extra=self._ckpt_extra(collector,
+                                                             reports))
+        finally:
+            if collector is not None:
+                collector.close()
+            tel.emit("run_end", rounds=len(history))
+            tel.close()
         if self.manager is not None:
             self.manager.wait()
         return state, history

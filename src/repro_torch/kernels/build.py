@@ -6,11 +6,13 @@ fp32 as the reference does) into ``build/torch_kernels/`` at the root of
 the checkout (``LIBRARY``), and caches the loaded module for the
 process. Nothing is
 compiled at import: the package imports on a host without ``nvcc``. A
-build failure raises.
+build failure raises. The first build holds a lock: the loop driver's
+collect worker and the driver itself may both reach it first.
 """
 from __future__ import annotations
 
 import pathlib
+import threading
 
 import torch
 
@@ -24,21 +26,24 @@ NAME = "repro_torch_kernels"
 LIBRARY = BUILD_DIR / f"{NAME}.so"
 
 _extension = None
+_build_lock = threading.Lock()
 
 
 def extension():
     """The compiled kernel module, built on the first call."""
     global _extension
     if _extension is None:
-        from torch.utils.cpp_extension import load
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _extension = load(
-            name=NAME,
-            sources=[str(_CSRC / s) for s in SOURCES],
-            build_directory=str(BUILD_DIR),
-            extra_cflags=["-O2"],
-            extra_cuda_cflags=list(CUDA_FLAGS),
-            verbose=False)
+        with _build_lock:
+            if _extension is None:
+                from torch.utils.cpp_extension import load
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                _extension = load(
+                    name=NAME,
+                    sources=[str(_CSRC / s) for s in SOURCES],
+                    build_directory=str(BUILD_DIR),
+                    extra_cflags=["-O2"],
+                    extra_cuda_cflags=list(CUDA_FLAGS),
+                    verbose=False)
     return _extension
 
 

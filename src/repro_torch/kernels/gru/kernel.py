@@ -11,11 +11,17 @@ Hidden widths up to ``MAX_HIDDEN``.
 
 Every tensor carries a leading agent axis A (the reference vmaps the
 scan over agents), so each agent has its own W_h. ``LAUNCHES`` counts
-the launches of each wrapper, and ``SHAPE_LAUNCHES`` the same launches
-by (A, T, B, H), for the chip run to show that the main path went
-through the kernels and at which shapes.
+the launches of each wrapper, ``SHAPE_LAUNCHES`` the same launches by
+(A, T, B, H) and ``STREAM_LAUNCHES`` by the CUDA stream they were queued
+on (its ``cuda_stream`` handle), for the chip run to show that the main
+path went through the kernels, at which shapes, and that the overlapped
+collect launched its own on a stream other than the driver's. The loop
+driver's collect worker and the driver launch from two threads, so the
+counts are updated under a lock.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -25,6 +31,8 @@ from repro_torch.kernels.gru import ref
 
 LAUNCHES = {"gru_forward": 0, "gru_backward": 0}
 SHAPE_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
+STREAM_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
+_count_lock = threading.Lock()
 MAX_HIDDEN = 128                 # csrc/gru.cu's MAX_HIDDEN
 MAX_TILE_ROWS = 8                # batch rows a block carries through T
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
@@ -68,10 +76,12 @@ def _check_smem(nbytes: int, what: str, hdim: int):
             f"hidden {hdim}; a block has {MAX_SMEM_BYTES}")
 
 
-def _count(name: str, shape) -> None:
-    LAUNCHES[name] += 1
-    by_shape = SHAPE_LAUNCHES[name]
-    by_shape[shape] = by_shape.get(shape, 0) + 1
+def _count(name: str, shape, device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with _count_lock:
+        LAUNCHES[name] += 1
+        for table, k in ((SHAPE_LAUNCHES, shape), (STREAM_LAUNCHES, stream)):
+            table[name][k] = table[name].get(k, 0) + 1
 
 
 def forward(gi, wh, bh, h0, resets):
@@ -85,7 +95,7 @@ def forward(gi, wh, bh, h0, resets):
     rows = tile_rows(b, a, _sm_count(gi.device))
     _check_smem(ext.gru_forward_smem_bytes(hdim, rows), "forward", hdim)
     ext.gru_forward(gi, wh, bh, h0, resets, hs, rows)
-    _count("gru_forward", (a, t, b, hdim))
+    _count("gru_forward", (a, t, b, hdim), gi.device)
     return hs
 
 
@@ -111,7 +121,7 @@ def backward(gi, wh, bh, h0, resets, hs, g):
     part = new(ext.gru_backward_part_floats(a, t, b, hdim))
     ext.gru_backward(gi, wh, bh, h0, resets, hs, g, gh, rgate, part, dgi,
                      dwh, dbh, dh0, rows)
-    _count("gru_backward", (a, t, b, hdim))
+    _count("gru_backward", (a, t, b, hdim), gi.device)
     return dgi, dwh, dbh, dh0
 
 

@@ -196,6 +196,63 @@ def test_traffic_gs_trajectory_on_card_equals_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_async_collect_on_card(cuda_device):
+    """The overlapped GS collect on the card (warehouse side 2, the GRU
+    policy and AIP, kernels on, 3 rounds): ``max_aip_staleness=0`` is the
+    serial run bit for bit; with the bound 2 the tags lag one round, the
+    collect worker launches ``gru_fwd`` on a stream other than the
+    driver's, and two runs agree bit for bit."""
+    from repro_torch import random as R
+    from repro_torch.core import dials, influence
+    from repro_torch.envs import registry
+    from repro_torch.marl import policy, ppo
+    from repro_torch.tree import leaves
+
+    def run(**kw):
+        mod, cfg = registry.make("warehouse", side=2, horizon=16)
+        info = cfg.info()
+        tr = dials.DIALSTrainer(
+            mod, cfg, policy.PolicyConfig(info.obs_dim, info.n_actions,
+                                          kind="gru", hidden=(16,),
+                                          gru_hidden=8),
+            influence.AIPConfig(info.alsh_dim, info.n_influence, kind="gru",
+                                hidden=(16,), gru_hidden=8, epochs=3,
+                                batch=4),
+            ppo.PPOConfig(epochs=1, minibatches=2),
+            dials.DIALSConfig(outer_rounds=3, aip_refresh=2, collect_envs=4,
+                              collect_steps=16, n_envs=4, rollout_steps=8,
+                              eval_episodes=2, use_kernels="on", **kw),
+            device=cuda_device)
+        state, hist = tr.run(R.key(0, cuda_device))
+        return leaves(state["ials"]) + leaves(state["aips"]), hist
+
+    def same(a, b):
+        keys = ("gs_return", "aip_ce_before", "aip_ce_after",
+                "ials_reward", "data_round")
+        return (all(x.dtype == y.dtype and torch.equal(x, y)
+                    for x, y in zip(a[0], b[0]))
+                and [[r[k] for k in keys] for r in a[1]]
+                == [[r[k] for k in keys] for r in b[1]])
+
+    for tbl in gru_kernel.STREAM_LAUNCHES.values():
+        tbl.clear()
+    serial = run()
+    driver = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert set(gru_kernel.STREAM_LAUNCHES["gru_forward"]) == {driver}
+    zero = run(async_collect=True, max_aip_staleness=0)
+    assert [r["forced_sync"] for r in zero[1]] == [True] * 3
+    assert same(serial, zero)
+    for tbl in gru_kernel.STREAM_LAUNCHES.values():
+        tbl.clear()
+    lagged = [run(async_collect=True) for _ in range(2)]
+    assert [r["data_round"] for r in lagged[0][1]] == [0, 0, 1]
+    side = {s: n for s, n in
+            gru_kernel.STREAM_LAUNCHES["gru_forward"].items() if s != driver}
+    assert sum(side.values()) > 0, gru_kernel.STREAM_LAUNCHES
+    assert same(*lagged)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t,b", [(16, 1600), (256, 7), (16, 1601),
                                  (37, 96)])
 def test_gae_kernels_match_plain_bitwise(cuda_device, t, b):

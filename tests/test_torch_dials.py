@@ -89,16 +89,22 @@ def test_one_loop_round_matches_reference():
         assert_tree_equal(jstate["ials"][k], tstate["ials"][k])
 
 
-def test_port_round_records_validate_and_refuse_unported_options():
+def test_port_round_records_validate_and_refuse_unported_options(tmp_path):
     tr = _port_trainer(outer_rounds=2)
     _, hist = tr.run(R.key(3))
     assert [r["round"] for r in hist] == [0, 1]
     for rec in hist:
         assert jmetrics.validate_round(rec) == []
         assert rec["kernels"] == "policy=plain,aip=plain,ppo=plain"
-    # ckpt_dir is ported (tests/test_torch_checkpoint.py); these are not
-    for bad in (dict(async_collect=True), dict(telemetry_dir="tel"),
-                dict(shards=2), dict(sharded_gs="on")):
+    # ckpt_dir, the async collect and telemetry are ported
+    # (tests/test_torch_checkpoint.py, test_torch_async_collect.py,
+    # test_torch_obs.py); the sharded runtime is not
+    for ok in (dict(async_collect=True),
+               dict(telemetry_dir=str(tmp_path / "tel"))):
+        _, got = _port_trainer(outer_rounds=2, **ok).run(R.key(3))
+        assert [jmetrics.validate_round(r) for r in got] == [[], []]
+    assert [r["data_round"] for r in got] == [0, 1]
+    for bad in (dict(shards=2), dict(sharded_gs="on")):
         with pytest.raises(NotImplementedError, match="not ported"):
             _port_trainer(**bad)
 
