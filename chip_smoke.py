@@ -55,7 +55,16 @@ It
      ``gru_forward`` launched by the collect worker on its own stream) and
      two at bound 0, bit for bit the serial run's records; then the
      kernel path against the plain path on a small input (one round,
-     warehouse side=2);
+     warehouse side=2); then the program contracts
+     (``repro_torch.analysis``) on the recurrent-policy warehouse and
+     the traffic paths: the ring collect, the AIP round, the inner step
+     and the GS eval each recorded by the op walker (ops by source line),
+     run under ``set_sync_debug_mode("error")``, and captured as a CUDA
+     graph whose replays (outputs fed back) must equal the eager calls
+     bit for bit, eager and replay milliseconds printed (a refused
+     capture of the collect or the eval is printed as a finding); the
+     synchronising calls of a steady round at F=2 and F=5 by source line,
+     which must match, and no kernel build after round 0;
   5. drives the serving path of gemma2-9b at full width (bf16, random
      weights from a seed): the prefill step over a B=2 x T=8192 prompt
      with the flash kernel (42 launches, all of the bf16 kernel) and
@@ -129,6 +138,18 @@ ENV_STEPS = 32
 # (bound 2) and async at bound 0 (the serial schedule)
 ASYNC_ROUNDS = 3
 ASYNC_ZERO_ROUNDS = 2
+
+# The contracts phase (repro_torch.analysis): the recurrent-policy
+# warehouse and the traffic paths at side=10, kernels on. Four programs
+# each, with the CUDA-graph replays GraphCapturable runs (the inner step
+# F times, as a round runs it); the round's synchronising calls at two
+# values of F. A capture the ring collect or the GS eval refuses is a
+# finding (ROADMAP queue 3), not a failure; every other rule fails the run.
+CONTRACT_PATHS = (("warehouse", "gru"), ("traffic", "fnn"))
+CONTRACT_REPLAYS = {"ring_collect": 2, "aip_round": 3,
+                    "ials_train": AIP_REFRESH, "gs_eval": 2}
+MAY_REFUSE_CAPTURE = ("ring_collect", "gs_eval")
+SYNC_REFRESH = (2, 5)
 
 # The serving slice: gemma2-9b at full width (src/repro/configs/gemma2_9b.py),
 # prompt B=2 x T=8192 (prefill_32k cut from B=32 x 32768), greedy decode of
@@ -1220,6 +1241,123 @@ def run_async_path(device, smi):
     return counts, {}
 
 
+def run_contracts_path(device, smi):
+    """The program contracts on the card (``repro_torch.analysis``), for
+    each of CONTRACT_PATHS at side=10 with ``use_kernels="on"``: for the
+    ring collect (``collect_into``), the AIP round, the inner step and the
+    GS eval, one call under the op walker (its census: ops by source
+    line), ``NoHostSync`` (nothing exempt; one call under
+    ``set_sync_debug_mode("error")``) and ``GraphCapturable`` (eager calls
+    on a side stream, a capture, as many replays with the outputs fed
+    back, bit for bit; eager and replay medians by CUDA events). Then two
+    rounds at each F of SYNC_REFRESH under ``SyncCounter`` and
+    ``CompileCounter``: the synchronising calls of the steady round 1 by
+    source line must not grow with F (``ScalarSyncBudget``) and no kernel
+    build may follow round 0. Returns (counts, by shape): the launches of
+    the walker's, the eager calls' and the captures', not the graph
+    replays'."""
+    from repro_torch import random as R
+    from repro_torch.analysis import contracts, programs, recompile, walker
+    from repro_torch.analysis.report import format_finding
+    reset_counts()
+    refusals, table = [], {}
+    for env, kind in CONTRACT_PATHS:
+        label = f"{env}/{kind}-policy"
+        trainer = make_trainer(env, SIDE, device=device, use_kernels="on",
+                               rounds=2, refresh=AIP_REFRESH,
+                               policy_kind=kind)
+        progs = {p.name.rsplit("/", 1)[1]: p
+                 for p in programs.loop_programs(env, trainer=trainer)}
+        for name, replays in CONTRACT_REPLAYS.items():
+            program = progs[name]
+            program.meta["replays"] = replays
+            rec = program.recording()
+            start = launch_counts()
+            # one eager call under the sync-debug mode
+            sync = contracts.NoHostSync().check(program)
+            mid = launch_counts()
+            for f in sync:
+                print(format_finding(f, github=False), flush=True)
+            check(not sync, f"contracts {label} {name}: NoHostSync")
+            # `replays` eager calls, the capture, `replays` replays: what
+            # the eager calls do not account for was launched into the
+            # graph (replays launch through it, uncounted)
+            graph = contracts.GraphCapturable().check(program)
+            end = launch_counts()
+            inside = {k: end[k] - mid[k] - replays * (mid[k] - start[k])
+                      for k in end if end[k] > mid[k]}
+            for f in graph:
+                print(format_finding(f, github=False), flush=True)
+            refused = [f for f in graph if "cannot be captured" in f.message]
+            if refused and name in MAY_REFUSE_CAPTURE:
+                refusals += [format_finding(f, github=False)
+                             for f in refused]
+                graph = [f for f in graph if f not in refused]
+            check(not graph, f"contracts {label} {name}: GraphCapturable")
+            t = program.meta.get("timing", {})
+            row = {"ops": len(rec.sites),
+                   "host_reads": len(walker.host_reads(rec)),
+                   "eager_ms": t.get("eager_median_ms"),
+                   "replay_ms": t.get("replay_median_ms"),
+                   "eager_ms_all": t.get("eager_ms"),
+                   "replay_ms_all": t.get("replay_ms"),
+                   "launches_in_graph": inside if not refused else None,
+                   "census": walker.census(rec, 10),
+                   "functions": walker.census(rec, 3, by="fn")}
+            table[f"{label} {name}"] = row
+            print(f"contracts {label} {name} on {smi}: {row['ops']} ops "
+                  f"({row['host_reads']} host reads), eager "
+                  f"{row['eager_ms']} ms, replay {row['replay_ms']} ms "
+                  f"(medians of {replays}; all {row['eager_ms_all']} / "
+                  f"{row['replay_ms_all']}), kernel launches inside the "
+                  f"graph {inside}; ops by line {row['census']}; by "
+                  f"function {row['functions']}",
+                  flush=True)
+            if name in ("ials_train", "aip_round"):
+                want = ["gru_forward", "gru_backward"] if (
+                    name == "aip_round" or kind == "gru") else \
+                    ["gru_forward"]
+                want += ["gae_forward"] if name == "ials_train" else []
+                check(all(inside.get(k, 0) > 0 for k in want),
+                      f"contracts {label} {name}: {want} not all inside "
+                      f"the captured graph ({inside})")
+        del progs, program, rec
+        counts, record = {}, None
+        for refresh in SYNC_REFRESH:
+            tr = make_trainer(env, SIDE, device=device, use_kernels="on",
+                              rounds=2, refresh=refresh, policy_kind=kind)
+            snaps, compiles = [], []
+            with recompile.CompileCounter() as cc, \
+                    contracts.SyncCounter() as sc:
+                _, history = tr.run(R.key(0, device=device), log=lambda r: (
+                    snaps.append(sc.snapshot()), compiles.append(cc.count)))
+            counts[refresh] = snaps[1] - snaps[0]
+            record = history[-1]
+            steady = recompile.check_steady_state(
+                compiles, what=f"contracts {label} F={refresh}")
+            print(f"contracts {label} F={refresh}: synchronising calls of "
+                  f"steady round 1: {sum(counts[refresh].values())} "
+                  f"{dict(sorted(counts[refresh].items()))}; compiles per "
+                  f"round {compiles}; round_s "
+                  f"{[round(r['round_s'], 4) for r in history]}",
+                  flush=True)
+            for f in steady:
+                print(format_finding(f, github=False), flush=True)
+            check(not steady, f"contracts {label}: a compile after round 0")
+        budget = contracts.ScalarSyncBudget().check(contracts.Program(
+            f"loop/{env}/round", ("round",),
+            meta={"record": record, "sync_counts": counts}))
+        for f in budget:
+            print(format_finding(f, github=False), flush=True)
+        check(not budget, f"contracts {label}: ScalarSyncBudget")
+        table[f"{label} syncs"] = {f: dict(c) for f, c in counts.items()}
+    print(f"contracts summary on {smi}: "
+          f"{json.dumps(table, default=str)}", flush=True)
+    for line in refusals:
+        print(f"contracts finding (ROADMAP queue 3): {line}", flush=True)
+    return launch_counts(), shape_counts()
+
+
 def run_serving_path(device):
     """gemma2-9b at full width, bf16, params from a seeded generator: the
     prefill step over a B=2 x T=8192 prompt with the flash kernel and
@@ -1566,6 +1704,9 @@ def main() -> int:
             "dials async collect path", run_async_path, device, smi)
         phase("dials small input vs plain", check_small_against_plain,
               device)
+        paths["contracts (walker, eager and capture calls; graph replays "
+              "uncounted)"] = phase("contracts path", run_contracts_path,
+                                    device, smi)
         paths["gemma2-9b serving"] = (phase(
             "gemma2-9b serving path", run_serving_path, device), {})
         paths["mamba2 ssm layer"] = (phase(

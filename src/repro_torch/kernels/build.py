@@ -8,6 +8,8 @@ process. Nothing is
 compiled at import: the package imports on a host without ``nvcc``. A
 build failure raises. The first build holds a lock: the loop driver's
 collect worker and the driver itself may both reach it first.
+:func:`build_count` counts the builds and loads of this process, for the
+steady-state compile check (``repro_torch.analysis.recompile``).
 """
 from __future__ import annotations
 
@@ -26,12 +28,18 @@ NAME = "repro_torch_kernels"
 LIBRARY = BUILD_DIR / f"{NAME}.so"
 
 _extension = None
+_builds = 0
 _build_lock = threading.Lock()
+
+
+def build_count() -> int:
+    """How many times this process has built and loaded the module."""
+    return _builds
 
 
 def extension():
     """The compiled kernel module, built on the first call."""
-    global _extension
+    global _extension, _builds
     if _extension is None:
         with _build_lock:
             if _extension is None:
@@ -44,6 +52,7 @@ def extension():
                     extra_cflags=["-O2"],
                     extra_cuda_cflags=list(CUDA_FLAGS),
                     verbose=False)
+                _builds += 1
     return _extension
 
 

@@ -17,6 +17,9 @@ Three layers of the same idea, "name the time":
   runs on past a fence.
 * **Annotations** (:func:`annotate`): ``torch.profiler.record_function``,
   so a region is named on a profiler timeline; host spans enter one too.
+  The names open on a thread (:func:`open_labels`) are the labels the
+  op walker (``repro_torch.analysis.walker``) stamps on every op, as
+  ``named_scope`` labels are in the reference.
 * **Profiler sessions** (:func:`profile`): an opt-in ``torch.profiler``
   window that exports a Chrome trace into a directory.
 
@@ -28,18 +31,37 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.tree import leaves
 
 
+_open = threading.local()
+
+
+def open_labels() -> Tuple[str, ...]:
+    """The spans and annotations open on this thread, outermost first."""
+    return tuple(getattr(_open, "labels", ()))
+
+
+@contextlib.contextmanager
 def annotate(name: str):
     """A named region on the profiler's timeline
-    (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+    (``torch.profiler.record_function``), open in :func:`open_labels`
+    while it runs."""
+    labels = getattr(_open, "labels", None)
+    if labels is None:
+        labels = _open.labels = []
+    labels.append(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        labels.pop()
 
 
 @contextlib.contextmanager

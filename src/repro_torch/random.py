@@ -30,6 +30,8 @@ import torch
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY_F32 = torch.finfo(torch.float32).tiny
+# the float32 just above -1: ``normal``'s lower bound for its uniform draw
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
 def _rotl(x, r: int):
@@ -163,8 +165,7 @@ def permutation(key, n: int):
 
 def normal(key, shape):
     """Standard normal float32 by jax's inverse-CDF construction."""
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
-    u = uniform(key, shape, minval=lo, maxval=1.0)
+    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0)
     return math.sqrt(2.0) * torch.erfinv(u)
 
 

@@ -252,6 +252,71 @@ def test_async_collect_on_card(cuda_device):
     assert same(*lagged)
 
 
+def _contract_programs(device, env, kind):
+    """The loop driver's four programs of the contracts phase at side 2,
+    kernels on, narrow widths (the GRU AIP), by short name."""
+    from repro_torch.analysis import programs
+    from repro_torch.core import dials, influence
+    from repro_torch.envs import registry
+    from repro_torch.marl import policy, ppo
+    mod, cfg = registry.make(env, side=2, horizon=16)
+    info = cfg.info()
+    tr = dials.DIALSTrainer(
+        mod, cfg, policy.PolicyConfig(info.obs_dim, info.n_actions,
+                                      kind=kind, hidden=(16,), gru_hidden=8),
+        influence.AIPConfig(info.alsh_dim, info.n_influence, kind="gru",
+                            hidden=(16,), gru_hidden=8, epochs=3, batch=4),
+        ppo.PPOConfig(epochs=1, minibatches=2),
+        dials.DIALSConfig(aip_refresh=2, collect_envs=4, collect_steps=16,
+                          n_envs=4, rollout_steps=8, eval_episodes=2,
+                          use_kernels="on"),
+        device=device)
+    return {p.name.rsplit("/", 1)[1]: p
+            for p in programs.loop_programs(env, trainer=tr)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,kind", [("warehouse", "gru"),
+                                      ("traffic", "fnn")])
+def test_contracts_no_host_sync_on_card(cuda_device, env, kind):
+    """``NoHostSync`` with nothing exempt and one call under
+    ``set_sync_debug_mode("error")``, for the ring collect, the AIP round,
+    the inner step and the GS eval, kernels on."""
+    from repro_torch.analysis import contracts, report
+    progs = _contract_programs(cuda_device, env, kind)
+    for name in ("ring_collect", "aip_round", "ials_train", "gs_eval"):
+        found = contracts.NoHostSync().check(progs[name])
+        assert found == [], "\n".join(report.format_finding(f)
+                                       for f in found)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,kind", [("warehouse", "gru"),
+                                      ("traffic", "fnn")])
+def test_contracts_graph_capture_on_card(cuda_device, env, kind):
+    """``GraphCapturable`` for the inner step and the AIP round: captured
+    as one CUDA graph with the GRU and GAE kernels inside, one replay and
+    three replays (state fed back) bit for bit the eager calls."""
+    from repro_torch.analysis import contracts, report
+    from repro_torch.kernels.gae import kernel as gae_k
+    progs = _contract_programs(cuda_device, env, kind)
+    for name in ("ials_train", "aip_round"):
+        program = progs[name]
+        program.meta["replays"] = 3
+        before = {**gru_kernel.LAUNCHES, **gae_k.LAUNCHES}
+        found = contracts.GraphCapturable().check(program)
+        assert found == [], "\n".join(report.format_finding(f)
+                                       for f in found)
+        after = {**gru_kernel.LAUNCHES, **gae_k.LAUNCHES}
+        # 3 eager calls and the capture launch; replays count nothing
+        assert (after["gru_forward"] - before["gru_forward"]) % 4 == 0
+        assert after["gru_forward"] > before["gru_forward"]
+        if name == "ials_train":
+            assert after["gae_forward"] - before["gae_forward"] == 4
+        timing = program.meta["timing"]
+        assert len(timing["eager_ms"]) == len(timing["replay_ms"]) == 3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,b", [(16, 1600), (256, 7), (16, 1601),
                                  (37, 96)])
