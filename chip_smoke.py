@@ -41,7 +41,18 @@ It
      round record and printing each round's phase seconds: warehouse with
      the FNN policy (one round); warehouse with the paper's recurrent
      policy (gru_hidden 128; two rounds, the GRU kernels launched at
-     hidden 128 in the rollout cell and ppo_loss); traffic with the FNN
+     hidden 128 in the rollout cell and ppo_loss); the same path through
+     the sharded round (``repro_torch.core.dials_sharded``), held against
+     that loop run (AIP 1e-6, CE and IALS reward 1e-5, GS return 5e-2;
+     policy 1e-6 for one shard in process, the reference's 1e-2 and
+     half the loop's own move from init for two ranks), one shard in
+     process, then two ranks spawned on cuda:0 over a gloo group, the
+     region-
+     decomposed GS splitting the ten region rows into two bands (each
+     rank's round seconds, halo exchanges, staged bytes and seconds per
+     round printed, its collect against the replicated collect's rows
+     bit for bit, ``CollectiveFree``/``HaloOnly`` on its programs, its
+     launch counts returned to the kernels line); traffic with the FNN
      policy (one round), then the GS-trained baseline (``make_gs_trainer``,
      5 timed ``train_fn`` steps and one ``eval_fn``, launching the GAE
      kernel); powergrid and supplychain, a 32-step GS trajectory each on
@@ -138,6 +149,24 @@ ENV_STEPS = 32
 # (bound 2) and async at bound 0 (the serial schedule)
 ASYNC_ROUNDS = 3
 ASYNC_ZERO_ROUNDS = 2
+# The sharded path: the recurrent-policy warehouse path again through the
+# sharded round, one shard in process and SHARDED_RANKS ranks sharing
+# cuda:0 over gloo, held against the loop run. AIP params 1e-6, held-out CE
+# 1e-5 and GS return 5e-2 are the reference's tolerances for sharded
+# against loop (tests/_multidevice_check.py); the IALS reward 1e-5, as the
+# CE. Policy params: 1e-6 for one shard, which runs the loop's very
+# batches. The ranks run the policy's batched products over N/2 agents
+# instead of N, whose last bits may differ and which the PPO steps carry
+# on, so they keep the reference's 1e-2 (one optimizer step); as 1e-2 is
+# more than these rounds move a parameter, the ranks' policy must also
+# lie nearer the loop's than SHARDED_POLICY_REL times the loop's own move
+# from init (2-norms over every leaf): a skipped or garbled update does not
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT_S = 600
+SHARDED_TOL = {"aips": 1e-6, "policy": 1e-6, "aip_ce_before": 1e-5,
+               "aip_ce_after": 1e-5, "gs_return": 5e-2, "ials_reward": 1e-5}
+SHARDED_RANKS_POLICY_TOL = 1e-2
+SHARDED_POLICY_REL = 0.5
 
 # The contracts phase (repro_torch.analysis): the recurrent-policy
 # warehouse and the traffic paths at side=10, kernels on. Four programs
@@ -1017,6 +1046,220 @@ def run_gru_policy_path(device):
     return counts, by_shape, state, history
 
 
+# ---------------------------------------------------------------------------
+# the sharded path
+# ---------------------------------------------------------------------------
+def _sharded_compare(label, history, aips, params, loop_history, loop_state,
+                     tol, init_params=None):
+    """Hold a sharded run's records and final AIP and policy params to the
+    loop run's, at the tolerances ``tol`` (SHARDED_TOL's keys). With
+    ``init_params``, also the policy's distance from the loop's against
+    the loop's own move from init (``policy_rel``, 2-norms over every
+    leaf) to SHARDED_POLICY_REL. Returns the differences."""
+    from repro_torch.tree import leaves
+    import torch
+
+    def flat(tree):
+        return torch.cat([torch.as_tensor(x).detach().double().cpu()
+                          .reshape(-1) for x in leaves(tree)])
+
+    def diff(a, b):
+        return float((flat(a) - flat(b)).abs().max())
+
+    errs = {"aips": diff(aips, loop_state["aips"]),
+            "policy": diff(params, loop_state["ials"]["params"])}
+    if init_params is not None:
+        want = flat(loop_state["ials"]["params"])
+        errs["policy_rel"] = float(
+            (flat(params) - want).norm() / (want - flat(init_params)).norm())
+    check(len(history) == len(loop_history),
+          f"{label}: {len(history)} round records, the loop run has "
+          f"{len(loop_history)}")
+    for k in ("aip_ce_before", "aip_ce_after", "gs_return", "ials_reward"):
+        errs[k] = max(abs(r[k] - q[k]) for r, q in zip(history,
+                                                         loop_history))
+    for rec in history:
+        check(rec["n_shards"] == history[0]["n_shards"] and
+              rec["collect_s"] is None and rec["inner_s"] is None,
+              f"{label}: the sharded record's n_shards/phase fields")
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"{label} round {rec['round']}: "
+                                        f"{k}={v}")
+    print(f"{label} against the loop run: max abs differences {errs}",
+          flush=True)
+    limits = dict(tol)
+    if init_params is not None:
+        limits["policy_rel"] = SHARDED_POLICY_REL
+    for k, lim in limits.items():
+        check(errs[k] <= lim, f"{label}: {k} differs from the loop run by "
+                              f"{errs[k]:.3e} > {lim}")
+    return errs
+
+
+def _sharded_rank(root, n_ranks):
+    """One rank of the two-rank sharded run on cuda:0 (started by
+    ``bootstrap.spawn_local``): the recurrent-policy warehouse path with
+    ``shards=n_ranks`` (the region-decomposed GS under ``sharded_gs``
+    auto), its launch counts and halo traffic per round; then a collect
+    held against the replicated collect restricted to this rank's block,
+    bit for bit, and ``CollectiveFree``/``HaloOnly`` on the round's
+    programs. Returns plain values; rank 0 also its final AIP and policy
+    params (gathered, every agent)."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    import torch
+    from repro_torch import random as R
+    from repro_torch.distributed import bootstrap, collectives
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.tree import leaves
+    torch.set_num_threads(2)
+    ctx = bootstrap.bootstrap()
+    device = dispatch.resolve_device("cuda:0")
+    t0 = time.perf_counter()
+    build.extension()                      # built by the parent: a load
+    load_s = time.perf_counter() - t0
+    trainer = make_trainer("warehouse", SIDE, device=device,
+                           use_kernels="on", rounds=GRU_POLICY_ROUNDS,
+                           refresh=AIP_REFRESH, policy_kind="gru",
+                           shards=n_ranks)
+    halo = []
+
+    def log(rec):
+        halo.append(dict(collectives.STATS))
+        collectives.reset_stats()
+
+    key = R.key(0, device=device)
+    reset_counts()
+    collectives.reset_stats()
+    state, history = trainer.run(key, log=log)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    runner = trainer._sharded
+    # a collect on this rank against the replicated collect's rows
+    init = trainer.init(key)
+    carry = runner.shard_carry({"aips": init["aips"], "ials": init["ials"],
+                                "reports": torch.zeros(
+                                    trainer.info.n_agents, dtype=torch.int64,
+                                    device=device)})
+    kc = R.split(R.fold_in(key, 0), 3)[0]
+    mine = runner.collect(carry["ials"]["params"], kc)
+    full = trainer.collect(init["ials"]["params"], kc)
+    first_diff = None
+    for name in sorted(full):
+        a, b = mine[name], full[name][runner.rows]
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[0].tolist()
+            first_diff = (f"{name}{bad}: {a[tuple(bad)].item()} vs "
+                          f"{b[tuple(bad)].item()} "
+                          f"({int((a != b).sum())} of {a.numel()} differ)")
+            break
+    audit = None
+    try:
+        runner.audit_collectives(carry, key)
+    except AssertionError as e:
+        audit = str(e)
+    out = {"rank": ctx.process_id, "world": ctx.num_processes,
+           "use_sharded_gs": runner.use_sharded_gs,
+           "rows": [runner.rows.start, runner.rows.stop],
+           "history": history, "counts": counts, "halo": halo,
+           "collect_first_diff": first_diff,
+           "collect_leaves": {k: list(v.shape) for k, v in mine.items()},
+           "audit": audit, "load_s": load_s}
+    if ctx.process_id == 0:
+        out["aips"] = leaves(state["aips"])
+        out["params"] = leaves(state["ials"]["params"])
+    return out
+
+
+def run_sharded_path(device, smi, loop_history, loop_state):
+    """The sharded round (``repro_torch.core.dials_sharded``) on the
+    recurrent-policy warehouse path at side=10 (the configuration of
+    ``run_gru_policy_path``, kernels on), held against that loop run:
+    first one shard in process (``_run_sharded`` on a one-shard mesh,
+    as the reference's own test drives it), then SHARDED_RANKS ranks
+    spawned on cuda:0 over a gloo group (``bootstrap.spawn_local``),
+    the warehouse's region rows split into SHARDED_RANKS bands, so the
+    region-decomposed GS runs. Prints each run's round_s beside the
+    loop's and the halo traffic per round. Returns (counts of the
+    in-process run, {}, each rank's counts)."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.distributed import bootstrap
+    from repro_torch.tree import leaves
+    loop_round_s = [round(r["round_s"], 4) for r in loop_history]
+    # (1) one shard in process
+    trainer = make_trainer("warehouse", SIDE, device=device,
+                           use_kernels="on", rounds=GRU_POLICY_ROUNDS,
+                           refresh=AIP_REFRESH, policy_kind="gru")
+    key = R.key(0, device=device)
+    state0 = trainer.init(key)
+    init_params = [x.cpu() for x in leaves(state0["ials"]["params"])]
+    reset_counts()
+    state, history = trainer._run_sharded(state0, 1, log=None,
+                                          straggler_mask=None)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(trainer._sharded.use_sharded_gs,
+          "one shard: the region-decomposed GS did not run")
+    _sharded_compare("sharded path (1 shard, in process)", history,
+                     state["aips"], state["ials"]["params"], loop_history,
+                     loop_state, SHARDED_TOL)
+    print(f"sharded path (1 shard, in process) on {smi}: round_s "
+          f"{[round(r['round_s'], 4) for r in history]} (loop "
+          f"{loop_round_s}); launches {counts}", flush=True)
+    for name in ("gru_forward", "gru_backward", "gae_forward"):
+        check(counts[name] > 0, f"sharded path (1 shard) never launched "
+                                f"{name}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    # (2) SHARDED_RANKS ranks sharing cuda:0
+    t0 = time.perf_counter()
+    ranks = bootstrap.spawn_local(SHARDED_RANKS, _sharded_rank, ROOT,
+                                  SHARDED_RANKS, timeout_s=SHARDED_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    label = f"sharded path ({SHARDED_RANKS} ranks)"
+    rank_counts = []
+    for out in ranks:
+        r = out["rank"]
+        hist = out["history"]
+        check(out["world"] == SHARDED_RANKS and out["use_sharded_gs"],
+              f"{label} rank {r}: world {out['world']}, region-decomposed "
+              f"GS {out['use_sharded_gs']}")
+        halo = [{k: round(v, 4) if isinstance(v, float) else v
+                 for k, v in h.items()} for h in out["halo"]]
+        print(f"{label} rank {r} (agents {out['rows']}) on {smi}: round_s "
+              f"{[round(h['round_s'], 4) for h in hist]} (loop "
+              f"{loop_round_s}); halo per round {halo}; launches "
+              f"{out['counts']}; kernel module load {out['load_s']:.2f} s; "
+              f"collect leaves {out['collect_leaves']}", flush=True)
+        check(out["collect_first_diff"] is None,
+              f"{label} rank {r}: the collect differs from the replicated "
+              f"collect's rows: {out['collect_first_diff']}")
+        check(out["audit"] is None,
+              f"{label} rank {r}: CollectiveFree/HaloOnly: {out['audit']}")
+        for name in ("gru_forward", "gru_backward", "gae_forward"):
+            check(out["counts"][name] > 0,
+                  f"{label} rank {r} never launched {name}")
+        check(all(h["halo_exchanges"] > 0 for h in out["halo"]),
+              f"{label} rank {r}: a round without a halo exchange")
+        timeless = [{k: v for k, v in rec.items()
+                     if k not in ("round_s", "wall_s")} for rec in hist]
+        check(timeless == [{k: v for k, v in rec.items()
+                            if k not in ("round_s", "wall_s")}
+                           for rec in ranks[0]["history"]],
+              f"{label}: rank {r}'s round records differ from rank 0's")
+        rank_counts.append(out["counts"])
+    _sharded_compare(label, ranks[0]["history"],
+                     ranks[0]["aips"], ranks[0]["params"], loop_history,
+                     {"aips": leaves(loop_state["aips"]),
+                      "ials": {"params": leaves(
+                          loop_state["ials"]["params"])}},
+                     {**SHARDED_TOL, "policy": SHARDED_RANKS_POLICY_TOL},
+                     init_params=init_params)
+    print(f"{label}: spawn to finish {spawn_s:.2f} s", flush=True)
+    return counts, {}, rank_counts
+
+
 def run_traffic_path(device):
     """Traffic side=10 (100 intersections, lane_len 8, horizon 100) with
     the paper's FNN policy and the GRU AIP at the defaults, one round at
@@ -1693,6 +1936,13 @@ def main() -> int:
         *gru_path, state, history = phase(
             "dials warehouse gru-policy path", run_gru_policy_path, device)
         paths["dials warehouse gru-policy"] = tuple(gru_path)
+        *one_shard, rank_counts = phase(
+            "dials sharded path", run_sharded_path, device, smi, history,
+            state)
+        paths["dials sharded (1 shard, in process)"] = tuple(one_shard)
+        paths[f"dials sharded ({SHARDED_RANKS} ranks)"] = (
+            {k: sum(c.get(k, 0) for c in rank_counts)
+             for k in rank_counts[0]}, {})
         paths["dials traffic"] = phase("dials traffic path",
                                        run_traffic_path, device)
         paths["envs"] = phase("envs on the card", run_envs_on_card, device)

@@ -52,9 +52,20 @@ Rule catalogue:
                        back into the static inputs (``meta["feedback"]``),
                        equals as many eager calls bit for bit.
 
-``CollectiveFree``, ``HaloOnly`` and ``ReshardCollectives`` check the
-sharded driver, which the port does not have yet: they come with it
-(ROADMAP queue 1 item 9).
+``CollectiveFree``     the sharded runner's per-shard train body
+                       (``repro_torch.core.dials_sharded``) dispatches no
+                       c10d op (``runtime.COLLECTIVE_PRIMS``): nothing
+                       crosses shards between AIP refreshes.
+``HaloOnly``           every region-decomposed GS body
+                       (``repro_torch.core.gs_sharded``) dispatches only
+                       halo sends and receives (``runtime.HALO_PRIMS``),
+                       and at least one. A one-shard ring exchanges with
+                       itself and dispatches nothing: there the program
+                       must advance the halo counter
+                       (``collectives.STATS``) instead.
+
+``ReshardCollectives`` checks the elastic reshard, which comes with the
+sharded runtime's fault-tolerance half (ROADMAP queue 1 item 9).
 
 Programs carry ``roles`` tags; each rule declares which roles it applies
 to, and :func:`run_rules` does the cross product.
@@ -78,8 +89,8 @@ from repro_torch.tree import leaves, tree_map
 __all__ = [
     "Program", "ContractRule", "run_rules", "raise_findings",
     "DEFAULT_RULES", "NoHostSync", "DtypeRoundTrip", "RingBufferResident",
-    "ScalarSyncBudget", "GraphCapturable", "SyncCounter",
-    "cpu_one_hot_check",
+    "ScalarSyncBudget", "GraphCapturable", "CollectiveFree", "HaloOnly",
+    "SyncCounter", "cpu_one_hot_check",
 ]
 
 TAG = "CONTRACT-VIOLATION"
@@ -511,9 +522,56 @@ class SyncCounter:
         return False
 
 
+class CollectiveFree(ContractRule):
+    """No cross-shard communication anywhere in the program."""
+    name = "CollectiveFree"
+    roles = ("train_body",)
+
+    def check(self, program: Program) -> List[Finding]:
+        from repro_torch.distributed import runtime
+        return [_site_finding(self.name, program, s,
+                              "collective in a body that must be "
+                              "collective-free between AIP refreshes")
+                for s in walker.sites(program.recording(),
+                                      runtime.COLLECTIVE_PRIMS)]
+
+
+class HaloOnly(ContractRule):
+    """Only neighbour halo exchanges, and at least one of them."""
+    name = "HaloOnly"
+    roles = ("gs_body",)
+
+    def check(self, program: Program) -> List[Finding]:
+        from repro_torch.distributed import runtime
+        found = walker.sites(program.recording(), runtime.COLLECTIVE_PRIMS)
+        out = [_site_finding(self.name, program, s,
+                             f"non-halo collective in a region-decomposed "
+                             f"GS body (allowed: "
+                             f"{sorted(runtime.HALO_PRIMS)})")
+               for s in found if s.op not in runtime.HALO_PRIMS]
+        if not found and not self._exchanges_on_one_shard(program):
+            out.append(Finding(
+                tag=TAG, rule=self.name,
+                message=f"{program.name}: no halo exchange at all — "
+                        f"this is not the region-decomposed GS program"))
+        return out
+
+    @staticmethod
+    def _exchanges_on_one_shard(program: Program) -> bool:
+        """Without other ranks (world size 1) the ring shift is the
+        identity and dispatches no c10d op: such a program passes when
+        one more call of it advances the halo counter."""
+        from repro_torch.distributed import collectives, runtime
+        if runtime.world_size() != 1:
+            return False
+        before = collectives.STATS["halo_exchanges"]
+        program.fn(*program.args)
+        return collectives.STATS["halo_exchanges"] > before
+
+
 DEFAULT_RULES: Tuple[ContractRule, ...] = (
     NoHostSync(), DtypeRoundTrip(), RingBufferResident(),
-    ScalarSyncBudget(), GraphCapturable(),
+    ScalarSyncBudget(), GraphCapturable(), CollectiveFree(), HaloOnly(),
 )
 
 

@@ -17,11 +17,14 @@ classes that run fine and fail silently:
                          each derives a whole fold-in chain from it.
 ``prng-discarded-split`` a result of ``split`` bound to a name that is
                          never read (underscore-prefixed names opt out).
-``prng-relative-fold``   ``fold_in`` keyed on ``axis_index``: per-agent
-                         keys must fold the ABSOLUTE agent id, or
-                         randomness changes with the shard count. The
-                         port has no sharded runtime yet (ROADMAP queue 1
-                         item 9), so nothing trips it today.
+``prng-relative-fold``   ``fold_in`` keyed on a shard index: the
+                         reference's ``axis_index``, or the port's shard
+                         rank (``mesh.rank``, ``runtime.process_rank()``,
+                         ``dist.get_rank()``) and what is computed from
+                         it. Per-agent keys must fold the ABSOLUTE agent
+                         id, or randomness changes with the shard count
+                         (``repro_torch.core.dials_sharded`` slices
+                         ``split(key, N)`` by its rows instead).
 ``numpy-random``         a ``numpy.random`` *call* in a runtime module:
                          host RNG beside the explicit key streams is a
                          silent nondeterminism leak.
@@ -144,6 +147,12 @@ def _is_pool_key_helper(call: ast.Call) -> Optional[str]:
     return name if name in POOL_CONSUMING else None
 
 
+# what reads a shard's own index: the reference's ``axis_index`` and the
+# port's ranks
+SHARD_INDEX_NAMES = frozenset({"axis_index", "rank", "process_rank",
+                               "get_rank"})
+
+
 def _contains_axis_index(node) -> bool:
     for sub in ast.walk(node):
         name = None
@@ -151,7 +160,7 @@ def _contains_axis_index(node) -> bool:
             name = sub.attr
         elif isinstance(sub, ast.Name):
             name = sub.id
-        if name == "axis_index":
+        if name in SHARD_INDEX_NAMES:
             return True
     return False
 
@@ -222,12 +231,12 @@ def _own_nodes(fn):
 class _KeyState:
     """Per-function key dataflow: which names hold keys that were
     already consumed, which split results still await a read, and which
-    names carry shard-relative (``axis_index``-derived) data."""
+    names carry shard-relative (shard-index-derived) data."""
 
     def __init__(self):
         self.consumed: Dict[str, Tuple[int, str]] = {}   # name -> (line, by)
         self.split_unused: Dict[str, int] = {}           # name -> line
-        self.relative: set = set()                       # axis_index data
+        self.relative: set = set()                       # shard-index data
 
     def copy(self) -> "_KeyState":
         st = _KeyState()
@@ -282,7 +291,7 @@ class _FunctionLinter:
         if fn == "fold_in" and len(call.args) >= 2 and \
                 self._is_relative(call.args[1], state):
             self.checker.add(call, "prng-relative-fold",
-                             "fold_in keyed on axis_index — fold the "
+                             "fold_in keyed on a shard index — fold the "
                              "absolute agent id so per-agent randomness "
                              "is shard-count invariant")
         consumes = (fn in CONSUMING) if fn is not None else True

@@ -14,14 +14,17 @@ is only known by running it, so the inputs are real, and small):
 * one **round** of the driver, for the round record's schema;
 * the **kernel dispatch paths** (the GRU and GAE ops, plain and, on a
   card, kernel) as dtype round-trip programs;
-* the **wide-stream** ring collect at S=64 streams.
+* the **wide-stream** ring collect at S=64 streams;
+* the **sharded round**'s per-shard train body and region-decomposed GS
+  bodies (:func:`sharded_programs`), on this process's shard mesh: one
+  shard without a process group, one per rank inside one.
 
-The sharded driver's programs and the post-loss resume path
-(``sharded_programs``, ``recovery_programs``) come with the sharded
-runtime (ROADMAP queue 1 item 9). New programs register here: extend
-:func:`loop_programs` or append a builder via :func:`register_programs`;
-``tools/check_programs_torch.py`` checks whatever this module yields.
-Every builder runs on CUDA unless the caller passes ``device="cpu"``.
+The post-loss resume path (``recovery_programs``) comes with the
+sharded runtime's fault-tolerance half (ROADMAP queue 1 item 9). New
+programs register here: extend :func:`loop_programs` or append a builder
+via :func:`register_programs`; ``tools/check_programs_torch.py`` checks
+whatever this module yields. Every builder runs on CUDA unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ from repro_torch.analysis.contracts import Program
 from repro_torch.tree import leaves
 
 __all__ = ["tiny_trainer", "loop_programs", "round_programs",
-           "kernel_dtype_programs", "stream_programs", "all_programs",
-           "register_programs", "KINDS"]
+           "kernel_dtype_programs", "stream_programs", "sharded_programs",
+           "all_programs", "register_programs", "KINDS"]
 
 KINDS = ("fnn", "gru")
 
@@ -183,6 +186,29 @@ def stream_programs(env: str = "traffic", *, streams: int = 64,
                           trainer, params, key)]
 
 
+def sharded_programs(env: str, *, kind: str = "fnn",
+                     device="cuda") -> List[Program]:
+    """The sharded round's programs (``ShardedDIALSRunner.
+    contract_programs``: the per-shard train body, and the
+    region-decomposed collect and eval body) on this process's shard
+    mesh, one shard per rank of its process group (one shard without a
+    group), from :func:`tiny_trainer`'s state. The GS bodies communicate:
+    every rank of a group must build and check them in the same order."""
+    from repro_torch import random as R
+    from repro_torch.distributed import runtime
+
+    n_shards = runtime.world_size()
+    trainer = tiny_trainer(env, kind=kind, device=device, shards=n_shards)
+    runner = trainer._sharded_runner(n_shards)
+    key = R.key(0, device=trainer.device)
+    state = trainer.init(key)
+    carry = runner.shard_carry(
+        {"aips": state["aips"], "ials": state["ials"],
+         "reports": torch.zeros((trainer.info.n_agents,),
+                                dtype=torch.int64, device=trainer.device)})
+    return runner.contract_programs(carry, key)
+
+
 def kernel_dtype_programs(dtype=torch.bfloat16, *,
                           device="cuda") -> List[Program]:
     """The GRU and GAE ops as dtype round-trip programs: reduced
@@ -227,9 +253,9 @@ def all_programs(scenarios: Optional[Iterable[str]] = None,
                  kinds: Iterable[str] = ("fnn",), *,
                  device="cuda") -> List[Program]:
     """Every registered program: the loop driver's pieces (and a round)
-    for every scenario x policy kind, the kernel dtype programs, the
-    wide-stream ring collect, and anything added via
-    :func:`register_programs`."""
+    and the sharded round's programs for every scenario x policy kind,
+    the kernel dtype programs, the wide-stream ring collect, and anything
+    added via :func:`register_programs`."""
     from repro_torch.envs import registry
 
     scenarios = list(registry.names() if scenarios is None else scenarios)
@@ -242,6 +268,10 @@ def all_programs(scenarios: Optional[Iterable[str]] = None,
                 p.name = p.name.replace(f"loop/{env}/",
                                         f"loop/{env}[{kind}]/")
             out.extend(progs)
+            for p in sharded_programs(env, kind=kind, device=device):
+                p.name = p.name.replace(f"sharded/{env}",
+                                        f"sharded/{env}({kind})")
+                out.append(p)
     out.extend(kernel_dtype_programs(device=device))
     if scenarios:
         out.extend(stream_programs(scenarios[0], device=device))

@@ -1,6 +1,6 @@
 """Builders shared by the architecture config files — the port of
 ``repro/configs/common.py``. ``moe_layer`` is not ported (ROADMAP queue 1
-item 17) and raises."""
+item 12) and raises."""
 from __future__ import annotations
 
 from repro_torch.models import api, blocks
@@ -31,7 +31,7 @@ def dense_layer(d_model, heads, kv_heads, d_ff, **kw):
 
 def moe_layer(*args, **kw):
     raise NotImplementedError(
-        "MoE layers are not ported yet (ROADMAP queue 1 item 17)")
+        "MoE layers are not ported yet (ROADMAP queue 1 item 12)")
 
 
 def ssm_layer(d_model, state, *, head_dim=64, chunk=128):

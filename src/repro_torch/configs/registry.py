@@ -23,7 +23,7 @@ NOT_PORTED = ("yi-34b", "qwen1.5-32b", "zamba2-1.2b", "granite-moe-1b-a400m",
 def get(arch_id: str, *, reduced: bool = False):
     if arch_id in NOT_PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP queue 1 item 17)")
+            f"{arch_id} is not ported yet (ROADMAP queue 1 item 12)")
     return ARCHS[arch_id](reduced=reduced)
 
 

@@ -39,8 +39,14 @@ resume re-submits the interrupted run's in-flight collect from the
 checkpointed params of the round it was submitted in; when that step has
 been rotated away, the first round force-syncs.
 
-Not ported yet, and refused rather than ignored: the sharded runtime
-(``shards > 1``) and the region-decomposed GS (``sharded_gs="on"``).
+With more than one rank in the process group (``repro_torch.
+distributed.bootstrap``), or ``shards > 1``, ``run`` dispatches to the
+agent-sharded round (``repro_torch.core.dials_sharded``, one shard per
+rank, the region-decomposed GS under ``sharded_gs``) on the serial
+schedule; its record carries ``n_shards`` and null phase fields, as the
+reference's sharded record does. Not ported yet, and refused rather
+than ignored (ROADMAP queue 1 item 9): the sharded path's overlapped
+collect (``async_collect``) and its checkpoints (``ckpt_dir``).
 """
 from __future__ import annotations
 
@@ -86,8 +92,15 @@ class DIALSConfig:
     #                                max_aip_staleness)
     ckpt_dir: Optional[str] = None
     ckpt_keep: int = 3
-    shards: Optional[int] = None   # only the single-device path: <= 1/None
-    sharded_gs: str = "auto"       # "on" needs the sharded runtime
+    # agent-sharded runtime (repro_torch.core.dials_sharded): None =
+    # auto (sharded whenever the process group has more than one rank),
+    # <=1 = force the loop path, N = N shards, one per rank (N must be
+    # the group's world size)
+    shards: Optional[int] = None
+    # region-decomposed GS on the sharded path: "auto" whenever the
+    # env's region_partition tiles the shard count, "on" requires it,
+    # "off" keeps the replicated GS; the loop path always replicates
+    sharded_gs: str = "auto"
     use_kernels: str = "auto"      # "on"/"off" override the sub-configs
     telemetry_dir: Optional[str] = None  # JSONL event logs (repro_torch.obs)
     # Fence every phase span on the driver's stream, so the phase seconds
@@ -97,18 +110,22 @@ class DIALSConfig:
     telemetry_fence: bool = True
 
 
-def _refuse_unported(cfg: DIALSConfig) -> None:
-    unported = {"shards>1": cfg.shards is not None and cfg.shards > 1,
-                "sharded_gs='on'": cfg.sharded_gs == "on"}
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(asked)} (the port runs the "
-            f"single-device loop driver only; the sharded runtime is "
-            f"ROADMAP queue 1 item 9)")
+def _refuse_unported(cfg: DIALSConfig, sharded: bool) -> None:
+    """The sharded path's options that belong to the fault-tolerance half
+    of the sharded runtime, which is not ported yet."""
     if cfg.sharded_gs not in ("auto", "on", "off"):
         raise ValueError(
             f"sharded_gs must be auto|on|off, got {cfg.sharded_gs!r}")
+    if not sharded:
+        return
+    unported = {"async_collect": cfg.async_collect,
+                "ckpt_dir": cfg.ckpt_dir is not None}
+    asked = [name for name, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(asked)} with the sharded runtime "
+            f"(the sharded async collect and distributed checkpoints are "
+            f"ROADMAP queue 1 item 9); the loop driver runs them")
 
 
 def collect_stream_count(cfg: DIALSConfig) -> int:
@@ -132,7 +149,7 @@ class DIALSTrainer:
     def __init__(self, env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
                  aip_cfg: influence.AIPConfig, ppo_cfg: ppo_mod.PPOConfig,
                  cfg: DIALSConfig, *, device="cuda"):
-        _refuse_unported(cfg)
+        _refuse_unported(cfg, cfg.shards is not None and cfg.shards > 1)
         self.device = dispatch.resolve_device(device)
         self.env_mod, self.env_cfg = env_mod, env_cfg
         policy_cfg, aip_cfg, ppo_cfg = (
@@ -164,6 +181,7 @@ class DIALSTrainer:
         self.manager = (CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
                         if cfg.ckpt_dir else None)
         self._resume_extra = {}    # checkpoint extra of the restored step
+        self._sharded = None       # lazily-built ShardedDIALSRunner
 
     # -- the AIP round -------------------------------------------------------
     def aip_round(self, aips, data, aip_keys, fresh_mask, reports, rnd,
@@ -214,6 +232,39 @@ class DIALSTrainer:
             return torch.tensor(saved, dtype=torch.int64, device=self.device)
         return torch.full((self.info.n_agents,), state["round"] - 1,
                           dtype=torch.int64, device=self.device)
+
+    # -- path selection ------------------------------------------------------
+    def _select_shards(self) -> int:
+        """Shard count for the sharded runtime; 0 = the loop path. The
+        group's world size plays the reference's device count."""
+        from repro_torch.distributed import runtime as runtime_lib
+        cfg, n_agents = self.cfg, self.info.n_agents
+        n_dev = runtime_lib.world_size()
+        if cfg.shards is not None:
+            if cfg.shards <= 1:
+                return 0
+            if cfg.shards > n_dev:
+                raise ValueError(
+                    f"shards={cfg.shards} but only {n_dev} process(es) in "
+                    f"the group: the port runs one shard per rank (start "
+                    f"them through repro_torch.distributed.bootstrap)")
+            if n_agents % cfg.shards:
+                raise ValueError(
+                    f"{n_agents} agents cannot tile {cfg.shards} shards")
+            return cfg.shards
+        if n_dev <= 1:
+            return 0
+        s = runtime_lib.choose_shards(n_agents, n_dev)
+        return s if s > 1 else 0
+
+    def _sharded_runner(self, n_shards: int):
+        from repro_torch.core import dials_sharded
+        if self._sharded is None or self._sharded.n_shards != n_shards:
+            self._sharded = dials_sharded.ShardedDIALSRunner(
+                self.env_mod, self.env_cfg, self.policy_cfg, self.aip_cfg,
+                self.ppo_cfg, self.cfg, n_shards=n_shards,
+                device=self.device)
+        return self._sharded
 
     # -- key plumbing --------------------------------------------------------
     def _collect_key(self, base_key, rnd: int):
@@ -275,13 +326,28 @@ class DIALSTrainer:
         ``repro_torch.convert``) instead of :meth:`restore_or_init`.
         ``straggler_mask(round) -> (N,) {0,1}`` simulates late AIP
         updates. Returns (state, history of round records). An exception
-        in the collect worker is raised here, at the harvest."""
+        in the collect worker is raised here, at the harvest. With a
+        process group of more than one rank (or ``shards > 1``) every
+        rank calls this with the same arguments and runs its shard of the
+        round (:meth:`_run_sharded`)."""
         cfg, n = self.cfg, self.info.n_agents
         key = key.to(self.device)
+        n_shards = self._select_shards()
+        _refuse_unported(cfg, n_shards > 0)
         if state is None:
             state = self.restore_or_init(key)
         else:
             state, self._resume_extra = dict(state), {}
+        if n_shards:
+            return self._run_sharded(state, n_shards, log=log,
+                                     straggler_mask=straggler_mask)
+        if cfg.sharded_gs == "on":
+            # honour the forced mode instead of silently running the
+            # replicated GS: the region-decomposed GS is a sharded program
+            raise ValueError(
+                "sharded_gs='on' requires the sharded runtime (a process "
+                "group of more than one rank, or DIALSConfig.shards > 1); "
+                "the single-device loop path always uses the replicated GS")
         tel = obs.maybe(cfg.telemetry_dir, fence=cfg.telemetry_fence)
         # the phases are measured with telemetry off too
         tracer = (tel.tracer if tel.enabled
@@ -401,3 +467,66 @@ class DIALSTrainer:
         if self.manager is not None:
             self.manager.wait()
         return state, history
+
+    # -- the sharded path ----------------------------------------------------
+    def _run_sharded(self, state, n_shards: int, *, log, straggler_mask):
+        """The same round loop over the shard mesh, serial schedule: each
+        round is the runner's collect and shard-train program, and the
+        one host read of the round fetches its record (the phase fields
+        are null: the round is not fenced phase by phase). Returns the
+        full state (gathered on every rank) and the history, the same on
+        every rank."""
+        cfg = self.cfg
+        runner = self._sharded_runner(n_shards)
+        n = self.info.n_agents
+        base_key = state["key"]
+        carry = runner.shard_carry(
+            {"aips": state["aips"], "ials": state["ials"],
+             "reports": self._restored_reports(state)})
+        tel = obs.maybe(cfg.telemetry_dir, fence=cfg.telemetry_fence)
+        kernels = obs_metrics.kernel_summary(
+            self.policy_cfg, self.aip_cfg, self.ppo_cfg, self.device)
+        history = []
+        t_start = time.time()
+        tel.emit("run_start", path="sharded", env=self.info.name,
+                 n_shards=runner.n_shards, start_round=state["round"],
+                 outer_rounds=cfg.outer_rounds, async_collect=False,
+                 elastic=False, sharded_gs=runner.use_sharded_gs,
+                 kernels=kernels)
+        try:
+            for rnd in range(state["round"], cfg.outer_rounds):
+                t_round = time.perf_counter()
+                mask = (torch.as_tensor(straggler_mask(rnd),
+                                        dtype=torch.float32,
+                                        device=self.device)
+                        if straggler_mask is not None and not cfg.untrained
+                        else torch.ones((n,), device=self.device))
+                carry, raw = runner.round(carry, base_key, rnd, mask)
+                # the round's one deliberate host read: its record
+                raw = {k: float(v) for k, v in raw.items()}
+                rec = obs_metrics.round_record(
+                    round=rnd, gs_return=raw["gs_return"],
+                    ials_reward=(None if cfg.aip_refresh == 0
+                                 else raw["ials_reward"]),
+                    aip_ce_before=raw["aip_ce_before"],
+                    aip_ce_after=raw["aip_ce_after"],
+                    data_round=raw["data_round"], forced_sync=False,
+                    stale_forced=raw["stale_forced"],
+                    staleness_min=raw["staleness_min"],
+                    staleness_mean=raw["staleness_mean"],
+                    staleness_max=raw["staleness_max"],
+                    n_shards=runner.n_shards, reassigned=0, dead_hosts=[],
+                    kernels=kernels, collect_s=None, env_steps_per_s=None,
+                    aip_s=None, inner_s=None, eval_s=None, mirror_s=None,
+                    round_s=time.perf_counter() - t_round,
+                    wall_s=time.time() - t_start)
+                tel.emit_round(rec)
+                history.append(rec)
+                if log:
+                    log(rec)
+        finally:
+            tel.emit("run_end", rounds=len(history))
+            tel.close()
+        full = runner.unshard_carry(carry)
+        full.pop("reports", None)     # both paths' state schema
+        return {**full, "round": cfg.outer_rounds, "key": base_key}, history

@@ -58,16 +58,16 @@ def make_ials_init(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
     return init_fn
 
 
-def make_ials_trainer(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
-                      aip_cfg: influence.AIPConfig,
-                      ppo_cfg: ppo_mod.PPOConfig, *, n_envs: int,
-                      rollout_steps: int, device="cuda"):
-    """``(init_fn, train_fn)`` with ``train_fn(state, aip_params (N, ...))
-    -> (state, scalar metrics)``: one rollout on every agent's IALS and
-    one PPO update, all agents at once (Algorithm 3 body). The state
-    lives on ``device`` (CUDA unless the caller asks for the CPU)."""
-    init_fn = make_ials_init(env_mod, env_cfg, policy_cfg, aip_cfg,
-                             n_envs=n_envs, device=device)
+def make_agent_trainer(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
+                       aip_cfg: influence.AIPConfig,
+                       ppo_cfg: ppo_mod.PPOConfig, *, n_envs: int,
+                       rollout_steps: int):
+    """``train_agents(state, aip_params) -> (state, per-agent metrics)``:
+    one rollout on every agent's IALS and one PPO update (Algorithm 3
+    body) for the A agents of the state it is handed (all N, or a shard's
+    block: nothing here reads the env's agent count), on the state's
+    device; every metric an (A,) vector (the reference's
+    ``make_agent_trainer`` under ``vmap``)."""
     info = env_cfg.info()
     pool = env_pool.LSPool(env_mod, env_cfg, n_envs)
 
@@ -104,7 +104,7 @@ def make_ials_trainer(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
                 for k in traj[0]}
         return (locals_, obs, h, aip_h, prev_a), traj
 
-    def train_fn(state, aip_params):
+    def train_agents(state, aip_params):
         k_iter = R.fold_in(state["key"], state["iter"])
         # separate roots for the rollout's stream chains and the PPO
         # minibatch shuffle
@@ -129,7 +129,28 @@ def make_ials_trainer(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
         new_state = {**state, "params": params, "opt": opt,
                      "locals": locals_, "obs": obs, "h": h, "aip_h": aip_h,
                      "prev_a": prev_a, "iter": state["iter"] + 1}
-        metrics = {**metrics, "reward": traj["reward"].mean(dim=(1, 2))}
-        return new_state, {k: v.mean() for k, v in metrics.items()}
+        return new_state, {**metrics,
+                           "reward": traj["reward"].mean(dim=(1, 2))}
+
+    return train_agents
+
+
+def make_ials_trainer(env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
+                      aip_cfg: influence.AIPConfig,
+                      ppo_cfg: ppo_mod.PPOConfig, *, n_envs: int,
+                      rollout_steps: int, device="cuda"):
+    """``(init_fn, train_fn)`` with ``train_fn(state, aip_params (N, ...))
+    -> (state, scalar metrics)``: :func:`make_agent_trainer`'s step for
+    all agents at once, its metrics meaned over agents. The state lives
+    on ``device`` (CUDA unless the caller asks for the CPU)."""
+    init_fn = make_ials_init(env_mod, env_cfg, policy_cfg, aip_cfg,
+                             n_envs=n_envs, device=device)
+    train_agents = make_agent_trainer(
+        env_mod, env_cfg, policy_cfg, aip_cfg, ppo_cfg, n_envs=n_envs,
+        rollout_steps=rollout_steps)
+
+    def train_fn(state, aip_params):
+        state, metrics = train_agents(state, aip_params)
+        return state, {k: v.mean() for k, v in metrics.items()}
 
     return init_fn, train_fn

@@ -13,8 +13,8 @@ PRE-step global state.
 Every function takes any leading batch dimensions on its keys and states
 (the reference is written for one env and vmapped). :func:`bus_step` is
 shared verbatim between GS and LS, so the LS replays the GS exactly
-(Definition 3). ``region_partition`` and ``boundary_influence`` (the
-sharded GS's) are not ported yet.
+(Definition 3). ``region_partition`` and ``boundary_influence`` serve the
+region-decomposed GS (``repro_torch.core.gs_sharded``).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.envs import registry
-from repro_torch.envs.base import EnvInfo
+from repro_torch.envs.base import EnvInfo, contiguous_partition
 
 TAP_MAX = 2                       # tap positions in [-2, 2] -> 5 one-hot
 
@@ -148,6 +148,21 @@ def gs_step_given(state, actions, load, cfg: PowerGridConfig):
     new_state = {"volts": new_volts, "tap": new_taps, "t": state["t"] + 1}
     done = new_state["t"] >= cfg.horizon
     return new_state, obs, rewards, u.float(), done
+
+
+def region_partition(cfg: PowerGridConfig, n_blocks: int):
+    """Contiguous arcs of the bus ring. Tie-line coupling is strictly
+    i±1 (mod N), so any equal split into contiguous arcs (the 0↔N-1
+    wraparound included) satisfies one-hop block adjacency."""
+    return contiguous_partition(cfg.n_agents, n_blocks)
+
+
+def boundary_influence(states, actions, load, cfg: PowerGridConfig):
+    """Agent-major restatement of the tie-line influence: u (..., N, 4)
+    from the pre-step feeder voltages alone. Row i reads only rows i±1
+    (mod N); zero rows are inert for any real agent's sources."""
+    del actions, load
+    return gs_influence(states, cfg).float()
 
 
 def gs_step(state, actions, key, cfg: PowerGridConfig):

@@ -14,8 +14,8 @@ PRE-step global state.
 Every function takes any leading batch dimensions on its keys and states
 (the reference is written for one env and vmapped). :func:`cell_step` is
 shared verbatim between GS and LS, so the LS replays the GS exactly
-(Definition 3). ``region_partition`` and ``boundary_influence`` (the
-sharded GS's) are not ported yet.
+(Definition 3). ``region_partition`` and ``boundary_influence`` serve the
+region-decomposed GS (``repro_torch.core.gs_sharded``).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.envs import registry
-from repro_torch.envs.base import EnvInfo
+from repro_torch.envs.base import EnvInfo, contiguous_partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +138,24 @@ def gs_step_given(state, actions, exo, cfg: SupplyChainConfig):
     done = new_state["t"] >= cfg.horizon
     return (new_state, _obs(new_store, new_buffer, cfg), rewards, u.float(),
             done)
+
+
+def region_partition(cfg: SupplyChainConfig, n_blocks: int):
+    """Contiguous segments of the production line. Part hand-offs couple
+    strictly i±1, so any equal split into contiguous segments satisfies
+    one-hop block adjacency (the head takes external arrivals, the tail
+    ships to a sink)."""
+    return contiguous_partition(cfg.n_agents, n_blocks)
+
+
+def boundary_influence(states, actions, exo, cfg: SupplyChainConfig):
+    """Agent-major restatement of the hand-off/backpressure influence:
+    u (..., N, 2) from the pre-step store/buffer levels and the
+    head-arrival draw. Row i reads only rows i-1, i, i+1; zero rows are
+    inert (an empty buffer never hands off, an empty store never
+    backpressures)."""
+    del actions
+    return gs_influence(states, exo, cfg).float()
 
 
 def gs_step(state, actions, key, cfg: SupplyChainConfig):

@@ -16,8 +16,8 @@ states (the reference is written for one env and vmapped; its
 per-intersection ``vmap`` of :func:`lane_step` is a batch over the
 trailing (n, n) here). :func:`lane_step` is shared verbatim between GS
 and LS, so the LS replays the GS exactly (Definition 3).
-``region_partition`` and ``boundary_influence`` (the sharded GS's) are
-not ported yet.
+``region_partition`` and ``boundary_influence`` serve the
+region-decomposed GS (``repro_torch.core.gs_sharded``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.envs import registry
-from repro_torch.envs.base import EnvInfo
+from repro_torch.envs.base import EnvInfo, contiguous_partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +159,34 @@ def exo_locals(inject, cfg: TrafficConfig):
     takes no direct exogenous input: (..., N, 0)."""
     return torch.zeros(inject.shape[:-3] + (cfg.n_agents, 0),
                        device=inject.device)
+
+
+def region_partition(cfg: TrafficConfig, n_blocks: int):
+    """Contiguous row bands of the n×n intersection grid: a band couples
+    only to the rows directly above and below it, so one-hop block
+    adjacency holds iff bands are whole rows (``n_blocks`` must divide
+    the grid side)."""
+    if cfg.n % n_blocks:
+        raise ValueError(
+            f"traffic grid side {cfg.n} cannot split into {n_blocks} "
+            f"row bands")
+    return contiguous_partition(cfg.n_agents, n_blocks)
+
+
+def boundary_influence(states, actions, inject, cfg: TrafficConfig):
+    """Agent-major restatement of the realized inflow: u (..., N, 4) from
+    the pre-step lanes/phases (``gs_locals`` schema), the joint actions
+    and the boundary-injection draws. Row (i, j) reads only its grid
+    neighbours' ``out`` bits (plus its own injection), so zero rows are
+    inert: an empty lane never emits a crossing car."""
+    n = cfg.n
+    batch = actions.shape[:-1]
+    lanes = states["lanes"].reshape(batch + (n, n, 4, cfg.lane_len))
+    phase = (states["phase"].reshape(batch + (n, n))
+             + actions.reshape(batch + (n, n))) % 2
+    out = lanes[..., -1].bool() & _green(phase)               # (..., n, n, 4)
+    inflow = gs_inflow(out, inject, cfg)
+    return inflow.reshape(batch + (cfg.n_agents, 4)).float()
 
 
 def gs_step(state, actions, key, cfg: TrafficConfig):

@@ -7,7 +7,7 @@ it raises) and draws the parameters there from a seeded generator. Each
 step builder returns a plain callable that runs under
 ``torch.inference_mode()`` on whatever device the parameters are on.
 There are no meshes, shardings, AOT lowering or donation (ROADMAP queue 1
-item 14); the serve step updates the caches in place, which is what the
+item 12); the serve step updates the caches in place, which is what the
 reference's donation buys. ``make_train_step`` waits for the training
 slice.
 """
@@ -23,7 +23,7 @@ def model_cfg(spec):
     if spec.kind != "lm":
         raise NotImplementedError(
             f"kind={spec.kind!r} steps are not ported yet (ROADMAP queue 1 "
-            f"item 17)")
+            f"item 12)")
     return spec.cfg
 
 

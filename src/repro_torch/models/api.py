@@ -3,7 +3,7 @@
 
 ``ArchSpec`` is what a config file in ``repro_torch.configs`` produces.
 The encdec and vlm kinds, ``loss_fn``, ``logical_specs`` and
-``active_param_count`` are not ported (ROADMAP queue 1 item 17); a
+``active_param_count`` are not ported (ROADMAP queue 1 item 12); a
 non-lm spec raises.
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ def _lm_only(spec: ArchSpec) -> None:
     if spec.kind != "lm":
         raise NotImplementedError(
             f"kind={spec.kind!r} models are not ported yet (ROADMAP queue 1 "
-            f"item 17)")
+            f"item 12)")
 
 
 def init(gen, spec: ArchSpec):

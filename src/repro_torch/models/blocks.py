@@ -9,7 +9,7 @@ params tree carries across leaf for leaf.
 
 Ported: the attention mixer, the MLP ffn and gemma2's post-norms.
 ``mixer="ssm"``, ``mixer="cross_attn"`` and ``ffn="moe"`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 17): the SSM layer itself is
+``NotImplementedError`` (ROADMAP queue 1 item 12): the SSM layer itself is
 ported (``repro_torch.nn.ssm``), but no model path on the card runs it
 yet. Left out: the logical-axis specs.
 """
@@ -44,11 +44,11 @@ def _check_ported(spec: LayerSpec) -> None:
     if spec.mixer != "attn":
         raise NotImplementedError(
             f"mixer={spec.mixer!r} blocks are not ported yet (ROADMAP queue 1 "
-            f"item 17); the SSM layer runs through repro_torch.nn.ssm."
+            f"item 12); the SSM layer runs through repro_torch.nn.ssm."
             f"ssm_layer")
     if spec.ffn not in ("mlp", "none"):
         raise NotImplementedError(
-            f"ffn={spec.ffn!r} is not ported yet (ROADMAP queue 1 item 17)")
+            f"ffn={spec.ffn!r} is not ported yet (ROADMAP queue 1 item 12)")
 
 
 def block_init(gen, spec: LayerSpec):

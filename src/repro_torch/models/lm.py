@@ -12,7 +12,7 @@
 
 Left out: ``token_xent``/``lm_loss`` (the training slice), the
 zamba-style ``shared`` block and cross-attention (``ModelConfig.shared``
-must be None; ROADMAP queue 1 item 17), ``act_constraint`` (mesh
+must be None; ROADMAP queue 1 item 12), ``act_constraint`` (mesh
 sharding) and the logical-axis specs. ``remat`` and ``scan_unroll`` are
 accepted and ignored: there is no autodiff or XLA scan here.
 """
@@ -56,7 +56,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.shared is not None:
         raise NotImplementedError(
             "shared (zamba-style) blocks are not ported yet (ROADMAP queue 1 "
-            "item 17)")
+            "item 12)")
 
 
 def _stacked_init(gen, spec: blocks.LayerSpec, repeats: int):

@@ -262,8 +262,8 @@ def decode_self_attention(params, x, cache, cache_index: int,
     """
     if logits_constraint is not None:
         raise NotImplementedError(
-            "the mesh-sharded decode softmax is not ported (ROADMAP queue 1 "
-            "item 14)")
+            "the mesh-sharded decode softmax is not ported (it comes with "
+            "launch/mesh, ROADMAP queue 1 item 12)")
     b = x.shape[0]
     dh = cfg.dh
     slots = cache["k"].shape[1]

@@ -20,7 +20,13 @@ the output rounded to bf16, 2^-9 and 2^-8 relative). SSD
 outputs stored in bf16 within 1e-2 times max(1, largest magnitude) (two
 roundings of 2^-8 each), the float32 states within 2e-4 likewise, on
 both kernels (``ssd_chunk_sm90`` for bf16 at the shapes it takes,
-``ssd_chunk`` otherwise).
+``ssd_chunk`` otherwise). The sharded round: one shard with the kernels
+against the plain versions (AIP params 1e-5 scaled, policy params 1e-4,
+CE 1e-5) and bit for bit the loop driver; two ranks sharing the card
+against the loop driver (AIP 1e-6, CE and IALS reward 1e-5, GS return
+5e-2; policy 1e-2, the reference's, and nearer the loop's policy than
+half the loop's own move from init), each rank's collect bit for bit,
+and every collective wrapper on CUDA tensors exactly.
 """
 import pytest
 import torch
@@ -273,6 +279,134 @@ def _contract_programs(device, env, kind):
         device=device)
     return {p.name.rsplit("/", 1)[1]: p
             for p in programs.loop_programs(env, trainer=tr)}
+
+
+def _sharded_card_trainer(device, **kw):
+    from repro_torch.analysis import programs
+    return programs.tiny_trainer("warehouse", kind="gru", device=device,
+                                 **kw)
+
+
+def _sharded_card_rank():
+    """One of two ranks sharing cuda:0 over gloo (``spawn_local``): the
+    tiny recurrent-policy warehouse with ``shards=2`` and kernels on, its
+    collect against the replicated collect's rows, the round's contracts
+    and every collective wrapper on a CUDA tensor (gloo carries the
+    reductions, gathers and broadcasts on the card itself; the ring shift
+    stages through pinned host buffers, gloo's point-to-point calls
+    failing on CUDA tensors)."""
+    from repro_torch import random as R
+    from repro_torch.distributed import bootstrap, collectives
+    from repro_torch.kernels.gru import kernel as gk
+    from repro_torch.tree import leaves
+    ctx = bootstrap.bootstrap()
+    device = torch.device("cuda", 0)
+    tr = _sharded_card_trainer(device, shards=2, use_kernels="on")
+    state, history = tr.run(R.key(0, device))
+    runner = tr._sharded
+    init = tr.init(R.key(0, device))
+    carry = runner.shard_carry(
+        {"aips": init["aips"], "ials": init["ials"],
+         "reports": torch.zeros(tr.info.n_agents, dtype=torch.int64,
+                                device=device)})
+    mine = runner.collect(carry["ials"]["params"], R.key(5, device))
+    full = tr.collect(init["ials"]["params"], R.key(5, device))
+    runner.audit_collectives(carry, R.key(0, device))
+    mesh = runner.mesh
+    x = torch.arange(4.0, device=device) + 10 * ctx.process_id
+    coll = {"psum": collectives.tree_psum(x, mesh),
+            "pmean": collectives.tree_pmean(x, mesh),
+            "gather": collectives.tree_all_gather(x[None], mesh),
+            "scatter": collectives.tree_psum_scatter(x, mesh),
+            "bcast": collectives.pbroadcast(x, mesh, root=1),
+            "ring": collectives.ppermute_ring(x, mesh, shift=1)}
+    return {"rank": ctx.process_id, "history": history,
+            "coll": {k: (str(v.device), v.cpu()) for k, v in coll.items()},
+            "use_sharded_gs": runner.use_sharded_gs,
+            "collect_equal": all(torch.equal(mine[k], full[k][runner.rows])
+                                 for k in full),
+            "staged": collectives.STATS["staged_bytes"],
+            "gru_forward": gk.LAUNCHES["gru_forward"],
+            "aips": leaves(state["aips"]),
+            "params": leaves(state["ials"]["params"])}
+
+
+@pytest.mark.cuda
+def test_one_shard_runner_kernels_on_vs_off(cuda_device):
+    """The one-shard sharded round on the card through the kernels
+    against the plain versions from the same seed (AIP params 1e-5,
+    policy params 1e-4, held-out CE 1e-5: the reference's kernel-vs-
+    oracle check on its mesh), and against the loop driver bit for bit."""
+    from repro_torch import random as R
+    from repro_torch.tree import leaves
+    runs = {}
+    for mode in ("on", "off"):
+        tr = _sharded_card_trainer(cuda_device, use_kernels=mode)
+        runs[mode] = tr._run_sharded(tr.init(R.key(0, cuda_device)), 1,
+                                     log=None, straggler_mask=None)
+        assert tr._sharded.use_sharded_gs
+    loop = _sharded_card_trainer(cuda_device, use_kernels="on").run(
+        R.key(0, cuda_device))
+    (s_on, h_on), (s_off, h_off) = runs["on"], runs["off"]
+    for a, b in zip(leaves(s_on["aips"]), leaves(s_off["aips"])):
+        assert_close_scaled(a, b, 1e-5)
+    for a, b in zip(leaves(s_on["ials"]["params"]),
+                    leaves(s_off["ials"]["params"])):
+        assert float((a - b).abs().max()) <= 1e-4
+    for r1, r2 in zip(h_on, h_off):
+        for k in ("aip_ce_before", "aip_ce_after"):
+            assert abs(r1[k] - r2[k]) <= 1e-5, k
+    for a, b in zip(leaves(s_on), leaves(loop[0])):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_card_match_loop(cuda_device):
+    """Two ranks share cuda:0 over gloo: the halo exchange stages
+    through pinned host buffers, each rank's collect is the replicated
+    collect's rows bit for bit, the contracts hold, every collective
+    wrapper gives the exact sums, gathers and shifts on CUDA tensors, and
+    rank 0's records and state match the loop driver on the card (AIP
+    1e-6, CE and IALS reward 1e-5, GS return 5e-2; policy 1e-2 and
+    nearer the loop's than half the loop's own move from init)."""
+    from repro_torch import random as R
+    from repro_torch.distributed import bootstrap
+    from repro_torch.tree import leaves
+    outs = bootstrap.spawn_local(2, _sharded_card_rank, timeout_s=600)
+    tr = _sharded_card_trainer(cuda_device, use_kernels="on")
+    init = leaves(tr.init(R.key(0, cuda_device))["ials"]["params"])
+    loop_state, loop_hist = tr.run(R.key(0, cuda_device))
+    xs = [torch.arange(4.0) + 10 * r for r in range(2)]
+    total = xs[0] + xs[1]
+    for o in outs:
+        assert o["use_sharded_gs"] and o["collect_equal"], o["rank"]
+        assert o["staged"] > 0 and o["gru_forward"] > 0
+        r = o["rank"]
+        want = {"psum": total, "pmean": total / 2,
+                "gather": torch.stack(xs), "scatter": total[2 * r:2 * r + 2],
+                "bcast": xs[1], "ring": xs[1 - r]}
+        for k, v in want.items():
+            dev, got = o["coll"][k]
+            assert dev.startswith("cuda"), (r, k, dev)
+            assert torch.equal(torch.as_tensor(got), v), (r, k, got)
+    for part, want, tol in (("aips", loop_state["aips"], 1e-6),
+                            ("params", loop_state["ials"]["params"], 1e-2)):
+        err = max(float((torch.as_tensor(a) - b.cpu()).abs().max())
+                  for a, b in zip(outs[0][part], leaves(want)))
+        assert err <= tol, (part, err)
+
+    def flat(xs):
+        return torch.cat([torch.as_tensor(x).double().cpu().reshape(-1)
+                          for x in xs])
+    loop_p = flat(leaves(loop_state["ials"]["params"]))
+    rel = float((flat(outs[0]["params"]) - loop_p).norm()
+                / (loop_p - flat(init)).norm())
+    assert rel <= 0.5, rel
+    for rec, ref in zip(outs[0]["history"], loop_hist):
+        for k, tol in (("aip_ce_before", 1e-5), ("aip_ce_after", 1e-5),
+                       ("ials_reward", 1e-5), ("gs_return", 5e-2)):
+            assert abs(rec[k] - ref[k]) <= tol, k
 
 
 @pytest.mark.cuda

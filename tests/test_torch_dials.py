@@ -98,13 +98,15 @@ def test_port_round_records_validate_and_refuse_unported_options(tmp_path):
         assert rec["kernels"] == "policy=plain,aip=plain,ppo=plain"
     # ckpt_dir, the async collect and telemetry are ported
     # (tests/test_torch_checkpoint.py, test_torch_async_collect.py,
-    # test_torch_obs.py); the sharded runtime is not
+    # test_torch_obs.py), and so is the sharded round
+    # (tests/test_torch_sharded.py); the first two are not, with shards
     for ok in (dict(async_collect=True),
                dict(telemetry_dir=str(tmp_path / "tel"))):
         _, got = _port_trainer(outer_rounds=2, **ok).run(R.key(3))
         assert [jmetrics.validate_round(r) for r in got] == [[], []]
     assert [r["data_round"] for r in got] == [0, 1]
-    for bad in (dict(shards=2), dict(sharded_gs="on")):
+    for bad in (dict(shards=2, async_collect=True),
+                dict(shards=2, ckpt_dir=str(tmp_path / "ckpt"))):
         with pytest.raises(NotImplementedError, match="not ported"):
             _port_trainer(**bad)
 

@@ -206,11 +206,11 @@ def test_init_params_places_the_model():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tregistry.get("mamba2-780m", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tblocks.block_init(torch.Generator(), tcommon.ssm_layer(64, 16))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tcommon.moe_layer(64, 4, 2, 128, 4, 2)
     assert tregistry.list_archs() == ["gemma2-9b", "tinyllama-1.1b"]
 

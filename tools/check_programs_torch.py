@@ -1,11 +1,14 @@
 """Program-contract checker of the port — the port of
 ``tools/check_programs.py``.
 
-Builds the port's loop-driver programs for every registered scenario and
-policy kind at tiny sizes (``repro_torch.analysis.programs``), runs the
-``repro_torch.analysis.contracts`` rule set over them, runs the AST lint
-over the port's runtime modules and one tiny run of the loop driver
-under the compile counter to assert zero steady-state compiles. Findings print through
+Builds the port's loop-driver and sharded-round programs for every
+registered scenario and policy kind at tiny sizes
+(``repro_torch.analysis.programs``), runs the
+``repro_torch.analysis.contracts`` rule set over them, runs the sharded
+round's programs again on two spawned ranks of one gloo group
+(``CollectiveFree``, ``HaloOnly``), runs the AST lint over the port's
+runtime modules and one tiny run of the loop driver under the compile
+counter to assert zero steady-state compiles. Findings print through
 ``repro_torch.analysis.report.format_finding``: ``file:line`` locally,
 ``::error`` annotations under GitHub Actions. Exit 1 on any finding.
 
@@ -20,18 +23,25 @@ CUDA graph) and raises without one unless given ``--device cpu``.
         --scenarios traffic --kinds fnn,gru
     PYTHONPATH=src python -m tools.check_programs_torch --census    # ops
         # per program and their ten busiest source lines
+    PYTHONPATH=src python -m tools.check_programs_torch --sharded \
+        --scenarios traffic            # the sharded round on two ranks
+        # (the ranks share the one card, or the CPU)
     PYTHONPATH=src python -m tools.check_programs_torch --selftest  # the
         # deliberately broken fixtures must each FAIL their own rule
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO_ROOT, "src"))
+
+# the sharded pass's ranks: the fewest that make a ring with neighbours
+SHARDED_RANKS = 2
 
 
 def _rel(findings):
@@ -72,6 +82,41 @@ def run_census(scenarios, kinds, device) -> None:
                       f"top lines: {top}; top functions (share): {fns}")
 
 
+def _sharded_rank(scenarios, kinds, device) -> list:
+    """One rank of the sharded scenario: every scenario x kind's sharded
+    programs on this rank's shard, checked by the communication rules."""
+    import torch
+    from repro_torch.analysis import contracts, programs
+    from repro_torch.distributed import bootstrap
+    from repro_torch.envs import registry
+    ctx = bootstrap.bootstrap()
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ctx.num_processes))
+    findings = []
+    for env in scenarios or registry.names():
+        for kind in kinds:
+            progs = programs.sharded_programs(env, kind=kind, device=device)
+            findings += contracts.run_rules(
+                progs, rules=(contracts.CollectiveFree(),
+                              contracts.HaloOnly()))
+            if ctx.is_primary:
+                print(f"# check_programs_torch: sharded {env}[{kind}] on "
+                      f"{ctx.num_processes} ranks: "
+                      f"{', '.join(p.name for p in progs)}", flush=True)
+    return findings
+
+
+def run_sharded(scenarios, kinds, device) -> list:
+    """The sharded round's programs on SHARDED_RANKS local ranks of one
+    gloo group (``bootstrap.spawn_local``); every rank's findings."""
+    from repro_torch.distributed import bootstrap
+    print(f"# check_programs_torch: sharded programs on {SHARDED_RANKS} "
+          f"ranks ({device})", flush=True)
+    per_rank = bootstrap.spawn_local(SHARDED_RANKS, _sharded_rank,
+                                     scenarios, kinds, str(device))
+    return [f for found in per_rank for f in found]
+
+
 def run_lint() -> list:
     from repro_torch.analysis import lint
     targets = lint.default_targets(os.path.join(REPO_ROOT, "src",
@@ -97,11 +142,28 @@ def run_recompile(device) -> list:
     return recompile.check_steady_state(counts, what="loop driver")
 
 
+@contextlib.contextmanager
+def _one_process_group():
+    """A one-process gloo group on an in-memory store, for the fixtures
+    that dispatch real c10d ops; the group already up, if there is one."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        yield
+        return
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def selftest_failures(device) -> list:
     """The gate must still be able to fail: each deliberately broken
     fixture must produce a finding of its own rule, with provenance
     where the rule gives one. Returns the fixtures that did not fail."""
     import torch
+    import torch.distributed
     from repro_torch.analysis import contracts, lint, recompile, walker
     from repro_torch.obs.trace import annotate
     from repro_torch.obs import metrics
@@ -157,6 +219,28 @@ def selftest_failures(device) -> list:
                          "gs_return": torch.zeros(())}}))
     if len(found) < 2:
         failures.append("off-schema record did not fail ScalarSyncBudget")
+
+    def gathering(v):
+        parts = [torch.empty_like(v)]
+        torch.distributed.all_gather(parts, v)     # dispatches c10d ops
+        return parts[0] * 2
+
+    with _one_process_group():
+        found = rule_of(contracts.CollectiveFree(), contracts.Program(
+            "selftest/collective", ("train_body",), gathering, (x,)))
+        if not (found and found[0].line
+                and found[0].file.endswith("check_programs_torch.py")):
+            failures.append("a collective in the train body did not fail "
+                            "CollectiveFree with provenance")
+        if not rule_of(contracts.HaloOnly(), contracts.Program(
+                "selftest/gather-in-gs", ("gs_body",), gathering, (x,))):
+            failures.append("an all_gather in a GS body did not fail "
+                            "HaloOnly")
+        if not rule_of(contracts.HaloOnly(), contracts.Program(
+                "selftest/silent-gs", ("gs_body",), lambda v: v * 2,
+                (x,))):
+            failures.append("a one-shard GS body without a halo exchange "
+                            "did not fail HaloOnly")
 
     if dev.type == "cuda":
         found = rule_of(contracts.GraphCapturable(), contracts.Program(
@@ -222,6 +306,9 @@ def main() -> int:
                          "busiest source lines")
     ap.add_argument("--selftest", action="store_true",
                     help="verify the gate fails on broken fixtures")
+    ap.add_argument("--sharded", action="store_true",
+                    help="run the sharded round's programs on two "
+                         "spawned ranks")
     ap.add_argument("--scenarios", default="",
                     help="comma-separated env names (default: all "
                          "registered)")
@@ -234,7 +321,7 @@ def main() -> int:
 
     from repro_torch.kernels.dispatch import resolve_device
     lint_only = args.lint and not (args.contracts or args.census
-                                   or args.selftest)
+                                   or args.selftest or args.sharded)
     device = None if lint_only else resolve_device(args.device)
     if args.selftest:
         return run_selftest(device)
@@ -242,13 +329,16 @@ def main() -> int:
     from repro_torch.analysis.report import emit
     scenarios = [s for s in args.scenarios.split(",") if s]
     kinds = [k for k in args.kinds.split(",") if k]
-    everything = not (args.contracts or args.lint or args.census)
+    everything = not (args.contracts or args.lint or args.census
+                      or args.sharded)
     findings = []
     if args.census:
         run_census(scenarios, kinds, device)
     if everything or args.contracts:
         findings += run_contracts(scenarios, kinds, device)
         findings += run_recompile(device)
+    if everything or args.sharded:
+        findings += run_sharded(scenarios, kinds, device)
     if everything or args.lint:
         findings += run_lint()
     n = emit(_rel(findings))
