@@ -65,6 +65,20 @@ It
      the tags [0, 0, 1] and [True, False, False], the JSONL log valid,
      ``gru_forward`` launched by the collect worker on its own stream) and
      two at bound 0, bit for bit the serial run's records; then the
+     sharded runtime's fault-tolerance half on the recurrent-policy path
+     (``run_fault_path``, two ranks sharing cuda:0, re-invocations of
+     this script as ``--fault-worker``): an uninterrupted run with
+     distributed checkpoints (every step in the reference's per-slice
+     layout), step 2 restored onto one shard and run on (bit for bit the
+     loop driver's flat restore), a host drop at round 2 (the survivor's
+     records and its final state bit for bit that one-shard resume, the
+     event log through ``tools/telemetry_report.py --check``), a recovery
+     around the external coordinator under a chaos spec (the survivor
+     re-executed as generation 1, bit for bit the same, within the
+     two-rank tolerances of the uninterrupted run, ``--check
+     --expect-recovery``) and the dispatch-mode async collect (bound 0
+     bit for bit the serial run, bound 2 tags [0, 0, 1]), with the
+     recovery times and the three kernels' launches printed; then the
      kernel path against the plain path on a small input (one round,
      warehouse side=2); then the program contracts
      (``repro_torch.analysis``) on the recurrent-policy warehouse and
@@ -167,6 +181,25 @@ SHARDED_TOL = {"aips": 1e-6, "policy": 1e-6, "aip_ce_before": 1e-5,
                "aip_ce_after": 1e-5, "gs_return": 5e-2, "ials_reward": 1e-5}
 SHARDED_RANKS_POLICY_TOL = 1e-2
 SHARDED_POLICY_REL = 0.5
+
+# The fault path (the sharded runtime's fault-tolerance half): the
+# recurrent-policy warehouse path at side=10 on two ranks sharing cuda:0,
+# FAULT_ROUNDS rounds a run: an uninterrupted run with checkpoints, the
+# restore of step 2 onto one shard, a host drop at the top of round
+# FAULT_KILL_ROUND, a recovery under FAULT_CHAOS (rank 1's writer SIGKILLed
+# once its step-2 slice is prepared, its main thread parked in the round-2
+# heartbeat) and the overlapped collect at bound 0 (FAULT_ZERO_ROUNDS) and
+# 2 (FAULT_ASYNC_ROUNDS). The gate declares a silent rank dead after
+# FAULT_BEAT_TIMEOUT_S; a collective with a stalled peer fails after the
+# group's timeout FAULT_GRACE_S; a worker run is killed at FAULT_TIMEOUT_S.
+FAULT_ROUNDS = 4
+FAULT_KILL_ROUND = 2
+FAULT_ZERO_ROUNDS = 2
+FAULT_ASYNC_ROUNDS = 3
+FAULT_BEAT_TIMEOUT_S = 15.0
+FAULT_GRACE_S = 120.0
+FAULT_TIMEOUT_S = 600
+FAULT_CHAOS = "crash@2:host=1:phase=prepared,delay@2:host=1:delay_s=120"
 
 # The contracts phase (repro_torch.analysis): the recurrent-policy
 # warehouse and the traffic paths at side=10, kernels on. Four programs
@@ -1484,6 +1517,616 @@ def run_async_path(device, smi):
     return counts, {}
 
 
+# ---------------------------------------------------------------------------
+# the fault path: distributed checkpoints, host drop, recovery, async
+# ---------------------------------------------------------------------------
+FAULT_WORKER_MODES = ("straight", "hostdrop", "recover")
+
+
+def _fault_leaves(state):
+    """The state's AIP and IALS leaves on the CPU, in tree order."""
+    from repro_torch.tree import leaves
+    return [x.detach().cpu() for x in leaves(state["aips"])
+            + leaves(state["ials"])]
+
+
+def _fault_parts(state):
+    """The AIP and policy leaves on the CPU (the tolerance checks')."""
+    from repro_torch.tree import leaves
+    return {"aips": [x.detach().cpu() for x in leaves(state["aips"])],
+            "params": [x.detach().cpu()
+                       for x in leaves(state["ials"]["params"])]}
+
+
+def _fault_compare(label, got, want, init_params):
+    """Max abs differences of the AIPs and the policy, and the policy's
+    distance against the uninterrupted run's own move from init
+    (``policy_rel``, 2-norms over every leaf), held to the two-rank
+    tolerances (SHARDED_TOL, SHARDED_RANKS_POLICY_TOL,
+    SHARDED_POLICY_REL)."""
+    import torch
+
+    def flat(xs):
+        return torch.cat([x.double().reshape(-1) for x in xs])
+
+    errs = {k: float((flat(got[k]) - flat(want[k])).abs().max())
+            for k in ("aips", "params")}
+    ref = flat(want["params"])
+    errs["policy_rel"] = float((flat(got["params"]) - ref).norm()
+                               / (ref - flat(init_params)).norm())
+    for k, lim in (("aips", SHARDED_TOL["aips"]),
+                   ("params", SHARDED_RANKS_POLICY_TOL),
+                   ("policy_rel", SHARDED_POLICY_REL)):
+        check(errs[k] <= lim, f"{label}: {k} differs by {errs[k]:.3e} > "
+                              f"{lim}")
+    return errs
+
+
+def fault_worker(argv) -> int:
+    """One rank of the fault path, started by ``run_fault_path`` as
+    ``python3 chip_smoke.py --fault-worker MODE --dir D`` with the
+    ``DIALS_*`` env of a two-rank gloo group on cuda:0 (the recurrent-
+    policy warehouse path at side=10, kernels on, F=AIP_REFRESH):
+
+    * ``straight``: FAULT_ROUNDS rounds with ``ckpt_dir``, then the
+      overlapped collect at bound 0 (FAULT_ZERO_ROUNDS rounds) and at
+      bound 2 (FAULT_ASYNC_ROUNDS rounds); the ranks leave the group
+      together and exit with ``os._exit(0)``, past the interpreter's
+      teardown of torch's distributed state, which can abort a finished
+      rank (``tests/_torch_multihost_check.py``);
+    * ``hostdrop``: FAULT_ROUNDS rounds with a ``HostMonitor`` gate; rank
+      1 SIGKILLs itself at the top of round FAULT_KILL_ROUND, rank 0
+      trains on alone and leaves with ``os._exit(0)``;
+    * ``recover``: FAULT_ROUNDS rounds with ``ckpt_dir`` under the chaos
+      spec ``--chaos`` around the external coordinator; the survivor
+      recovers (``recovery.recover``: finalize, teardown, re-exec of this
+      very command as generation 1), runs the rest solo and writes its
+      result.
+
+    Each rank writes what it measured to ``D/rank{R}-gen{G}.pt``."""
+    import argparse
+    import signal
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fault-worker", required=True,
+                    choices=FAULT_WORKER_MODES)
+    ap.add_argument("--dir", required=True)
+    ap.add_argument("--chaos", default="")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch import obs
+    from repro_torch import random as R
+    from repro_torch.distributed import bootstrap
+    from repro_torch.distributed import chaos as chaos_mod
+    from repro_torch.distributed import fault, recovery
+    from repro_torch.kernels import build, dispatch
+    torch.set_num_threads(2)
+    mode, d = args.fault_worker, args.dir
+    rank = int(os.environ.get("DIALS_PROCESS_ID", "0"))
+    tel_dir = os.path.join(d, "tel")
+    tel = (obs.Telemetry.create(tel_dir, process_id=rank)
+           if mode != "straight" else obs.DISABLED)
+    reco = recovery.RecoveryConfig(
+        teardown_timeout_s=5.0, init_timeout_s=180.0, retries=4,
+        backoff_s=0.5, peer_death_grace_s=FAULT_GRACE_S)
+    if mode == "recover":
+        ctx, gen = recovery.startup(reco=reco, telemetry=tel)
+    else:
+        ctx, gen = bootstrap.bootstrap(peer_death_grace_s=FAULT_GRACE_S,
+                                       init_timeout_s=180.0), 0
+    device = dispatch.resolve_device("cuda:0")
+    build.extension()                      # built by the parent: a load
+    key = R.key(0, device=device)
+    out = {"rank": rank, "gen": gen, "world": ctx.num_processes}
+    path = os.path.join(d, f"rank{rank}-gen{gen}.pt")
+    ends = {}
+
+    def log(rec):
+        ends[rec["round"]] = time.time()
+
+    def trainer_for(rounds, **kw):
+        return make_trainer("warehouse", SIDE, device=device,
+                            use_kernels="on", rounds=rounds,
+                            refresh=AIP_REFRESH, policy_kind="gru", **kw)
+
+    def finish(state, history):
+        torch.cuda.synchronize()
+        out.update(history=history, counts=launch_counts(),
+                   ends=dict(ends))
+        if state is not None:
+            out["state"] = _fault_leaves(state)
+            out["parts"] = _fault_parts(state)
+
+    if mode == "straight":
+        trainer = trainer_for(FAULT_ROUNDS,
+                              ckpt_dir=os.path.join(d, "ckpt"),
+                              ckpt_keep=FAULT_ROUNDS)
+        reset_counts()
+        state, history = trainer.run(key, log=log)
+        finish(state if rank == 0 else None, history)
+        out["save"] = trainer._dist_manager.timings
+        runs = {}
+        for label, rounds, bound in (("bound0", FAULT_ZERO_ROUNDS, 0),
+                                     ("bound2", FAULT_ASYNC_ROUNDS, 2)):
+            del trainer, state
+            torch.cuda.empty_cache()
+            trainer = trainer_for(rounds, async_collect=True,
+                                  max_aip_staleness=bound)
+            reset_counts()
+            state, history = trainer.run(key)
+            torch.cuda.synchronize()
+            runs[label] = {"history": history, "counts": launch_counts()}
+            if rank == 0:
+                runs[label]["state"] = _fault_leaves(state)
+        out["async"] = runs
+        torch.save(out, path)
+        torch.distributed.barrier()
+        bootstrap.shutdown()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+    if mode == "hostdrop":
+        monitor = fault.HostMonitor(
+            os.path.join(d, "beats"), host=rank, n_hosts=2,
+            timeout_s=FAULT_BEAT_TIMEOUT_S, telemetry=tel)
+        trainer = trainer_for(FAULT_ROUNDS, telemetry_dir=tel_dir)
+        waits = {}
+
+        def heartbeats(rnd):
+            if rank == 1 and rnd >= FAULT_KILL_ROUND:
+                # rounds 0..1 and their mirror all-gathers are done on
+                # both ranks: die without a trace
+                with open(os.path.join(d, "killed_at"), "w") as f:
+                    f.write(repr(time.time()))
+                os.kill(os.getpid(), signal.SIGKILL)
+            dead = monitor.gate(rnd)
+            waits[rnd] = monitor.last_wait_s
+            if dead:
+                out["detected_at"] = time.time()
+            return dead
+
+        reset_counts()
+        state, history = trainer.run(key, heartbeats=heartbeats, log=log)
+        finish(state, history)
+        out["gate_wait_s"] = waits
+        tel.close()
+        torch.save(out, path)
+        print("FAULT-WORKER-OK", flush=True)
+        os._exit(0)       # no leaving the group next to a dead peer
+
+    # recover
+    trainer = trainer_for(FAULT_ROUNDS, ckpt_dir=os.path.join(d, "ckpt"),
+                          ckpt_keep=FAULT_ROUNDS, telemetry_dir=tel_dir)
+    schedule = chaos_mod.FaultSchedule.from_spec(
+        args.chaos, host=ctx.process_id, generation=gen, telemetry=tel)
+    heartbeats, deadman = None, None
+    if ctx.num_processes > 1:
+        monitor = fault.HostMonitor(
+            os.path.join(d, "beats"), host=ctx.process_id,
+            n_hosts=ctx.num_processes, timeout_s=FAULT_BEAT_TIMEOUT_S,
+            telemetry=tel)
+        heartbeats = recovery.raising_gate(monitor)
+        deadman = recovery.Deadman(
+            os.path.join(d, "beats"), host=ctx.process_id,
+            n_hosts=ctx.num_processes,
+            current_round=lambda: heartbeats.round,
+            on_loss=lambda loss: recovery.recover(
+                loss, ctx, ckpt_dir=os.path.join(d, "ckpt"), reco=reco,
+                telemetry=tel),
+            interval_s=1.0, silence_s=FAULT_GRACE_S / 2,
+            telemetry=tel).start()
+    reset_counts()
+    try:
+        state, history = trainer.run(key, heartbeats=heartbeats,
+                                     chaos=schedule, log=log)
+        if deadman is not None:
+            deadman.stop()
+    except Exception as err:
+        loss = recovery.diagnose(err, heartbeats, telemetry=tel)
+        if deadman is not None and not deadman.claim():
+            import threading
+            threading.Event().wait()      # the watchdog is recovering
+        recovery.recover(loss, ctx, ckpt_dir=os.path.join(d, "ckpt"),
+                         reco=reco, telemetry=tel)
+        raise AssertionError("recover() returned")
+    if gen == 0:
+        print("FAULT-WORKER: the scheduled fault never fired", flush=True)
+        return 1
+    finish(state, history)
+    tel.close()
+    torch.save(out, path)
+    print("FAULT-WORKER-OK", flush=True)
+    return 0
+
+
+def _fault_env(port, rank, external=False):
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "DIALS_COORDINATOR": f"127.0.0.1:{port}",
+           "DIALS_NUM_PROCESSES": "2", "DIALS_PROCESS_ID": str(rank)}
+    env.pop("DIALS_RECOVERY_GENERATION", None)
+    env.pop("DIALS_COORDINATOR_EXTERNAL", None)
+    if external:
+        env["DIALS_COORDINATOR_EXTERNAL"] = "1"
+    return env
+
+
+def _fault_ranks(mode, d, *, port=None, external=False, chaos=""):
+    """Two worker ranks of ``fault_worker``; returns [(rc, output)] by
+    rank. Every rank still running at FAULT_TIMEOUT_S is killed."""
+    from repro_torch.distributed import bootstrap
+    port = port if port is not None else bootstrap.free_port()
+    os.makedirs(d, exist_ok=True)
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+           "--fault-worker", mode, "--dir", d]
+    if chaos:
+        cmd += ["--chaos", chaos]
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=_fault_env(port, r,
+                                                            external),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    deadline = time.monotonic() + FAULT_TIMEOUT_S
+    out = []
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            out.append((p.returncode, f.read()))
+    return out
+
+
+def _fault_load(d, rank, gen=0):
+    import torch
+    return torch.load(os.path.join(d, f"rank{rank}-gen{gen}.pt"),
+                      weights_only=False)
+
+
+def _fault_check_ok(label, results, want=(0, 0)):
+    for r, ((rc, log), code) in enumerate(zip(results, want)):
+        check(rc == code, f"{label}: rank {r} exited with {rc}, not {code}:"
+                          f"\n{log[-3000:]}")
+
+
+def _fault_kernels(label, counts):
+    for name in ("gru_forward", "gru_backward", "gae_forward"):
+        check(counts.get(name, 0) > 0, f"{label} never launched {name}")
+
+
+def _telemetry_report(directory, *flags):
+    """``tools/telemetry_report.py`` (the repo's own check of an event
+    log) on ``directory``, in a process of its own."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tools.telemetry_report", directory,
+         "--check", *flags], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+        timeout=120)
+    print(f"telemetry_report {os.path.basename(directory)} "
+          f"{' '.join(flags)}: {proc.stdout.strip()[-300:]}", flush=True)
+    check(proc.returncode == 0, f"telemetry_report --check {flags} failed "
+                                f"on {directory}:\n{proc.stdout[-2000:]}"
+                                f"{proc.stderr[-2000:]}")
+
+
+def _fault_events(directory):
+    from repro_torch.obs import sinks
+    return sinks.read_jsonl(sinks.merge_dir(directory))
+
+
+def _same(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_fault_path(device, smi):
+    """The sharded runtime's fault-tolerance half on the recurrent-policy
+    warehouse path at side=10 (kernels on, F=AIP_REFRESH), two ranks
+    sharing cuda:0 over gloo (``fault_worker``):
+
+    1. an uninterrupted run of FAULT_ROUNDS rounds with ``ckpt_dir``:
+       every step in the reference's layout (one slice per rank,
+       ``replicated/``, a verifying COMMIT);
+    2. in this process, step 2 restored into a one-shard runner (two
+       slices onto one shard, a ``restore_reshard`` event) and run on for
+       rounds 2..; the loop driver's flat-manager restore of the same
+       step bit for bit the one-shard restore;
+    3. a host drop: rank 1 SIGKILLed at the top of round 2, the survivor
+       reassigned (records n_shards [2, 2, 1, 1], dead_hosts [1],
+       reassigned 1) and bit for bit (2)'s final state; the merged event
+       log passing ``tools/telemetry_report.py --check`` with its
+       ``host_death`` and ``elastic_reassign``;
+    4. a recovery around the external coordinator under the chaos spec
+       FAULT_CHAOS: rank 1 SIGKILLed (-9), the survivor re-executed as
+       generation 1, resuming rounds [2, 3] solo, bit for bit (2)'s final
+       state, within the two-rank tolerances of (1), the merged log
+       passing ``--check --expect-recovery``;
+    5. the sharded overlapped collect: bound 0 bit for bit (1)'s records
+       and state over the same rounds, bound 2 tags [0, 0, 1].
+
+    Prints each rank's round_s and mirror_s, the saves' prepare and
+    commit seconds, the restore seconds, the gate's wait until the death
+    was declared, the seconds from the SIGKILL to the survivor's first
+    resumed round, and each run's launches of the three kernels. Returns
+    (the launch counts of every run of the phase, {})."""
+    import shutil
+    import torch
+    from repro_torch import random as R
+    from repro_torch.checkpoint import distributed as dckpt
+    from repro_torch.obs import sinks
+    base = os.path.join(ROOT, "build", "chip_smoke_fault")
+    shutil.rmtree(base, ignore_errors=True)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def round_s(hist):
+        return [round(r["round_s"], 4) for r in hist]
+
+    # (1) + (5): the uninterrupted run, then the overlapped collect
+    d1 = os.path.join(base, "straight")
+    t0 = time.perf_counter()
+    results = _fault_ranks("straight", d1)
+    _fault_check_ok("fault (1) straight", results)
+    ranks = [_fault_load(d1, r) for r in range(2)]
+    print(f"fault (1) straight: 2 ranks spawn to finish "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for out in ranks:
+        r = out["rank"]
+        saves = [(t["step"], round(t["prepare_s"], 4),
+                  t["commit_s"] and round(t["commit_s"], 4))
+                 for t in out["save"]]
+        print(f"fault (1) rank {r} on {smi}: round_s "
+              f"{round_s(out['history'])}; saves (step, prepare s, "
+              f"commit s) {saves}; launches {out['counts']}", flush=True)
+        check([x["n_shards"] for x in out["history"]] == [2] * FAULT_ROUNDS,
+              f"fault (1) rank {r}: n_shards")
+        _fault_kernels(f"fault (1) rank {r}", out["counts"])
+        add(out["counts"])
+    ck1 = os.path.join(d1, "ckpt")
+    check(sorted(os.listdir(ck1)) == [f"step_{s}" for s in
+                                      range(1, FAULT_ROUNDS + 1)],
+          f"fault (1): steps {sorted(os.listdir(ck1))}")
+    n, half = SIDE * SIDE, SIDE * SIDE // 2
+    for s in range(1, FAULT_ROUNDS + 1):
+        sd = os.path.join(ck1, f"step_{s}")
+        names = sorted(os.listdir(sd))
+        check(names == ["COMMIT", f"agents-00000-{half:05d}",
+                        f"agents-{half:05d}-{n:05d}", "replicated"],
+              f"fault (1) step {s}: {names}")
+        meta = dckpt.committed_meta(sd)
+        check(meta is not None and meta["slices"] == [[0, half], [half, n]]
+              and meta["replicated"] == ["key.npy", "round.npy"],
+              f"fault (1) step {s}: COMMIT does not verify: {meta}")
+    straight_parts = ranks[0]["parts"]
+
+    # (2) restore step 2: one shard in this process, and the loop driver
+    d2 = os.path.join(base, "one_shard")
+    os.makedirs(os.path.join(d2, "ckpt"))
+    shutil.copytree(os.path.join(ck1, "step_2"),
+                    os.path.join(d2, "ckpt", "step_2"))
+    key = R.key(0, device=device)
+    one = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
+                       rounds=FAULT_ROUNDS, refresh=AIP_REFRESH,
+                       policy_kind="gru", ckpt_dir=os.path.join(d2, "ckpt"),
+                       telemetry_dir=os.path.join(d2, "tel"))
+    runner = one._sharded_runner(1)
+    t0 = time.perf_counter()
+    restored = one.restore_or_init(key, runner=runner)
+    torch.cuda.synchronize()
+    restore_one_s = time.perf_counter() - t0
+    loop = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
+                        rounds=FAULT_ROUNDS, refresh=AIP_REFRESH,
+                        policy_kind="gru", ckpt_dir=os.path.join(d2, "ckpt"))
+    t0 = time.perf_counter()
+    flat = loop.restore_or_init(key)
+    torch.cuda.synchronize()
+    restore_flat_s = time.perf_counter() - t0
+    check(restored["round"] == flat["round"] == 2,
+          f"fault (2): restored rounds {restored['round']}, {flat['round']}")
+    check(_same(_fault_leaves(restored), _fault_leaves(flat)) and
+          torch.equal(restored["key"], flat["key"]),
+          "fault (2): the loop driver's restore differs from the one-shard "
+          "restore")
+    del loop, flat, restored
+    reset_counts()
+    state, history = one._run_sharded(None, 1, key=key, log=None,
+                                      straggler_mask=None)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _fault_kernels("fault (2) one shard", counts)
+    add(counts)
+    check([x["round"] for x in history] == list(range(2, FAULT_ROUNDS)),
+          f"fault (2): rounds {[x['round'] for x in history]}")
+    reshard = [e for e in sinks.read_jsonl(sinks.proc_path(
+        os.path.join(d2, "tel"), 0)) if e["event"] == "restore_reshard"]
+    check(bool(reshard) and (reshard[0]["old_shards"],
+                             reshard[0]["new_shards"]) == (2, 1),
+          f"fault (2): restore_reshard events {reshard}")
+    ref_state = _fault_leaves(state)
+    print(f"fault (2) restore of step 2 on {smi}: one shard "
+          f"{restore_one_s:.4f} s, loop driver (flat manager) "
+          f"{restore_flat_s:.4f} s; one-shard round_s {round_s(history)}; "
+          f"launches {counts}", flush=True)
+    del one, state, runner
+    torch.cuda.empty_cache()
+
+    # (3) host drop
+    d3 = os.path.join(base, "hostdrop")
+    t0 = time.perf_counter()
+    results = _fault_ranks("hostdrop", d3)
+    _fault_check_ok("fault (3) hostdrop", results, want=(0, -9))
+    out = _fault_load(d3, 0)
+    hist = out["history"]
+    with open(os.path.join(d3, "killed_at")) as f:
+        killed_at = float(f.read())
+    print(f"fault (3) host drop survivor on {smi}: round_s "
+          f"{round_s(hist)}; mirror_s "
+          f"{[round(x['mirror_s'], 4) for x in hist]}; gate wait by round "
+          f"{ {k: round(v, 4) for k, v in out['gate_wait_s'].items()} }; "
+          f"SIGKILL to death declared "
+          f"{out['detected_at'] - killed_at:.3f} s, to the end of the "
+          f"first resumed round {out['ends'][FAULT_KILL_ROUND] - killed_at:.3f}"
+          f" s; spawn to finish {time.perf_counter() - t0:.2f} s; launches "
+          f"{out['counts']}", flush=True)
+    _fault_kernels("fault (3) survivor", out["counts"])
+    add(out["counts"])
+    check([x["n_shards"] for x in hist] == [2, 2, 1, 1],
+          f"fault (3): n_shards {[x['n_shards'] for x in hist]}")
+    check([x["dead_hosts"] for x in hist] == [[], [], [1], []],
+          f"fault (3): dead_hosts {[x['dead_hosts'] for x in hist]}")
+    check([x["reassigned"] for x in hist] == [0, 0, 1, 0],
+          f"fault (3): reassigned {[x['reassigned'] for x in hist]}")
+    check(_same(out["state"], ref_state),
+          "fault (3): the survivor's final state is not bit for bit the "
+          "one-shard resume from step 2")
+    _telemetry_report(os.path.join(d3, "tel"))
+    events = _fault_events(os.path.join(d3, "tel"))
+    for r in range(2):
+        recs = [e for e in events if e["event"] == "round"
+                and e["proc"] == r]
+        print(f"fault (3) rank {r} round records: round_s "
+              f"{round_s(recs)}, mirror_s "
+              f"{[round(e['mirror_s'], 4) for e in recs]}", flush=True)
+    kinds = {e["event"] for e in events}
+    check({"host_death", "elastic_reassign"} <= kinds,
+          f"fault (3): events {sorted(kinds)}")
+
+    # (4) recovery around the external coordinator
+    from repro_torch.distributed import bootstrap
+    d4 = os.path.join(base, "recover")
+    os.makedirs(d4)
+    port = bootstrap.free_port()
+    ready = os.path.join(d4, "coordinator.ready")
+    coordinator = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.distributed.coordinator",
+         "--bind", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--ready-file", ready, "--timeout-s", str(FAULT_TIMEOUT_S)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": os.path.join(ROOT,
+                                                                "src")},
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        for _ in range(1200):
+            if os.path.exists(ready) or coordinator.poll() is not None:
+                break
+            time.sleep(0.05)
+        check(os.path.exists(ready), "fault (4): the coordinator never "
+                                     "came up")
+        t0 = time.perf_counter()
+        results = _fault_ranks("recover", d4, port=port, external=True,
+                               chaos=FAULT_CHAOS)
+    finally:
+        coordinator.terminate()
+        try:
+            coordinator.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            coordinator.kill()
+            coordinator.wait()
+    _fault_check_ok("fault (4) recover", results, want=(0, -9))
+    check("FAULT-WORKER-OK" in results[0][1], "fault (4): no result")
+    out = _fault_load(d4, 0, gen=1)
+    hist = out["history"]
+    check((out["gen"], out["world"]) == (1, 1),
+          f"fault (4): generation {out['gen']}, world {out['world']}")
+    check([x["round"] for x in hist] == list(range(2, FAULT_ROUNDS)),
+          f"fault (4): resumed rounds {[x['round'] for x in hist]}")
+    _fault_kernels("fault (4) survivor", out["counts"])
+    add(out["counts"])
+    check(_same(out["state"], ref_state),
+          "fault (4): the survivor's final state is not bit for bit the "
+          "one-shard resume from step 2")
+    from repro_torch.tree import leaves
+    init = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
+                        rounds=1, refresh=AIP_REFRESH, policy_kind="gru")
+    init_params = [x.cpu() for x in
+                   leaves(init.init(key)["ials"]["params"])]
+    errs = _fault_compare("fault (4) survivor against (1)", out["parts"],
+                          straight_parts, init_params)
+    del init
+    _telemetry_report(os.path.join(d4, "tel"), "--expect-recovery")
+    events = _fault_events(os.path.join(d4, "tel"))
+
+    def first_t(name, **where):
+        for e in events:
+            if e["event"] == name and all(e.get(k) == v
+                                          for k, v in where.items()):
+                return e["t"]
+        raise PhaseError(f"fault (4): no {name} event {where}")
+
+    t_kill = first_t("chaos_inject", kind="writer_crash")
+    t_death = first_t("host_death")
+    t_boot = first_t("rebootstrap")
+    t_start = [e["t"] for e in events if e["event"] == "run_start"][-1]
+    t_round = first_t("round", round=2)
+    print(f"fault (4) recovery on {smi}: SIGKILL to death declared "
+          f"{t_death - t_kill:.3f} s, to the re-executed bootstrap "
+          f"{t_boot - t_kill:.3f} s, to the resumed run_start "
+          f"{t_start - t_kill:.3f} s, to the end of the first resumed round "
+          f"{t_round - t_kill:.3f} s; generation 1 round_s {round_s(hist)}; "
+          f"against (1): {errs}; spawn to finish "
+          f"{time.perf_counter() - t0:.2f} s; launches {out['counts']}",
+          flush=True)
+
+    # (5) the overlapped collect on the two ranks of (1)
+    keys = ("gs_return", "aip_ce_before", "aip_ce_after", "ials_reward",
+            "data_round", "stale_forced", "staleness_min", "staleness_mean",
+            "staleness_max", "n_shards")
+    step2, _ = _restore_full(device, ck1, 2)
+    for out in ranks:
+        r, runs = out["rank"], out["async"]
+        zero, lag = runs["bound0"]["history"], runs["bound2"]["history"]
+        for label in ("bound0", "bound2"):
+            _fault_kernels(f"fault (5) rank {r} {label}",
+                           runs[label]["counts"])
+            add(runs[label]["counts"])
+        print(f"fault (5) rank {r} on {smi}: bound 0 round_s "
+              f"{round_s(zero)}, bound 2 round_s {round_s(lag)}, obtain "
+              f"wait {[round(x['collect_s'], 4) for x in lag]}; tags "
+              f"{[x['data_round'] for x in lag]}", flush=True)
+        check([[x[k] for k in keys] for x in zero] ==
+              [[x[k] for k in keys]
+               for x in out["history"][:FAULT_ZERO_ROUNDS]],
+              f"fault (5) rank {r}: bound-0 records differ from (1)'s")
+        check(all(x["forced_sync"] for x in zero),
+              f"fault (5) rank {r}: a bound-0 round was not force-synced")
+        check([x["data_round"] for x in lag] == [0, 0, 1] and
+              [x["forced_sync"] for x in lag] == [True, False, False],
+              f"fault (5) rank {r}: bound-2 tags "
+              f"{[x['data_round'] for x in lag]}")
+    check(_same(ranks[0]["async"]["bound0"]["state"], step2),
+          "fault (5): the bound-0 state is not bit for bit (1)'s step 2")
+    for k in ("gru_forward", "gru_backward", "gae_forward"):
+        check(total.get(k, 0) > 0, f"fault path never launched {k}")
+    return total, {}
+
+
+def _restore_full(device, directory, step):
+    """Step ``step`` of ``directory`` as full AIP and IALS leaves (the
+    flat manager's restore into the gru-policy trainer's state)."""
+    from repro_torch import random as R
+    tr = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
+                      rounds=1, refresh=AIP_REFRESH, policy_kind="gru",
+                      ckpt_dir=directory)
+    tree, got = tr.manager.restore_step(step, tr.init(R.key(0,
+                                                            device=device)))
+    check(got == step, f"no committed step {step} in {directory}")
+    return _fault_leaves(tree), got
+
+
 def run_contracts_path(device, smi):
     """The program contracts on the card (``repro_torch.analysis``), for
     each of CONTRACT_PATHS at side=10 with ``use_kernels="on"``: for the
@@ -1861,7 +2504,8 @@ def check_small_against_plain(device):
           "small input: non-finite record")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError:
@@ -1875,6 +2519,8 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside the script",
               file=sys.stderr)
         return 2
+    if "--fault-worker" in argv:
+        return fault_worker(argv)
     sys.path.insert(0, src)
     # the entry points' device rule, which also sets the reference's matmul
     # numerics for the plain versions timed below
@@ -1952,6 +2598,8 @@ def main() -> int:
         del state, history
         paths["dials async collect"] = phase(
             "dials async collect path", run_async_path, device, smi)
+        paths["dials fault path (two ranks on cuda:0)"] = phase(
+            "dials fault path", run_fault_path, device, smi)
         phase("dials small input vs plain", check_small_against_plain,
               device)
         paths["contracts (walker, eager and capture calls; graph replays "

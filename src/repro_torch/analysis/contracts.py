@@ -64,8 +64,17 @@ Rule catalogue:
                        must advance the halo counter
                        (``collectives.STATS``) instead.
 
-``ReshardCollectives`` checks the elastic reshard, which comes with the
-sharded runtime's fault-tolerance half (ROADMAP queue 1 item 9).
+``ReshardCollectives`` the restore and re-shard transfers of the
+                       recovery path (checkpoint rows to this shard's
+                       placement, ``fetch_tree``) move data and compute
+                       nothing: of the c10d ops they dispatch only
+                       all-gathers, broadcasts and the staged ring shift's
+                       sends and receives are allowed. An all-reduce, a
+                       reduce-scatter or an all-to-all combines shards, the
+                       fault that turns a bit-for-bit resume into another
+                       run. (The reference reads the compiled HLO; the
+                       port's transfers are eager, so the rule reads the
+                       ops the walker records.)
 
 Programs carry ``roles`` tags; each rule declares which roles it applies
 to, and :func:`run_rules` does the cross product.
@@ -558,20 +567,53 @@ class HaloOnly(ContractRule):
 
     @staticmethod
     def _exchanges_on_one_shard(program: Program) -> bool:
-        """Without other ranks (world size 1) the ring shift is the
-        identity and dispatches no c10d op: such a program passes when
-        one more call of it advances the halo counter."""
+        """On a one-shard mesh (``meta["n_shards"]``, by default the world
+        size: a survivor's mesh has one shard in a world of several) the
+        ring shift is the identity and dispatches no c10d op: such a
+        program passes when one more call of it advances the halo
+        counter."""
         from repro_torch.distributed import collectives, runtime
-        if runtime.world_size() != 1:
+        if program.meta.get("n_shards", runtime.world_size()) != 1:
             return False
         before = collectives.STATS["halo_exchanges"]
         program.fn(*program.args)
         return collectives.STATS["halo_exchanges"] > before
 
 
+class ReshardCollectives(ContractRule):
+    """The restore and re-shard transfers move rows; they must not
+    combine shards."""
+    name = "ReshardCollectives"
+    roles = ("reshard",)
+    # data movement: gathers, broadcasts and point-to-point (the ring
+    # shift staged through host memory)
+    ALLOWED = frozenset({
+        "c10d.allgather_", "c10d._allgather_base_",
+        "c10d.allgather_coalesced_", "c10d.allgather_into_tensor_coalesced_",
+        "_c10d_functional.all_gather_into_tensor",
+        "_c10d_functional.all_gather_into_tensor_out",
+        "_c10d_functional.all_gather_into_tensor_coalesced",
+        "_c10d_functional_autograd.all_gather_into_tensor",
+        "c10d.broadcast_", "_c10d_functional.broadcast",
+        "_c10d_functional.broadcast_",
+    })
+
+    def check(self, program: Program) -> List[Finding]:
+        from repro_torch.distributed import runtime
+        allowed = self.ALLOWED | runtime.HALO_PRIMS
+        return [_site_finding(self.name, program, s,
+                              f"{s.op} in a re-shard transfer: the restore "
+                              f"path must be pure data movement (all-gather, "
+                              f"broadcast, the ring shift)")
+                for s in walker.sites(program.recording(),
+                                      runtime.COLLECTIVE_PRIMS)
+                if s.op not in allowed]
+
+
 DEFAULT_RULES: Tuple[ContractRule, ...] = (
     NoHostSync(), DtypeRoundTrip(), RingBufferResident(),
     ScalarSyncBudget(), GraphCapturable(), CollectiveFree(), HaloOnly(),
+    ReshardCollectives(),
 )
 
 

@@ -19,9 +19,11 @@ is only known by running it, so the inputs are real, and small):
   bodies (:func:`sharded_programs`), on this process's shard mesh: one
   shard without a process group, one per rank inside one.
 
-The post-loss resume path (``recovery_programs``) comes with the
-sharded runtime's fault-tolerance half (ROADMAP queue 1 item 9). New
-programs register here: extend :func:`loop_programs` or append a builder
+* the **post-loss resume path** (:func:`recovery_programs`): the round's
+  programs on a survivor's mesh and the two re-shard transfers
+  (``ReshardCollectives``).
+
+New programs register here: extend :func:`loop_programs` or append a builder
 via :func:`register_programs`; ``tools/check_programs_torch.py`` checks
 whatever this module yields. Every builder runs on CUDA unless the
 caller passes ``device="cpu"``.
@@ -29,6 +31,7 @@ caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable, Iterable, List, Optional
 
 import torch
@@ -38,7 +41,8 @@ from repro_torch.tree import leaves
 
 __all__ = ["tiny_trainer", "loop_programs", "round_programs",
            "kernel_dtype_programs", "stream_programs", "sharded_programs",
-           "all_programs", "register_programs", "KINDS"]
+           "recovery_programs", "all_programs", "register_programs",
+           "KINDS"]
 
 KINDS = ("fnn", "gru")
 
@@ -209,6 +213,84 @@ def sharded_programs(env: str, *, kind: str = "fnn",
     return runner.contract_programs(carry, key)
 
 
+def recovery_programs(env: str = "traffic", *, kind: str = "fnn",
+                      device="cuda", directory: Optional[str] = None
+                      ) -> List[Program]:
+    """The post-loss resume path's programs.
+
+    After a host loss the survivor trains on a mesh of its own
+    (``runtime.survivor_mesh``: one shard, no group) and a resumed run
+    restores its block from the committed distributed checkpoint. So:
+    (a) the round's programs (the per-shard train body, the
+    region-decomposed collect and eval body) on the survivor's mesh of
+    this process; (b) the two re-shard transfers, on this process's
+    group mesh: ``reshard_place`` (a step saved in two slices read onto
+    this shard, ``checkpoint.distributed.read_step_mesh``) and
+    ``reshard_fetch`` (``runtime.fetch_tree`` of the carry, the
+    all-gather of the checkpoint's reports and the elastic mirror). The
+    transfers communicate: every rank of a group must build and check
+    them in the same order. The step is written under ``directory``, or
+    else under a temporary directory that is removed once the
+    ``reshard_place`` program that reads it is gone."""
+    import shutil
+    import tempfile
+    import weakref
+
+    from repro_torch import random as R
+    from repro_torch.checkpoint import distributed as dckpt
+    from repro_torch.core import dials_sharded
+    from repro_torch.distributed import runtime
+
+    n_shards = runtime.world_size()
+    trainer = tiny_trainer(env, kind=kind, device=device, shards=n_shards)
+    info, dev = trainer.info, trainer.device
+    mesh = runtime.shard_mesh(device=dev)
+    me = mesh.shard_hosts[mesh.rank]
+    survivor = runtime.survivor_mesh(
+        mesh, [h for h in mesh.shard_hosts if h != me])
+    runner = dials_sharded.ShardedDIALSRunner(
+        trainer.env_mod, trainer.env_cfg, trainer.policy_cfg,
+        trainer.aip_cfg, trainer.ppo_cfg, trainer.cfg, mesh=survivor)
+    key = R.key(0, device=dev)
+    state = trainer.init(key)
+    reports = torch.zeros((info.n_agents,), dtype=torch.int64, device=dev)
+    carry = runner.shard_carry({"aips": state["aips"],
+                                "ials": state["ials"], "reports": reports})
+    pre = f"recovery/{info.name}@{survivor.n_shards}"
+    programs = runner.contract_programs(carry, key)
+    for p in programs:
+        p.name = p.name.replace(f"sharded/{info.name}", pre)
+        p.meta["n_shards"] = survivor.n_shards
+    # a step in the reference's two-slice layout, every leaf of it
+    root = directory or tempfile.mkdtemp(prefix="recovery-")
+    d = os.path.join(root, f"step_1-rank{mesh.rank}")
+    half = info.n_agents // 2
+    agents = {"aips": state["aips"], "ials": state["ials"]}
+    for lo, hi in ((0, half), (half, info.n_agents)):
+        dckpt.write_slice(d, {
+            name[:-len(".npy")]: leaf[lo:hi]
+            for name, _, leaf in dckpt._named_leaves(agents)},
+            lo, hi, info.n_agents, step=1)
+    dckpt.write_replicated(d, {"key": key, "round": 1}, step=1)
+    dckpt.write_commit(d, dckpt.build_commit_meta(d))
+    placed = {"aips": state["aips"], "ials": state["ials"], "key": key,
+              "round": 0}
+    group_pre = f"recovery/{info.name}@{mesh.n_shards}"
+    full = {"aips": state["aips"], "ials": state["ials"],
+            "reports": reports}
+    place = Program(name=f"{group_pre}/reshard_place", roles=("reshard",),
+                    fn=lambda: dckpt.read_step_mesh(d, placed, mesh))
+    if directory is None:
+        weakref.finalize(place, shutil.rmtree, root, True)
+    programs += [
+        place,
+        Program(name=f"{group_pre}/reshard_fetch", roles=("reshard",),
+                fn=runtime.fetch_tree,
+                args=(runtime.shard_agent_tree(full, mesh), mesh)),
+    ]
+    return programs
+
+
 def kernel_dtype_programs(dtype=torch.bfloat16, *,
                           device="cuda") -> List[Program]:
     """The GRU and GAE ops as dtype round-trip programs: reduced
@@ -275,6 +357,7 @@ def all_programs(scenarios: Optional[Iterable[str]] = None,
     out.extend(kernel_dtype_programs(device=device))
     if scenarios:
         out.extend(stream_programs(scenarios[0], device=device))
+        out.extend(recovery_programs(scenarios[0], device=device))
     for builder in _EXTRA_BUILDERS:
         out.extend(builder(device))
     return out

@@ -16,10 +16,12 @@ whose manifest verifies.
 every write phase: ``write_begin`` -> ``leaves_written`` -> ``prepared``
 -> ``committed``.
 
-The reference's distributed per-slice layout (``repro/checkpoint/
-distributed.py``) belongs to the sharded runtime, which the port does
-not have yet (ROADMAP queue 1 item 9): a step dir in that layout raises
-``NotImplementedError`` instead of being skipped.
+Restore understands both the flat layout and the sharded runtime's
+distributed per-slice layout (``repro_torch.checkpoint.distributed``,
+the reference's ``repro/checkpoint/distributed.py``): a committed
+distributed step is assembled whole (``read_step_host``), an uncommitted
+or unverifiable one is skipped like a torn flat one, so a run moves
+between the loop and the sharded drivers across restarts.
 """
 from __future__ import annotations
 
@@ -33,19 +35,10 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.tree import tree_map
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
-# what marks a step dir of the reference's distributed layout
-_DISTRIBUTED_MARKS = ("COMMIT", "replicated")
-_SLICE_RE = re.compile(r"^agents-(\d+)-(\d+)$")
 
 
 def step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step}")
-
-
-def _is_distributed_dir(d: str) -> bool:
-    names = os.listdir(d)
-    return (any(m in names for m in _DISTRIBUTED_MARKS)
-            or any(_SLICE_RE.match(n) for n in names))
 
 
 def _to_host(x):
@@ -123,12 +116,17 @@ class CheckpointManager:
             _STEP_RE.match, os.listdir(self.directory)) if m)
 
     def _restore_dir(self, d: str, target_tree):
-        """Restore one step dir; None if it is torn or unverifiable."""
-        if _is_distributed_dir(d):
-            raise NotImplementedError(
-                f"{d} is in the distributed per-slice checkpoint layout, "
-                f"which the port does not read yet (ROADMAP queue 1 item "
-                f"9, checkpoint/distributed.py)")
+        """Restore one step dir, in either layout; None if it is torn,
+        uncommitted or unverifiable."""
+        from repro_torch.checkpoint import distributed
+        if distributed.is_distributed_dir(d):
+            meta = distributed.committed_meta(d)
+            if meta is None:
+                return None
+            tree, step = distributed.read_step_host(d, target_tree,
+                                                    meta=meta)
+            self.last_extra = dict(meta.get("extra") or {})
+            return tree, step
         if not ckpt.is_valid(d):
             return None
         tree, step = ckpt.restore(d, target_tree)

@@ -42,11 +42,24 @@ been rotated away, the first round force-syncs.
 With more than one rank in the process group (``repro_torch.
 distributed.bootstrap``), or ``shards > 1``, ``run`` dispatches to the
 agent-sharded round (``repro_torch.core.dials_sharded``, one shard per
-rank, the region-decomposed GS under ``sharded_gs``) on the serial
-schedule; its record carries ``n_shards`` and null phase fields, as the
-reference's sharded record does. Not ported yet, and refused rather
-than ignored (ROADMAP queue 1 item 9): the sharded path's overlapped
-collect (``async_collect``) and its checkpoints (``ckpt_dir``).
+rank, the region-decomposed GS under ``sharded_gs``); its record carries
+``n_shards`` and null phase fields, as the reference's sharded record
+does. There:
+
+* ``ckpt_dir`` writes the distributed per-slice layout
+  (``repro_torch.checkpoint.distributed``, two-phase rank-0 commit), and
+  each rank restores its block from the newest committed step, whatever
+  shard count wrote it;
+* ``async_collect`` runs the reference's dispatch-mode schedule (the
+  collect of round k+1 submitted in round k, on the driver's thread);
+* ``run(heartbeats=...)`` is elastic: every round refreshes a mirror of
+  the full carry (an all-gather, ``mirror_s`` in the record), and when
+  the gate reports a dead host its agent blocks are reassigned
+  (``fault.elastic_plan``) to the survivor, which trains on alone from
+  the mirror on a mesh of its own (``runtime.survivor_mesh``);
+* ``run(chaos=...)`` injects a ``distributed.chaos.FaultSchedule`` at the
+  round boundary and at the checkpoint writer's phases, as on the loop
+  path.
 """
 from __future__ import annotations
 
@@ -110,22 +123,10 @@ class DIALSConfig:
     telemetry_fence: bool = True
 
 
-def _refuse_unported(cfg: DIALSConfig, sharded: bool) -> None:
-    """The sharded path's options that belong to the fault-tolerance half
-    of the sharded runtime, which is not ported yet."""
+def _validate(cfg: DIALSConfig) -> None:
     if cfg.sharded_gs not in ("auto", "on", "off"):
         raise ValueError(
             f"sharded_gs must be auto|on|off, got {cfg.sharded_gs!r}")
-    if not sharded:
-        return
-    unported = {"async_collect": cfg.async_collect,
-                "ckpt_dir": cfg.ckpt_dir is not None}
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(asked)} with the sharded runtime "
-            f"(the sharded async collect and distributed checkpoints are "
-            f"ROADMAP queue 1 item 9); the loop driver runs them")
 
 
 def collect_stream_count(cfg: DIALSConfig) -> int:
@@ -149,7 +150,7 @@ class DIALSTrainer:
     def __init__(self, env_mod, env_cfg, policy_cfg: policy_mod.PolicyConfig,
                  aip_cfg: influence.AIPConfig, ppo_cfg: ppo_mod.PPOConfig,
                  cfg: DIALSConfig, *, device="cuda"):
-        _refuse_unported(cfg, cfg.shards is not None and cfg.shards > 1)
+        _validate(cfg)
         self.device = dispatch.resolve_device(device)
         self.env_mod, self.env_cfg = env_mod, env_cfg
         policy_cfg, aip_cfg, ppo_cfg = (
@@ -182,6 +183,7 @@ class DIALSTrainer:
                         if cfg.ckpt_dir else None)
         self._resume_extra = {}    # checkpoint extra of the restored step
         self._sharded = None       # lazily-built ShardedDIALSRunner
+        self._dist_manager = None  # lazily-built DistributedCheckpointManager
 
     # -- the AIP round -------------------------------------------------------
     def aip_round(self, aips, data, aip_keys, fresh_mask, reports, rnd,
@@ -210,12 +212,27 @@ class DIALSTrainer:
                     R.split(ks[1], self.info.n_agents), self.aip_cfg),
                 "round": 0, "key": key}
 
-    def restore_or_init(self, key):
+    def restore_or_init(self, key, *, runner=None, telemetry=obs.DISABLED):
         """The newest valid checkpoint of ``ckpt_dir`` (restored into this
         trainer's state structure, dtypes and device), else
-        ``init(key)``."""
+        ``init(key)``. With ``runner`` (the sharded path) the ``ials`` and
+        ``aips`` subtrees come back as the runner's block of agents, read
+        by the distributed manager from the newest committed step
+        (``read_step_mesh``: each rank reads only its rows, whatever
+        shard count wrote the step; the restore emits ``restore_reshard``
+        to ``telemetry``)."""
         state = self.init(key)
         self._resume_extra = {}
+        if runner is not None:
+            if self.manager is not None:
+                mgr = self._sharded_manager(telemetry)
+                tree, step = mgr.restore_latest(state, mesh=runner.mesh)
+                if tree is not None:
+                    self._resume_extra = dict(mgr.last_extra)
+                    tree["round"] = int(step)
+                    return tree
+            return {**state, **runner.shard_carry(
+                {"ials": state["ials"], "aips": state["aips"]})}
         if self.manager is not None:
             tree, step = self.manager.restore_latest(state)
             if tree is not None:
@@ -292,21 +309,41 @@ class DIALSTrainer:
         tree, _ = self.manager.restore_step(p, self.init(state["key"]))
         return None if tree is None else tree["ials"]["params"]
 
-    def _reprime_collector(self, collector, state) -> bool:
+    def _reprime_collector(self, collector, state, *, runner=None) -> bool:
         """Exact async resume: re-submit the interrupted run's in-flight
         collect (same params from the prior checkpoint, same key, same
         round tag), so the resumed staleness schedule is the uninterrupted
-        one. False: the first obtain() force-syncs instead (fresher data,
-        safe under Lemma 2)."""
+        one; on the sharded path (``runner``) the params are cut to the
+        runner's block. False: the first obtain() force-syncs instead
+        (fresher data, safe under Lemma 2)."""
         p = self._resume_extra.get("async_round")
         if p is None:
             return False
         params = self._params_at_round(int(p), state)
         if params is None:
             return False
+        if runner is not None:
+            from repro_torch.distributed import runtime as runtime_lib
+            params = runtime_lib.shard_agent_tree(params, runner.mesh)
         collector.submit(params, self._collect_key(state["key"], int(p) + 1),
                          int(p))
         return True
+
+    def _sharded_manager(self, telemetry=obs.DISABLED):
+        """The sharded path's checkpoint manager: the distributed
+        per-slice layout with a two-phase rank-0 commit, the same format
+        on one process or many, so checkpoints move across shard counts
+        (elastic restarts, the post-loss re-bootstrap)."""
+        from repro_torch.checkpoint.distributed import (
+            DistributedCheckpointManager)
+        from repro_torch.distributed import runtime as runtime_lib
+        if self._dist_manager is None:
+            self._dist_manager = DistributedCheckpointManager(
+                self.cfg.ckpt_dir, keep=self.cfg.ckpt_keep,
+                process_id=runtime_lib.process_rank())
+        self._dist_manager.telemetry = (telemetry if telemetry.enabled
+                                        else None)
+        return self._dist_manager
 
     def _make_collector_executor(self, telemetry=obs.DISABLED):
         """The loop path's executor: a worker thread driving the ring's
@@ -319,28 +356,45 @@ class DIALSTrainer:
 
     # -- Algorithm 1 --------------------------------------------------------
     def run(self, key, *, state=None, log: Optional[Callable] = None,
-            straggler_mask: Optional[Callable] = None):
+            straggler_mask: Optional[Callable] = None,
+            heartbeats: Optional[Callable] = None, chaos=None):
         """Runs rounds ``state["round"] .. outer_rounds-1`` of (collect ->
         AIP train -> F inner steps -> GS eval). ``state`` starts from a
         given state (e.g. one carried over from the JAX package by
         ``repro_torch.convert``) instead of :meth:`restore_or_init`.
         ``straggler_mask(round) -> (N,) {0,1}`` simulates late AIP
         updates. Returns (state, history of round records). An exception
-        in the collect worker is raised here, at the harvest. With a
-        process group of more than one rank (or ``shards > 1``) every
-        rank calls this with the same arguments and runs its shard of the
-        round (:meth:`_run_sharded`)."""
+        in the collect worker is raised here, at the harvest.
+
+        ``heartbeats(round) -> iterable of dead host (process) ids``
+        (typically ``fault.HostMonitor.gate``) makes host loss
+        survivable: called at the top of every round, and when it reports
+        a host dead, that host's agent blocks are reassigned to the
+        survivor, which trains on (the record carries ``n_shards``,
+        ``reassigned``, ``dead_hosts``). Requires the sharded path.
+
+        ``chaos`` (a ``distributed.chaos.FaultSchedule``) injects its
+        fault schedule: host kills and interrupts at the top of a round
+        (``round_start``), checkpoint-writer faults through the
+        manager's ``hooks``.
+
+        With a process group of more than one rank (or ``shards > 1``)
+        every rank calls this with the same arguments and runs its shard
+        of the round (:meth:`_run_sharded`)."""
         cfg, n = self.cfg, self.info.n_agents
         key = key.to(self.device)
         n_shards = self._select_shards()
-        _refuse_unported(cfg, n_shards > 0)
-        if state is None:
-            state = self.restore_or_init(key)
-        else:
+        if state is not None:
             state, self._resume_extra = dict(state), {}
         if n_shards:
-            return self._run_sharded(state, n_shards, log=log,
-                                     straggler_mask=straggler_mask)
+            return self._run_sharded(state, n_shards, key=key, log=log,
+                                     straggler_mask=straggler_mask,
+                                     heartbeats=heartbeats, chaos=chaos)
+        if heartbeats is not None:
+            raise ValueError(
+                "heartbeats= (elastic host-loss handling) requires the "
+                "sharded runtime: the single-device loop path has no mesh "
+                "to shrink")
         if cfg.sharded_gs == "on":
             # honour the forced mode instead of silently running the
             # replicated GS: the region-decomposed GS is a sharded program
@@ -348,6 +402,8 @@ class DIALSTrainer:
                 "sharded_gs='on' requires the sharded runtime (a process "
                 "group of more than one rank, or DIALSConfig.shards > 1); "
                 "the single-device loop path always uses the replicated GS")
+        if state is None:
+            state = self.restore_or_init(key)
         tel = obs.maybe(cfg.telemetry_dir, fence=cfg.telemetry_fence)
         # the phases are measured with telemetry off too
         tracer = (tel.tracer if tel.enabled
@@ -356,6 +412,8 @@ class DIALSTrainer:
             self.policy_cfg, self.aip_cfg, self.ppo_cfg, self.device)
         collector = (self._make_collector_executor(tel)
                      if cfg.async_collect else None)
+        if chaos is not None and self.manager is not None:
+            self.manager.hooks = chaos.checkpoint_phase
         # collection round of each agent's newest trained-on dataset,
         # checkpointed so a resume keeps the schedule
         reports = self._restored_reports(state)
@@ -371,6 +429,8 @@ class DIALSTrainer:
                  async_collect=cfg.async_collect, kernels=kernels)
         try:
             for rnd in range(state["round"], cfg.outer_rounds):
+                if chaos is not None:
+                    chaos.round_start(rnd)
                 tracer.reset()
                 t_round = time.perf_counter()
                 ks = R.split(R.fold_in(state["key"], rnd), 3)
@@ -469,64 +529,192 @@ class DIALSTrainer:
         return state, history
 
     # -- the sharded path ----------------------------------------------------
-    def _run_sharded(self, state, n_shards: int, *, log, straggler_mask):
-        """The same round loop over the shard mesh, serial schedule: each
-        round is the runner's collect and shard-train program, and the
-        one host read of the round fetches its record (the phase fields
-        are null: the round is not fenced phase by phase). Returns the
-        full state (gathered on every rank) and the history, the same on
-        every rank."""
+    def _make_sharded_collector(self, runner, telemetry=obs.DISABLED):
+        """The sharded path's double buffer, in dispatch mode: the
+        runner's collect communicates (the region-decomposed GS's halo
+        exchange, the replicated fallback's gather), so every rank runs
+        it on its driver thread, in the same order as the rest of the
+        round. ``runtime.spare_device`` is always None in the port."""
+        from repro_torch.distributed import runtime as runtime_lib
+        return async_mod.AsyncCollector(
+            runner.collect, mode="dispatch",
+            spare_device=runtime_lib.spare_device(runner.n_shards),
+            telemetry=telemetry)
+
+    def _reassign(self, runner, carry, mirror, collector, dead_hosts,
+                  mgr=None, telemetry=obs.DISABLED):
+        """Elastic shard reassignment after a host loss.
+
+        The dead hosts' shard slots are dropped, ``fault.elastic_plan``
+        re-tiles the agent axis over the survivors, a runner is built on
+        the survivor's own mesh (``runtime.survivor_mesh``: one shard, no
+        group, so nothing calls into the old group again) and the carry
+        is placed from the ``mirror`` (the end-of-previous-round copy of
+        the full carry every rank holds). An in-flight async collect
+        belongs to the old mesh and is dropped; the next ``obtain``
+        force-syncs. The survivor is the only checkpoint writer left, so
+        it commits. Returns ``(runner, carry, collector,
+        n_reassigned_blocks)``."""
+        from repro_torch.core import dials_sharded
+        from repro_torch.distributed import runtime as runtime_lib
+        dead_shards = runtime_lib.shards_on_hosts(runner.mesh, dead_hosts)
+        if not dead_shards:
+            return runner, carry, collector, 0
+        plan = fault.elastic_plan(
+            self.info.n_agents, runner.n_shards, dead_shards,
+            telemetry=telemetry if telemetry.enabled else None)
+        new_mesh = runtime_lib.survivor_mesh(runner.mesh, dead_hosts)
+        assert new_mesh.n_shards == plan.new_shards, (new_mesh, plan)
+        runner = dials_sharded.ShardedDIALSRunner(
+            self.env_mod, self.env_cfg, self.policy_cfg, self.aip_cfg,
+            self.ppo_cfg, self.cfg, mesh=new_mesh)
+        self._sharded = runner
+        carry = fault.reshard_agents(mirror, new_mesh)
+        if collector is not None:
+            collector.close()
+            collector = self._make_sharded_collector(runner, telemetry)
+        if mgr is not None:
+            mgr.primary = True
+        return runner, carry, collector, len(dead_shards)
+
+    def _run_sharded(self, state, n_shards: int, *, log, straggler_mask,
+                     key=None, heartbeats=None, chaos=None):
+        """The same round loop over the shard mesh. Serial: each round is
+        the runner's collect and shard-train program. Async: round k+1's
+        collect is submitted in round k (dispatch mode, the reference's
+        schedule). The one host read of the round fetches its record (the
+        phase fields are null: the round is not fenced phase by phase).
+
+        ``state`` is a full state, or None to restore this rank's block
+        from ``ckpt_dir`` (else init from ``key``). With ``heartbeats``
+        the run is elastic (every round refreshes the mirror the next
+        round's reassignment would restore from). Returns the full state
+        (gathered on every rank) and the history, the same on every
+        rank."""
+        from repro_torch.distributed import runtime as runtime_lib
         cfg = self.cfg
         runner = self._sharded_runner(n_shards)
         n = self.info.n_agents
-        base_key = state["key"]
-        carry = runner.shard_carry(
-            {"aips": state["aips"], "ials": state["ials"],
-             "reports": self._restored_reports(state)})
         tel = obs.maybe(cfg.telemetry_dir, fence=cfg.telemetry_fence)
+        if state is None:
+            state = self.restore_or_init(key, runner=runner, telemetry=tel)
+            carry = {"aips": state["aips"], "ials": state["ials"],
+                     "reports": self._restored_reports(state)[
+                         runner.rows].clone()}
+        else:
+            carry = runner.shard_carry(
+                {"aips": state["aips"], "ials": state["ials"],
+                 "reports": self._restored_reports(state)})
+        base_key = state["key"]
         kernels = obs_metrics.kernel_summary(
             self.policy_cfg, self.aip_cfg, self.ppo_cfg, self.device)
+        # each rank writes only its block's rows, rank 0 commits
+        mgr = (self._sharded_manager(tel)
+               if self.manager is not None else None)
+        if chaos is not None and mgr is not None:
+            mgr.hooks = chaos.checkpoint_phase
+        collector = (self._make_sharded_collector(runner, tel)
+                     if cfg.async_collect else None)
+        if collector is not None and state["round"] > 0 \
+                and cfg.max_aip_staleness > 0:
+            self._reprime_collector(collector, state, runner=runner)
+        elastic = heartbeats is not None
+        mirror = runner.unshard_carry(carry) if elastic else None
         history = []
         t_start = time.time()
         tel.emit("run_start", path="sharded", env=self.info.name,
                  n_shards=runner.n_shards, start_round=state["round"],
-                 outer_rounds=cfg.outer_rounds, async_collect=False,
-                 elastic=False, sharded_gs=runner.use_sharded_gs,
-                 kernels=kernels)
+                 outer_rounds=cfg.outer_rounds,
+                 async_collect=cfg.async_collect, elastic=elastic,
+                 sharded_gs=runner.use_sharded_gs, kernels=kernels)
         try:
             for rnd in range(state["round"], cfg.outer_rounds):
+                if chaos is not None:
+                    # the round boundary: the one point where killing a
+                    # host cannot strand survivors inside a collective
+                    chaos.round_start(rnd)
                 t_round = time.perf_counter()
+                dead_hosts, reassigned = (), 0
+                if elastic:
+                    dead_hosts = tuple(heartbeats(rnd))
+                    if dead_hosts:
+                        runner, carry, collector, reassigned = \
+                            self._reassign(runner, carry, mirror, collector,
+                                           dead_hosts, mgr, tel)
                 mask = (torch.as_tensor(straggler_mask(rnd),
                                         dtype=torch.float32,
                                         device=self.device)
                         if straggler_mask is not None and not cfg.untrained
                         else torch.ones((n,), device=self.device))
-                carry, raw = runner.round(carry, base_key, rnd, mask)
+                if collector is None:
+                    carry, raw = runner.round(carry, base_key, rnd, mask)
+                    forced_sync, collect_s = False, None
+                else:
+                    tagged, forced_sync = collector.obtain(
+                        rnd, carry["ials"]["params"],
+                        self._collect_key(base_key, rnd),
+                        max_staleness=cfg.max_aip_staleness)
+                    # a tag-rnd dataset can only be consumed if the bound
+                    # tolerates one round of lag
+                    if (rnd + 1 < cfg.outer_rounds and collector.idle()
+                            and cfg.max_aip_staleness > 0):
+                        collector.submit(
+                            carry["ials"]["params"],
+                            self._collect_key(base_key, rnd + 1), rnd)
+                    data = runner.place_dataset(tagged.data)
+                    carry, raw = runner.train_round(
+                        carry, data, base_key, rnd, tagged.round, mask)
+                    collect_s = collector.last_obtain_wait_s
                 # the round's one deliberate host read: its record
                 raw = {k: float(v) for k, v in raw.items()}
+                mirror_s = None
+                if elastic:
+                    # the availability tax: refresh the mirror the NEXT
+                    # round's reassignment would restore from
+                    t_mirror = time.perf_counter()
+                    mirror = runner.unshard_carry(carry)
+                    if tel.tracer.fenced and self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    mirror_s = time.perf_counter() - t_mirror
                 rec = obs_metrics.round_record(
                     round=rnd, gs_return=raw["gs_return"],
                     ials_reward=(None if cfg.aip_refresh == 0
                                  else raw["ials_reward"]),
                     aip_ce_before=raw["aip_ce_before"],
                     aip_ce_after=raw["aip_ce_after"],
-                    data_round=raw["data_round"], forced_sync=False,
+                    data_round=raw["data_round"], forced_sync=forced_sync,
                     stale_forced=raw["stale_forced"],
                     staleness_min=raw["staleness_min"],
                     staleness_mean=raw["staleness_mean"],
                     staleness_max=raw["staleness_max"],
-                    n_shards=runner.n_shards, reassigned=0, dead_hosts=[],
-                    kernels=kernels, collect_s=None, env_steps_per_s=None,
-                    aip_s=None, inner_s=None, eval_s=None, mirror_s=None,
+                    n_shards=runner.n_shards, reassigned=reassigned,
+                    dead_hosts=list(dead_hosts), kernels=kernels,
+                    collect_s=collect_s, env_steps_per_s=None,
+                    aip_s=None, inner_s=None, eval_s=None,
+                    mirror_s=mirror_s,
                     round_s=time.perf_counter() - t_round,
                     wall_s=time.time() - t_start)
                 tel.emit_round(rec)
                 history.append(rec)
                 if log:
                     log(rec)
+                if mgr is not None:
+                    # save() copies this rank's rows to the host before it
+                    # returns; the reports are gathered for the extra
+                    mgr.save(rnd + 1, {
+                        "ials": carry["ials"], "aips": carry["aips"],
+                        "round": rnd + 1, "key": base_key},
+                        extra=self._ckpt_extra(
+                            collector, runtime_lib.fetch_tree(
+                                carry["reports"], runner.mesh)),
+                        mesh=runner.mesh)
         finally:
+            if collector is not None:
+                collector.close()
             tel.emit("run_end", rounds=len(history))
             tel.close()
         full = runner.unshard_carry(carry)
         full.pop("reports", None)     # both paths' state schema
+        if mgr is not None:
+            mgr.wait()
         return {**full, "round": cfg.outer_rounds, "key": base_key}, history

@@ -31,9 +31,12 @@ Per-agent randomness is shard-equivariant: the per-agent AIP keys are
 agent id (``repro_torch.core.ials``), so a shard computes what the full
 batch computes for its agents.
 
-Not ported yet, and refused by the driver (ROADMAP queue 1 item 9): the
-split round's overlapped collect (``async_collect``), distributed
-checkpoints, and the elastic path (host loss, reassignment).
+For the driver's overlapped-collect schedule (``async_collect``) the
+round is split in two: :attr:`collect` (Algorithm 2 alone) and
+:meth:`train_round` (everything after it, taking the dataset and its
+collection round). A runner can be built on any mesh, the survivor's
+one-shard mesh after a host loss included (``runtime.survivor_mesh``):
+on one shard every collective is the identity.
 """
 from __future__ import annotations
 
@@ -208,6 +211,14 @@ class ShardedDIALSRunner:
         return self.train_round(carry, data, base_key, rnd, rnd, fresh_mask)
 
     # -- placement -----------------------------------------------------------
+    def place_dataset(self, data):
+        """This block of a collected dataset, for the async driver: the
+        identity, since both of the port's collects return this block
+        already (the region-decomposed one is born sharded, the
+        replicated fallback keeps its rows); the reference's shards the
+        replicated collect's global output here."""
+        return data
+
     def shard_carry(self, carry):
         """This block of a full {"aips", "ials", "reports"} carry."""
         return runtime_lib.shard_agent_tree(carry, self.mesh)

@@ -9,10 +9,18 @@ collect round k+1's datasets WHILE round k's F inner IALS steps run.
 
 * :class:`TaggedDataset`: a dataset with the **collection round** of the
   joint policy that produced it, so staleness is a number.
-* :class:`AsyncCollector`: one in-flight collect, run by one worker
-  thread. On a CUDA device the worker queues the collect on a stream of
-  its own, which takes the place of the reference's spare device: the
-  collect's kernels run beside the inner steps on the driver's stream.
+* :class:`AsyncCollector`: one in-flight collect. ``mode="thread"``
+  (the loop driver's): one worker thread, which on a CUDA device queues
+  the collect on a stream of its own, taking the place of the
+  reference's spare device: the collect's kernels run beside the inner
+  steps on the driver's stream. ``mode="dispatch"`` (the sharded
+  driver's): the collect runs on the caller's thread at ``submit``, as
+  the reference's dispatch mode enqueues it there. The reference's
+  enqueue returns at once; the port's sharded collect communicates (the
+  region-decomposed GS's staged ring shifts block the host), so a
+  dispatch-mode submit returns once the collect is done and nothing
+  overlaps: the mode keeps the reference's schedule (the tags, the
+  staleness bound, the force-syncs), not its overlap.
   :meth:`AsyncCollector.obtain` is the dataset-level freshness gate: it
   harvests the in-flight collect, BLOCKING until it is ready, before any
   force-sync, so the dataset that trains round r depends on r alone and
@@ -38,9 +46,8 @@ first built on the driver's stream: round 0 primes the pipeline there,
 and a resumed run harvests its re-primed collect before the driver's
 stream runs anything that reads them.
 
-The sharded driver's ``"dispatch"`` mode and ``spare_device`` belong to
-the sharded runtime, which the port does not have yet (ROADMAP queue 1
-item 9): they raise.
+``spare_device`` is always None in the port (``runtime.spare_device``:
+every rank has one device and shards onto it); another value raises.
 """
 from __future__ import annotations
 
@@ -61,6 +68,21 @@ class TaggedDataset:
     Lemma-2 bound is paid for."""
     data: Any
     round: int
+
+
+class _Ready:
+    """Future-like wrapper for a dispatch-mode result, already computed
+    on the caller's thread (the reference's wrapper of an enqueued
+    result)."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def done(self) -> bool:
+        return True
+
+    def result(self):
+        return self._value
 
 
 class DeviceRing:
@@ -120,35 +142,37 @@ class AsyncCollector:
     """Background executor for the GS collect with one in-flight slot.
 
     ``collect_fn(params, key) -> dataset`` (the loop driver passes its
-    ring's ``collect``). ``device``: a CUDA device runs the collect on a
-    stream of its own on that device; None or the CPU runs it on a plain
-    worker thread.
+    ring's ``collect``, the sharded driver its runner's). ``mode``:
+    ``"thread"`` (what ``"auto"`` picks) or ``"dispatch"``. ``device``: in
+    thread mode a CUDA device runs the collect on a stream of its own on
+    that device; None or the CPU runs it on a plain worker thread.
     """
 
     def __init__(self, collect_fn, *, mode: str = "auto",
                  spare_device=None, device=None, telemetry=obs.DISABLED):
-        if mode == "dispatch" or spare_device is not None:
-            raise NotImplementedError(
-                "AsyncCollector mode='dispatch' and spare_device belong to "
-                "the sharded runtime, which the port does not have yet "
-                "(ROADMAP queue 1 item 9); the loop driver uses "
-                "mode='thread'")
+        if spare_device is not None:
+            raise ValueError(
+                f"spare_device={spare_device!r}: the port has no spare "
+                f"device (runtime.spare_device is always None)")
         if mode == "auto":
             mode = "thread"
-        if mode != "thread":
+        if mode not in ("dispatch", "thread"):
             raise ValueError(f"unknown dispatch mode {mode!r}")
         self._collect = collect_fn
         self.mode = mode
         self.device = torch.device(device if device is not None else "cpu")
         self.telemetry = telemetry
-        # the collect's own stream on a CUDA device
+        # the collect's own stream on a CUDA device (thread mode)
         self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+                       if mode == "thread" and self.device.type == "cuda"
+                       else None)
         # host seconds obtain() spent blocked (harvest barrier +
         # force-sync) on its last call: the driver's collect_s phase
         self.last_obtain_wait_s: Optional[float] = None
-        self._executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="gs-collect")
+        self._executor = (
+            concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="gs-collect")
+            if mode == "thread" else None)
         self._current: Optional[TaggedDataset] = None
         self._pending: Optional[Tuple[int, Any]] = None   # (round, future)
 
@@ -186,11 +210,15 @@ class AsyncCollector:
         if self._pending is not None:
             raise RuntimeError("a collect is already in flight — obtain() "
                                "must harvest it before the next submit()")
-        ready = None
-        if self.stream is not None:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        fut = self._executor.submit(self._run_blocking, params, key, ready)
+        if self._executor is None:
+            fut = _Ready((self._collect(params, key), None))
+        else:
+            ready = None
+            if self.stream is not None:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            fut = self._executor.submit(self._run_blocking, params, key,
+                                        ready)
         self._pending = (int(round), fut)
 
     def collect_now(self, params, key, round: int) -> TaggedDataset:
@@ -237,6 +265,7 @@ class AsyncCollector:
         never harvested (a run stopped between submit and obtain) is
         waited for and dropped unread: the driver is already leaving on
         its own exception then."""
-        self._executor.shutdown(wait=True)
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
         self._pending = None
         self._current = None

@@ -9,10 +9,15 @@ process coordination. It keeps the reference's process-group contract:
   count, process id) readable from env vars or CLI flags, so a launcher
   and the launched process agree by construction;
 * :func:`bootstrap` — the one call a process makes before it touches
-  the group: ``torch.distributed.init_process_group("gloo", ...)``
-  at ``tcp://<coordinator>``. A process with no group config gets a
+  the group: every rank meets the others on a ``TCPStore`` at the
+  coordinator, then ``torch.distributed.init_process_group("gloo",
+  store=...)``. A process with no group config gets a
   valid one-process :class:`DistContext` back, so every caller can
-  bootstrap unconditionally;
+  bootstrap unconditionally. For the recovery path
+  (``repro_torch.distributed.recovery``) it takes a bounded wait for the
+  peers (``init_timeout_s``) and a group timeout (``peer_death_grace_s``,
+  :func:`grace_kwargs`): gloo's default of 30 minutes would block a
+  collective with a dead peer that long;
 * :func:`spawn_local` — ``n`` local ranks under the contract, each in a
   fresh ``spawn``-started process (forking after CUDA has initialised
   fails), on a free loopback port: what the port's tests, examples and
@@ -21,22 +26,26 @@ process coordination. It keeps the reference's process-group contract:
 
 Env vars (the ``DIALS_`` namespace, mirrored by the CLI flags):
 
-``DIALS_COORDINATOR``     host:port of rank 0's TCP store
+``DIALS_COORDINATOR``     host:port of the group's TCP store (rank 0's,
+                          unless it is external)
 ``DIALS_NUM_PROCESSES``   total process count
 ``DIALS_PROCESS_ID``      this process's id in [0, num_processes)
 ``DIALS_LOCAL_DEVICES``   the reference's forced host-device count. The
                           port runs one shard per process, so only 1 (or
                           unset) is accepted.
+``DIALS_COORDINATOR_EXTERNAL``  truthy: the store is an external process
+                          (``python -m repro_torch.distributed.coordinator``)
+                          and every rank, rank 0 included, connects to it
+                          as a client; a store that rank 0 hosts dies with
+                          rank 0, and every survivor's store call with it.
 
 The group is gloo because the one machine the port is measured on has a
 single card, which every rank shares (NCCL refuses two ranks on one GPU).
-``DIALS_COORDINATOR_EXTERNAL`` (an external coordination service, the
-reference's recovery path) belongs to the fault-tolerance half of the
-sharded runtime, which the port does not have yet: it is refused.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import socket
 import traceback
@@ -46,7 +55,12 @@ ENV_COORDINATOR = "DIALS_COORDINATOR"
 ENV_NUM_PROCESSES = "DIALS_NUM_PROCESSES"
 ENV_PROCESS_ID = "DIALS_PROCESS_ID"
 ENV_LOCAL_DEVICES = "DIALS_LOCAL_DEVICES"
+# truthy: the store at DIALS_COORDINATOR is an external process
+# (repro_torch.distributed.coordinator); rank 0 must not host one
 ENV_COORDINATOR_EXTERNAL = "DIALS_COORDINATOR_EXTERNAL"
+# the recovery incarnation (repro_torch.distributed.recovery), which
+# keeps each generation's rendezvous keys apart in a shared store
+_ENV_GENERATION = "DIALS_RECOVERY_GENERATION"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,20 +113,11 @@ class DistContext:
         return self.num_processes > 1
 
 
-def _refuse_external(environ: Mapping[str, str]) -> None:
-    if environ.get(ENV_COORDINATOR_EXTERNAL, "") not in ("", "0"):
-        raise NotImplementedError(
-            f"{ENV_COORDINATOR_EXTERNAL} (an external coordination "
-            f"service) belongs to the sharded runtime's fault-tolerance "
-            f"half, which is not ported yet (ROADMAP queue 1 item 9)")
-
-
 def config_from_env(
         environ: Mapping[str, str] = os.environ) -> Optional[BootstrapConfig]:
     """The env-var side of the contract; None when no group is declared
     (single-process run). Partial declarations are an error: a process
     that was meant to join a group must never silently run solo."""
-    _refuse_external(environ)
     keys = (ENV_COORDINATOR, ENV_NUM_PROCESSES, ENV_PROCESS_ID)
     present = [k for k in keys if environ.get(k)]
     if not present:
@@ -168,24 +173,74 @@ def config_from_args(args, environ: Mapping[str, str] = os.environ
     return BootstrapConfig(**merged)
 
 
+def external_coordinator(environ: Mapping[str, str] = os.environ) -> bool:
+    """Is the store an external process (``DIALS_COORDINATOR_EXTERNAL``)?"""
+    return environ.get(ENV_COORDINATOR_EXTERNAL, "") not in ("", "0")
+
+
+def grace_kwargs(grace_s: float) -> dict:
+    """The ``init_process_group`` kwargs that give a surviving process
+    ``grace_s`` seconds before a collective with a dead or stalled peer
+    fails: the group's timeout (the reference stretches its coordination
+    service's missed-heartbeat window by the same name). A dead peer's
+    closed connection fails a gloo collective at once; a live peer that
+    stopped taking part fails it after the timeout."""
+    return {"timeout": datetime.timedelta(seconds=float(grace_s))}
+
+
+# the store a bootstrap() created; a master store's server lives as long
+# as this object does
+_STORE = None
+
+
+def _store_rendezvous(cfg: BootstrapConfig, environ, init_timeout_s):
+    """A ``TCPStore`` at the coordinator (hosted by rank 0 unless the
+    coordinator is external) on which every rank announces itself and
+    waits, up to ``init_timeout_s``, for all the others: the group's
+    short timeout then never has to cover a slow peer's start-up."""
+    import torch.distributed as dist
+    host, _, port = cfg.coordinator.rpartition(":")
+    timeout = datetime.timedelta(
+        seconds=float(init_timeout_s if init_timeout_s is not None
+                      else 300.0))
+    store = dist.TCPStore(
+        host, int(port), cfg.num_processes,
+        is_master=cfg.process_id == 0 and not external_coordinator(environ),
+        timeout=timeout, wait_for_workers=False)
+    tag = f"dials/arrive/{environ.get(_ENV_GENERATION, '0') or '0'}"
+    store.set(f"{tag}/{cfg.process_id}", "1")
+    store.wait([f"{tag}/{r}" for r in range(cfg.num_processes)], timeout)
+    return store
+
+
 def bootstrap(cfg: Optional[BootstrapConfig] = None, *,
-              environ: Mapping[str, str] = os.environ) -> DistContext:
+              environ: Mapping[str, str] = os.environ,
+              init_timeout_s: Optional[float] = None,
+              peer_death_grace_s: Optional[float] = None) -> DistContext:
     """Join this process's (possibly one-process) group.
 
     Call once, before any collective. A one-process config (or none)
     returns a one-process :class:`DistContext` without creating a group;
-    otherwise ``init_process_group("gloo")`` rendezvouses at
-    ``tcp://<coordinator>`` (rank 0 hosts the store there)."""
-    _refuse_external(environ)
+    otherwise every rank meets the others on a ``TCPStore`` at the
+    coordinator (rank 0 hosting it unless the coordinator is external,
+    ``DIALS_COORDINATOR_EXTERNAL``), waiting at most ``init_timeout_s``
+    (300 s by default), and ``init_process_group("gloo", store=...)``
+    builds the group on it. Its timeout is ``peer_death_grace_s``
+    (:func:`grace_kwargs`) where one is given, else gloo's own."""
+    global _STORE
     if cfg is None:
         cfg = config_from_env(environ)
     if cfg is None or cfg.num_processes <= 1:
         return DistContext(process_id=0, num_processes=1, coordinator=None,
                            initialized=False)
     import torch.distributed as dist
-    dist.init_process_group("gloo", init_method=f"tcp://{cfg.coordinator}",
+    store = _store_rendezvous(cfg, environ, init_timeout_s)
+    kwargs = (grace_kwargs(peer_death_grace_s)
+              if peer_death_grace_s is not None else {})
+    dist.init_process_group("gloo", store=store,
                             world_size=cfg.num_processes,
-                            rank=cfg.process_id)
+                            rank=cfg.process_id, **kwargs)
+    _STORE = store
     return DistContext(process_id=dist.get_rank(),
                        num_processes=dist.get_world_size(),
                        coordinator=cfg.coordinator, initialized=True)
@@ -193,9 +248,11 @@ def bootstrap(cfg: Optional[BootstrapConfig] = None, *,
 
 def shutdown() -> None:
     """Leave the group :func:`bootstrap` joined (no-op without one)."""
+    global _STORE
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    _STORE = None
 
 
 # ---------------------------------------------------------------------------

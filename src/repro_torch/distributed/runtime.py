@@ -15,6 +15,13 @@ and benchmarks can use it without the runner:
   leading axis N: :func:`shard_agent_tree` slices this rank's block of
   N/S agents out of a full tree, :func:`fetch_tree` gathers the blocks
   back (an ``all_gather``: every rank ends up holding every agent).
+* **the mesh after a host loss** — :func:`mesh_hosts`,
+  :func:`mesh_spans_processes`, :func:`shards_on_hosts` and
+  :func:`surviving_devices` say which processes a mesh spans and which
+  shards a dead host orphans; :func:`survivor_mesh` is the mesh on which
+  a survivor owns its agents alone (no group: its collectives are the
+  identity, as on a one-shard mesh), since a survivor whose peer died
+  still sits in the old group, which can no longer communicate;
 * **the collective tables** — the c10d ops a recorded program may
   dispatch, by the names the port's op recorder gives them
   (``repro_torch.analysis.walker``: ``c10d.allreduce_``,
@@ -28,7 +35,7 @@ and benchmarks can use it without the runner:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Set
+from typing import Any, Iterable, Optional, Set, Tuple
 
 import torch
 
@@ -120,11 +127,20 @@ def choose_shards(n_agents: int, n_devices: Optional[int] = None) -> int:
 class ShardMesh:
     """This process's place on the 1-D shard mesh: ``rank`` of
     ``n_shards`` shards, its tensors on ``device``, its collectives on
-    ``group`` (None on a one-shard mesh without a process group)."""
+    ``group`` (None on a one-shard mesh without a process group).
+    ``hosts`` is the process id of each shard (None: shard i is process
+    i, as on the group's own mesh)."""
     n_shards: int
     rank: int
     device: torch.device
     group: Any = None
+    hosts: Optional[Tuple[int, ...]] = None
+
+    @property
+    def shard_hosts(self) -> Tuple[int, ...]:
+        """The process id of each shard, in shard order."""
+        return (tuple(self.hosts) if self.hosts is not None
+                else tuple(range(self.n_shards)))
 
     def block(self, n_agents: int) -> slice:
         """The agent rows this shard owns: [rank·B, (rank+1)·B)."""
@@ -154,6 +170,56 @@ def shard_mesh(n_shards: Optional[int] = None, *,
     dist = _dist()
     return ShardMesh(n_shards=n_shards, rank=process_rank(), device=dev,
                      group=dist.group.WORLD if dist is not None else None)
+
+
+def mesh_hosts(mesh: ShardMesh) -> tuple:
+    """Sorted process ids whose shards make up ``mesh``."""
+    return tuple(sorted(set(mesh.shard_hosts)))
+
+
+def mesh_spans_processes(mesh: ShardMesh) -> bool:
+    return len(mesh_hosts(mesh)) > 1
+
+
+def shards_on_hosts(mesh: ShardMesh, hosts: Iterable[int]) -> tuple:
+    """Shard indices whose process is one of ``hosts``: the work units
+    orphaned when those hosts die."""
+    hosts = set(hosts)
+    return tuple(i for i, h in enumerate(mesh.shard_hosts) if h in hosts)
+
+
+def surviving_devices(mesh: ShardMesh, dead_hosts: Iterable[int]) -> list:
+    """The surviving shards' processes, in shard order: ``mesh``'s shard
+    slots minus the dead hosts' (a port shard is its process; the
+    reference lists devices)."""
+    dead = set(dead_hosts)
+    return [h for h in mesh.shard_hosts if h not in dead]
+
+
+def survivor_mesh(mesh: ShardMesh, dead_hosts: Iterable[int]) -> ShardMesh:
+    """The mesh this process trains on after ``dead_hosts`` died: one
+    shard, its own, with no group (every collective on it is the
+    identity, so the survivor never calls into the old group again).
+
+    Only one surviving process is supported in process: the old group
+    cannot be shrunk without its dead members (a new group is a
+    collective of the whole old group), so with more than one survivor
+    this raises, and the survivors take the recovery path instead
+    (``repro_torch.distributed.recovery``: re-bootstrap a shrunken group
+    from the last committed checkpoint)."""
+    survivors = surviving_devices(mesh, dead_hosts)
+    me = mesh.shard_hosts[mesh.rank]
+    if me not in survivors:
+        raise ValueError(f"process {me} is among the dead {sorted(set(dead_hosts))}")
+    if len(survivors) > 1:
+        raise NotImplementedError(
+            f"{len(survivors)} processes survive: in-process reassignment "
+            f"onto a mesh of several surviving processes is not supported "
+            f"by the port (the old group cannot shrink without its dead "
+            f"members); recover by re-bootstrapping a shrunken group "
+            f"(repro_torch.distributed.recovery.recover)")
+    return ShardMesh(n_shards=1, rank=0, device=mesh.device, group=None,
+                     hosts=(me,))
 
 
 def spare_device(n_in_use: int):

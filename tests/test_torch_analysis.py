@@ -26,6 +26,7 @@ from repro.analysis import recompile as ref_recompile
 from repro.analysis import report as ref_report
 from repro_torch.analysis import (contracts, lint, programs, recompile,
                                   report, walker)
+from repro_torch.distributed import runtime
 from repro_torch.kernels import build
 from repro_torch.obs import metrics
 from repro_torch.obs.trace import Tracer, annotate
@@ -322,6 +323,46 @@ def test_run_rules_routes_by_role():
 def test_selftest_fixtures_all_fail():
     from tools import check_programs_torch
     assert check_programs_torch.selftest_failures("cpu") == []
+
+
+def test_recovery_programs_match_reference_and_pass(tmp_path):
+    """The resume path's programs: the reference's roles and re-shard
+    transfers (its fused ``round``/``donated`` program has no eager
+    counterpart), every rule clean on them; the re-shard rule's verdict
+    per collective kind is the reference's, broadcasts allowed as data
+    movement."""
+    from repro.analysis import contracts as ref_contracts
+    want = ref_programs.recovery_programs("traffic")
+    got = programs.recovery_programs("traffic", device="cpu",
+                                     directory=str(tmp_path))
+    # (the reference's GS bodies depend on its process's device mesh)
+    for role in ("train_body", "reshard"):
+        assert sum(role in p.roles for p in got) == \
+            sum(role in p.roles for p in want), role
+    assert any("gs_body" in p.roles for p in got)
+    assert [p.name.rsplit("/", 1)[1] for p in got if "reshard" in p.roles] \
+        == [p.name.rsplit("/", 1)[1] for p in want if "reshard" in p.roles]
+    assert all(p.name.startswith("recovery/traffic@1") for p in got)
+    findings = contracts.run_rules(got)
+    assert findings == [], "\n".join(
+        report.format_finding(f, github=False) for f in findings)
+    assert ref_contracts.run_rules(
+        [p for p in want if "reshard" in p.roles],
+        rules=(ref_contracts.ReshardCollectives(),)) == []
+    rule = contracts.ReshardCollectives()
+    allowed = rule.ALLOWED | runtime.HALO_PRIMS
+    hlo = {"c10d.allreduce_": "all-reduce", "c10d.allgather_": "all-gather",
+           "c10d._allgather_base_": "all-gather",
+           "c10d.reduce_scatter_": "reduce-scatter",
+           "c10d._reduce_scatter_base_": "reduce-scatter",
+           "c10d.alltoall_": "all-to-all", "c10d.send": "collective-permute",
+           "c10d.recv_": "collective-permute"}
+    for op, token in hlo.items():
+        assert (op in allowed) == (
+            token in ref_contracts.ReshardCollectives.ALLOWED), op
+    assert "c10d.broadcast_" in allowed
+    assert any(isinstance(r, contracts.ReshardCollectives)
+               for r in contracts.DEFAULT_RULES)
 
 
 # ---------------------------------------------------------------------------

@@ -171,11 +171,29 @@ def test_collector_worker_failure_reaches_the_driver():
 
 
 def test_collector_refuses_the_sharded_modes():
-    for kw in (dict(mode="dispatch"), dict(spare_device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            async_collect.AsyncCollector(_FakeCollect(), **kw)
+    """The port has no spare device; dispatch mode (the sharded
+    driver's) runs the collect on the caller's thread at submit, with the
+    thread mode's tags and force-syncs."""
+    with pytest.raises(ValueError, match="no spare device"):
+        async_collect.AsyncCollector(_FakeCollect(), spare_device="cpu")
     with pytest.raises(ValueError, match="unknown dispatch mode"):
         async_collect.AsyncCollector(_FakeCollect(), mode="process")
+    tags = {}
+    for mode in ("thread", "dispatch"):
+        c = async_collect.AsyncCollector(_FakeCollect(), mode=mode)
+        got = []
+        for rnd in range(4):
+            tagged, forced = c.obtain(rnd, None, None, max_staleness=1)
+            got.append((tagged.round, forced))
+            if rnd < 3 and c.idle():
+                c.submit(None, None, rnd)
+                assert c.pending_round == rnd
+        c.close()
+        tags[mode] = got
+    assert tags["dispatch"] == tags["thread"] == [
+        (0, True), (0, False), (1, False), (2, False)]
+    assert async_collect.AsyncCollector(_FakeCollect(),
+                                        mode="dispatch").stream is None
 
 
 # ---------------------------------------------------------------------------

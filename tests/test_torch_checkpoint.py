@@ -146,12 +146,21 @@ def test_async_write_failure_reraised_on_next_save(tmp_path):
 
 
 def test_distributed_layout_refused(tmp_path):
-    """A step in the reference's per-slice layout is refused by name,
-    not skipped as torn."""
-    os.makedirs(tmp_path / "step_4" / "agents-0-2")
-    mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        mgr.restore_latest({"x": torch.zeros(1)})
+    """A step in the reference's per-slice layout without a verifying
+    COMMIT is refused (skipped as torn, the older flat step restored); a
+    committed one restores (``tests/test_torch_dist_checkpoint.py``)."""
+    from repro_torch.checkpoint import distributed as dckpt
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    mgr.save(3, {"x": torch.ones(1)})
+    d = str(tmp_path / "step_4")
+    dckpt.write_slice(d, {"x": torch.full((2,), 4.0)}, 0, 2, 4, step=4)
+    dckpt.write_replicated(d, {}, step=4)
+    tree, step = mgr.restore_latest({"x": torch.zeros(1)})
+    assert step == 3 and float(tree["x"]) == 1.0
+    dckpt.write_slice(d, {"x": torch.full((2,), 5.0)}, 2, 4, 4, step=4)
+    dckpt.write_commit(d, dckpt.build_commit_meta(d))
+    tree, step = mgr.restore_latest({"x": torch.zeros(4)})
+    assert step == 4 and tree["x"].tolist() == [4.0, 4.0, 5.0, 5.0]
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,11 @@ CE 1e-5) and bit for bit the loop driver; two ranks sharing the card
 against the loop driver (AIP 1e-6, CE and IALS reward 1e-5, GS return
 5e-2; policy 1e-2, the reference's, and nearer the loop's policy than
 half the loop's own move from init), each rank's collect bit for bit,
-and every collective wrapper on CUDA tensors exactly.
+and every collective wrapper on CUDA tensors exactly. The fault path:
+a two-rank distributed checkpoint saved and restored on the card bit for
+bit, ``ReshardCollectives`` on the card's re-shard transfers, and the
+peer-failure markers on the errors a broken group raises while it
+reduces CUDA tensors.
 """
 import pytest
 import torch
@@ -407,6 +411,145 @@ def test_two_ranks_on_card_match_loop(cuda_device):
         for k, tol in (("aip_ce_before", 1e-5), ("aip_ce_after", 1e-5),
                        ("ials_reward", 1e-5), ("gs_return", 5e-2)):
             assert abs(rec[k] - ref[k]) <= tol, k
+
+
+def _card_state(device, n=4):
+    g = torch.Generator().manual_seed(0)
+    return {"ials": {"w": torch.randn(n, 3, generator=g).to(device),
+                     "n": torch.arange(n).to(device)},
+            "aips": {"b": torch.randn(n, 2, generator=g).to(device)
+                     .to(torch.bfloat16)},
+            "round": 3, "key": torch.tensor([7, 11], device=device)}
+
+
+def _ckpt_card_rank(directory):
+    """One of two ranks sharing cuda:0: saves its block of a CUDA state
+    in the distributed layout (rank 0 commits), then restores its block
+    onto its mesh and the whole state."""
+    from repro_torch.checkpoint import distributed as dckpt
+    from repro_torch.distributed import bootstrap, collectives, runtime
+    from repro_torch.tree import leaves
+    bootstrap.bootstrap()
+    device = torch.device("cuda", 0)
+    state = _card_state(device)
+    mesh = runtime.shard_mesh(device=device)
+    mgr = dckpt.DistributedCheckpointManager(
+        directory, process_id=mesh.rank, async_write=mesh.rank == 0)
+    # a manager cleans the prepares it finds: both exist before a save
+    collectives.tree_psum(torch.zeros(1, device=device), mesh)
+    block = {**state, **runtime.shard_agent_tree(
+        {"ials": state["ials"], "aips": state["aips"]}, mesh)}
+    mgr.save(3, block, extra={"reports": [2] * 4}, mesh=mesh)
+    mgr.wait()
+    collectives.tree_psum(torch.zeros(1, device=device), mesh)  # barrier
+    target = {k: (torch.zeros_like(v) if torch.is_tensor(v) else v)
+              for k, v in _card_state(device).items()}
+    target = {**target, "ials": {k: torch.zeros_like(v) for k, v in
+                                 state["ials"].items()},
+              "aips": {k: torch.zeros_like(v) for k, v in
+                       state["aips"].items()}, "round": 0}
+    mine, step = mgr.restore_latest(target, mesh=mesh)
+    whole, _ = mgr.restore_latest(target)
+    return {"step": step, "extra": mgr.last_extra,
+            "block_equal": all(a.device.type == "cuda" and torch.equal(a, b)
+                               for a, b in zip(leaves(mine), leaves(block))
+                               if torch.is_tensor(a)),
+            "whole_equal": all(torch.equal(a, b) for a, b in
+                               zip(leaves(whole), leaves(state))
+                               if torch.is_tensor(a)),
+            "round": whole["round"]}
+
+
+@pytest.mark.cuda
+def test_two_rank_distributed_checkpoint_on_card(cuda_device, tmp_path):
+    """Two ranks sharing cuda:0 save one step in the reference's layout
+    (one slice each, rank 0 commits) and restore it exactly: each rank
+    its block onto its mesh, the whole state, and this process the step
+    onto one shard of the card."""
+    import os
+    from repro_torch.checkpoint import distributed as dckpt
+    from repro_torch.distributed import bootstrap, runtime
+    from repro_torch.tree import leaves
+    d = str(tmp_path / "ck")
+    outs = bootstrap.spawn_local(2, _ckpt_card_rank, d, timeout_s=300)
+    for o in outs:
+        assert o["step"] == 3 and o["round"] == 3, o
+        assert o["block_equal"] and o["whole_equal"], o
+        assert o["extra"] == {"reports": [2] * 4}
+    step = os.path.join(d, "step_3")
+    assert sorted(os.listdir(step)) == [
+        "COMMIT", "agents-00000-00002", "agents-00002-00004", "replicated"]
+    state = _card_state(cuda_device)
+    one = runtime.ShardMesh(n_shards=1, rank=0, device=cuda_device)
+    back, _ = dckpt.read_step_mesh(step, state, one)
+    assert all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b) for a, b in zip(leaves(back),
+                                                    leaves(state))
+               if torch.is_tensor(a))
+
+
+def _reshard_card_rank(directory):
+    """One of two ranks sharing cuda:0: the resume path's programs
+    (``recovery_programs``) on the card under the communication rules,
+    and a re-shard transfer that all-reduces a CUDA tensor."""
+    from repro_torch.analysis import contracts, programs
+    from repro_torch.distributed import bootstrap
+    bootstrap.bootstrap()
+    device = torch.device("cuda", 0)
+    progs = programs.recovery_programs("traffic", device=device,
+                                       directory=directory)
+    findings = contracts.run_rules(progs, rules=(
+        contracts.CollectiveFree(), contracts.HaloOnly(),
+        contracts.ReshardCollectives()))
+
+    def summing(v):
+        y = v.clone()
+        torch.distributed.all_reduce(y)
+        return y
+
+    leaky = contracts.ReshardCollectives().check(contracts.Program(
+        "card/reshard-allreduce", ("reshard",), summing,
+        (torch.ones(4, device=device),)))
+    fetch = [p for p in progs if p.name.endswith("reshard_fetch")][0]
+    return {"names": [p.name for p in progs],
+            "findings": [f.message for f in findings],
+            "leaky": [f.message for f in leaky],
+            "fetch_ops": sorted({s.op for s in fetch.recording().sites
+                                 if s.op.startswith("c10d")})}
+
+
+@pytest.mark.cuda
+def test_reshard_collectives_on_card(cuda_device, tmp_path):
+    """``ReshardCollectives`` on the card's two re-shard transfers (two
+    ranks on cuda:0): the checkpoint rows to this shard's placement and
+    ``fetch_tree`` dispatch data movement only (the fetch an all-gather);
+    an all-reduce in a re-shard transfer is flagged."""
+    from repro_torch.distributed import bootstrap
+    outs = bootstrap.spawn_local(2, _reshard_card_rank, str(tmp_path),
+                                 timeout_s=600)
+    for o in outs:
+        assert o["findings"] == [], o["findings"]
+        assert any(n.endswith("reshard_place") for n in o["names"])
+        assert any(op.startswith("c10d.allgather") or
+                   op.startswith("c10d._allgather") for op in o["fetch_ops"])
+        assert o["leaky"] and "allreduce" in o["leaky"][0], o["leaky"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["kill", "stall"])
+def test_peer_failure_markers_on_card(cuda_device, mode):
+    """A two-rank group reducing CUDA tensors on cuda:0, broken by a
+    killed or a stalled peer (``tests/_torch_peer_check.py``): the error
+    the survivor gets reads as a peer failure."""
+    import os
+    import _torch_procs as procs
+    peer = os.path.join(procs.ROOT, "tests", "_torch_peer_check.py")
+    (rc0, log0), (rc1, _) = procs.wait_all(procs.launch(
+        peer, ["--mode", mode, "--device", "cuda"]), timeout=300)
+    assert rc0 == 0, log0[-2000:]
+    assert rc1 == (-9 if mode == "kill" else 0)
+    assert "PEER-ERROR none" not in log0, log0[-2000:]
+    assert "PEER-FAILURE True" in log0, log0[-2000:]
 
 
 @pytest.mark.cuda

@@ -105,10 +105,15 @@ def test_port_round_records_validate_and_refuse_unported_options(tmp_path):
         _, got = _port_trainer(outer_rounds=2, **ok).run(R.key(3))
         assert [jmetrics.validate_round(r) for r in got] == [[], []]
     assert [r["data_round"] for r in got] == [0, 1]
-    for bad in (dict(shards=2, async_collect=True),
-                dict(shards=2, ckpt_dir=str(tmp_path / "ckpt"))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _port_trainer(**bad)
+    # and with shards > 1 since the fault-tolerance half
+    # (tests/test_torch_sharded_{async,resume}.py): built here, they run
+    # only in a group of that many ranks
+    for lifted in (dict(shards=2, async_collect=True),
+                   dict(shards=2, ckpt_dir=str(tmp_path / "ckpt"))):
+        with pytest.raises(ValueError, match="one shard per rank"):
+            _port_trainer(**lifted).run(R.key(3))
+    with pytest.raises(ValueError, match="requires the sharded runtime"):
+        _port_trainer().run(R.key(3), heartbeats=lambda rnd: ())
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):

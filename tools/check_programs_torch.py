@@ -6,7 +6,10 @@ registered scenario and policy kind at tiny sizes
 (``repro_torch.analysis.programs``), runs the
 ``repro_torch.analysis.contracts`` rule set over them, runs the sharded
 round's programs again on two spawned ranks of one gloo group
-(``CollectiveFree``, ``HaloOnly``), runs the AST lint over the port's
+(``CollectiveFree``, ``HaloOnly``) with the post-loss resume path's
+programs (``recovery_programs``: ``ReshardCollectives`` on the two
+re-shard transfers, whose all-gather crosses the ranks), runs the AST
+lint over the port's
 runtime modules and one tiny run of the loop driver under the compile
 counter to assert zero steady-state compiles. Findings print through
 ``repro_torch.analysis.report.format_finding``: ``file:line`` locally,
@@ -95,10 +98,14 @@ def _sharded_rank(scenarios, kinds, device) -> list:
     findings = []
     for env in scenarios or registry.names():
         for kind in kinds:
-            progs = programs.sharded_programs(env, kind=kind, device=device)
+            progs = (programs.sharded_programs(env, kind=kind,
+                                               device=device)
+                     + programs.recovery_programs(env, kind=kind,
+                                                  device=device))
             findings += contracts.run_rules(
                 progs, rules=(contracts.CollectiveFree(),
-                              contracts.HaloOnly()))
+                              contracts.HaloOnly(),
+                              contracts.ReshardCollectives()))
             if ctx.is_primary:
                 print(f"# check_programs_torch: sharded {env}[{kind}] on "
                       f"{ctx.num_processes} ranks: "
@@ -241,6 +248,22 @@ def selftest_failures(device) -> list:
                 (x,))):
             failures.append("a one-shard GS body without a halo exchange "
                             "did not fail HaloOnly")
+
+        def summing(v):
+            y = v.clone()
+            torch.distributed.all_reduce(y)        # combines shards
+            return y
+
+        found = rule_of(contracts.ReshardCollectives(), contracts.Program(
+            "selftest/reshard-allreduce", ("reshard",), summing, (x,)))
+        if not (found and "allreduce" in found[0].message
+                and found[0].file.endswith("check_programs_torch.py")):
+            failures.append("an all_reduce in a re-shard transfer did not "
+                            "fail ReshardCollectives with provenance")
+        if rule_of(contracts.ReshardCollectives(), contracts.Program(
+                "selftest/reshard-gather", ("reshard",), gathering, (x,))):
+            failures.append("an all_gather in a re-shard transfer failed "
+                            "ReshardCollectives")
 
     if dev.type == "cuda":
         found = rule_of(contracts.GraphCapturable(), contracts.Program(
