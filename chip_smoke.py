@@ -80,7 +80,14 @@ It
      bit for bit the serial run, bound 2 tags [0, 0, 1]), with the
      recovery times and the three kernels' launches printed; then the
      kernel path against the plain path on a small input (one round,
-     warehouse side=2); then the program contracts
+     warehouse side=2); then the paper's experiment harness
+     (``benchmarks/torch_run.py``): the ``fig3_learning`` cell of
+     warehouse at the ``--fast`` sizes (DIALS, untrained-DIALS and GS
+     rows, the reference's keys, finite, the GAE forward launched and
+     held to its plain version at the cell's shape, T=16 x B=32),
+     ``table_memory`` with its states on the card (rows equal the
+     CPU's; the port's int64 columns beside the reference's), and
+     ``table_lemma2``; then the program contracts
      (``repro_torch.analysis``) on the recurrent-policy warehouse and
      the traffic paths: the ring collect, the AIP round, the inner step
      and the GS eval each recorded by the op walker (ops by source line),
@@ -95,12 +102,16 @@ It
      with the flash kernel (42 launches, all of the bf16 kernel) and
      without it, their last
      logits compared, then a greedy decode of 16 tokens at B=4 after a
-     32-token prompt; then profiles one prefill and 8 decode steps
-     (device busy share, device time by kernel, flash's share);
+     32-token prompt; then profiles the prefill and 8 decode steps
+     (device busy share, device time by kernel, flash's share), each
+     traced over 5 calls after a warm-up, the last 3 kept, every kept
+     call's traced flash launches equal to the wrapper's count (42 a
+     prefill), or the phase fails;
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
      (2, 8192, 1536) bf16 activations (one launch of ``ssd_chunk_sm90``)
      against ``use_kernel=False``, then times both warm (median of 7) and
-     profiles the kernel call (the SSD kernel's share of its device time);
+     profiles the kernel call the same way (the SSD kernel's share of its
+     device time; one traced ``ssd_chunk_sm90`` launch a kept call);
   7. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -218,7 +229,9 @@ SYNC_REFRESH = (2, 5)
 # 16 tokens at B=4 after a 32-token prompt (examples/serve_decode.py).
 GEMMA_PROMPT = (2, 8192)
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 32, 16
-PROFILE_DECODE_STEPS = 8
+# decode steps in one traced call of the serving profile (~5,000 kernels
+# a step; the profiler's cost grows with the kernels it traces)
+PROFILE_DECODE_STEPS = 2
 # mamba2-780m's SSM layer (src/repro/configs/mamba2_780m.py:15-17) on
 # (2, 8192, 1536) activations
 MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
@@ -262,27 +275,72 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, match: str):
-    """Device milliseconds per launch of the kernels whose name contains
-    ``match``, from ``torch.profiler``: the mean of the last ``iters`` of
-    ``iters + 2`` traced calls of ``fn`` after one untraced warm-up call
-    (the tracer may miss a launch at its start): the kernel's own time,
-    without the host's cost of the call."""
+# the marker kernel ``torch.cuda._sleep`` launches (ATen's Sleep.cu) before
+# each traced call, so the device kernels split into calls by their order on
+# the card alone
+MARKER_KERNEL = "spin_kernel"
+PROFILE_ITERS = 3
+
+
+def traced_calls(fn, iters: int, count_key: str, match: str):
+    """Device kernels of ``fn``'s calls: one untraced warm-up call, then
+    ``iters + 2`` calls under ``torch.profiler``
+    (the tracer may miss launches at its start), each after a marker
+    kernel and ending in a synchronise; the last ``iters`` calls are kept.
+    Each kept call must show as many launches of the kernels named
+    ``match`` as the wrapper's count ``count_key`` rose by per call: a
+    mismatch fails the phase. Returns [(kernels [(name, start_us,
+    end_us)], host wall seconds)] for the kept calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters + 2):
+    n = iters + 2
+    walls = []
+    before = launch_counts()[count_key]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
             fn()
-        torch.cuda.synchronize()
-    spans = sorted((ev.time_range.start, ev.time_range.end)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    per_call, rest = divmod(launch_counts()[count_key] - before, n)
+    check(rest == 0, f"{count_key}: {per_call * n + rest} wrapper launches "
+                     f"in {n} calls")
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
                    for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and match in ev.name)
-    check(len(spans) >= iters, f"profiler saw {len(spans)} launches of "
-                               f"{match} in {iters + 2} calls")
-    return sum(end - start for start, end in spans[-iters:]) / 1e3 / iters
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    calls = []
+    for start, end, name in spans:
+        if MARKER_KERNEL in name:
+            calls.append([])
+        elif calls:
+            calls[-1].append((name, start, end))
+    check(len(calls) >= iters, f"the profiler saw {len(calls)} of {n} "
+                               f"marker kernels")
+    kept = list(zip(calls[-iters:], walls[-iters:]))
+    for i, (kernels, _) in enumerate(kept):
+        seen = sum(match in name for name, _, _ in kernels)
+        check(seen == per_call,
+              f"traced call {i} of the last {iters}: {seen} launches of "
+              f"{match}, the wrapper counted {per_call} a call")
+    print(f"traced {n} calls, kept the last {iters}: {per_call} launches of "
+          f"{match} a call, each seen by the profiler", flush=True)
+    return kept
+
+
+def device_ms(fn, iters: int, count_key: str, match: str):
+    """Device milliseconds per launch of the kernels whose name contains
+    ``match``, from ``torch.profiler``: their mean over the calls that
+    ``traced_calls`` keeps (each checked against the wrapper's count
+    ``count_key``): the kernel's own time, without the host's cost of the
+    call."""
+    kept = traced_calls(fn, iters, count_key, match)
+    spans = [end - start for kernels, _ in kept
+             for name, start, end in kernels if match in name]
+    return sum(spans) / 1e3 / len(spans)
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
@@ -481,7 +539,8 @@ def check_gae(gen, device, t, b, gamma, lam):
         dict(name="gae_forward", route="cuda",
              source="src/repro_torch/kernels/csrc/gae.cu",
              replaces="src/repro/kernels/gae/kernel.py:45",
-             max_abs_err=fwd_err, ms=device_ms(fwd, iters, "gae_fwd"),
+             max_abs_err=fwd_err,
+             ms=device_ms(fwd, iters, "gae_forward", "gae_fwd"),
              call_ms=cuda_ms(fwd, iters),
              plain_ms=cuda_ms(
                  lambda: aref.gae_reverse_scan(r, v, nv, d, **kw), iters),
@@ -489,7 +548,8 @@ def check_gae(gen, device, t, b, gamma, lam):
         dict(name="gae_backward", route="cuda",
              source="src/repro_torch/kernels/csrc/gae.cu",
              replaces="src/repro/kernels/gae/kernel.py:80",
-             max_abs_err=bwd_err, ms=device_ms(bwd, iters, "gae_bwd"),
+             max_abs_err=bwd_err,
+             ms=device_ms(bwd, iters, "gae_backward", "gae_bwd"),
              call_ms=cuda_ms(bwd, iters),
              plain_ms=cuda_ms(lambda: torch.autograd.grad(
                  adv_p, ref_leaves, g, retain_graph=True), iters),
@@ -502,6 +562,35 @@ def check_gae(gen, device, t, b, gamma, lam):
               f"back-to-back wrapper calls); bound {row['bound'][0]:.6f} ms",
               flush=True)
     return rows
+
+
+def check_gae_forward_at(gen, device, t, b, gamma, lam) -> dict:
+    """``gae_fwd`` at a path's (T, B), bit for bit against the plain
+    version, with CUDA-event times of the kernel's wrapper and of the
+    plain version over back-to-back calls (no profiler: at T=16 x B=32
+    ``torch.profiler`` missed a share of the launches on an H100) and
+    the bound."""
+    import torch
+    from repro_torch.kernels.gae import kernel as ak, ref as aref
+    r, v, nv = (torch.randn(t, b, generator=gen, device=device)
+                for _ in range(3))
+    d = (torch.rand(t, b, generator=gen, device=device) < 0.05).float()
+    adv_k = ak.forward(r, v, nv, d, gamma, lam)
+    adv_p = aref.gae_reverse_scan(r, v, nv, d, gamma=gamma, lam=lam)
+    check(torch.equal(adv_k, adv_p), f"gae_forward at {t}x{b}: not bit for "
+                                     f"bit equal to the plain version")
+    iters = 200
+    out = {"shape": [t, b], "max_abs_err": max_err(adv_k, adv_p),
+           "call_ms": cuda_ms(lambda: ak.forward(r, v, nv, d, gamma, lam),
+                              iters),
+           "plain_ms": cuda_ms(lambda: aref.gae_reverse_scan(
+               r, v, nv, d, gamma=gamma, lam=lam), iters),
+           "bound_ms": bound_ms(4.0 * 5 * t * b, 8.0 * t * b)[0]}
+    print(f"gae_forward ({t}x{b}, the harness's shape): bit for bit; "
+          f"{out['call_ms']:.5f} ms a call host-inclusive (CUDA events "
+          f"over {iters} wrapper calls), plain {out['plain_ms']:.5f} ms, "
+          f"bound {out['bound_ms']:.7f} ms", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -873,7 +962,7 @@ def check_ssd(gen, device):
     fn = lambda: sk.forward(xw, la, bm, c, chunk=chunk)
     ffma = lambda: ssd_ffma(xw, la, bm, c, chunk)
     ms, ffma_ms = cuda_ms(fn, 20), cuda_ms(ffma, 20)
-    dev_ms = device_ms(fn, 20, "ssd_chunk_sm90")
+    dev_ms = device_ms(fn, 20, "ssd_chunk_sm90", "ssd_chunk_sm90")
     plain_ms = cuda_ms(lambda: sr.intra_chunk(xw, la, bm, c, chunk=chunk), 3)
     ms_again = cuda_ms(fn, 20)
     bound = ssd_bound(bsz, t, h, p, n, chunk)
@@ -1571,9 +1660,7 @@ def fault_worker(argv) -> int:
     * ``straight``: FAULT_ROUNDS rounds with ``ckpt_dir``, then the
       overlapped collect at bound 0 (FAULT_ZERO_ROUNDS rounds) and at
       bound 2 (FAULT_ASYNC_ROUNDS rounds); the ranks leave the group
-      together and exit with ``os._exit(0)``, past the interpreter's
-      teardown of torch's distributed state, which can abort a finished
-      rank (``tests/_torch_multihost_check.py``);
+      through ``bootstrap.shutdown`` (a barrier, the destroy) and return;
     * ``hostdrop``: FAULT_ROUNDS rounds with a ``HostMonitor`` gate; rank
       1 SIGKILLs itself at the top of round FAULT_KILL_ROUND, rank 0
       trains on alone and leaves with ``os._exit(0)``;
@@ -1660,11 +1747,8 @@ def fault_worker(argv) -> int:
                 runs[label]["state"] = _fault_leaves(state)
         out["async"] = runs
         torch.save(out, path)
-        torch.distributed.barrier()
         bootstrap.shutdown()
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(0)
+        return 0
 
     if mode == "hostdrop":
         monitor = fault.HostMonitor(
@@ -2244,6 +2328,90 @@ def run_contracts_path(device, smi):
     return launch_counts(), shape_counts()
 
 
+# ---------------------------------------------------------------------------
+# the paper's experiment harness (benchmarks/torch_run.py)
+# ---------------------------------------------------------------------------
+# torch_run.py's --fast fig3_learning sizes (benchmarks/run.py:78-79)
+HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 3, 10
+HARNESS_DIALS_KEYS = {"label", "final_gs_return", "best_gs_return",
+                      "aip_ce_final", "wall_s"}
+
+
+def _quiet_bench(fn, *args, **kw):
+    """A torch_run table, its JSON under build/ and its lines swallowed."""
+    import contextlib
+    import io
+    d = os.path.join(ROOT, "build", "chip_smoke_harness")
+    os.makedirs(d, exist_ok=True)
+    with contextlib.chdir(d), contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def run_harness_path(device):
+    """The paper's experiment harness on the card (``benchmarks/
+    torch_run.py``): ``fig3_env_rows`` for warehouse at the ``--fast``
+    sizes (HARNESS_ROUNDS rounds of F=HARNESS_INNER, the reference's
+    widths: an FNN AIP and policy, so the GAE forward is the kernel this
+    path launches), kernels on, its DIALS, untrained-DIALS and GS rows
+    checked for the reference's keys and finite values; ``table_memory``
+    with its states initialised on the card (``torch_run.state_bytes``
+    raises on a leaf that is not there), its rows equal to the same on
+    the CPU, the port's int64 columns at least the reference's; and
+    ``table_lemma2`` (float64, CPU), every certificate holding. Returns
+    the launch counts of the fig3 cell's run."""
+    import torch
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from benchmarks import torch_run
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = torch_run.fig3_env_rows(HARNESS_ENV, rounds=HARNESS_ROUNDS,
+                                   inner=HARNESS_INNER, device=device,
+                                   use_kernels="on")
+    torch.cuda.synchronize()
+    cell_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check([r["label"] for r in rows] == [
+        f"DIALS-{HARNESS_ENV}", f"untrained-DIALS-{HARNESS_ENV}",
+        f"GS-{HARNESS_ENV}"], f"fig3 rows {[r['label'] for r in rows]}")
+    for r in rows:
+        want = (HARNESS_DIALS_KEYS if "DIALS" in r["label"] else
+                {"label", "final_gs_return", "wall_s"})
+        check(set(r) == want, f"fig3 row {r['label']}: keys {sorted(r)}")
+        for k, v in r.items():
+            check(k == "label" or math.isfinite(v),
+                  f"fig3 row {r['label']}: {k}={v}")
+        print(f"harness fig3 {r['label']}: " + ", ".join(
+            f"{k}={v:.6f}" for k, v in r.items() if k != "label"),
+            flush=True)
+    check(counts["gae_forward"] > 0, "the fig3 cell never launched "
+                                     "gae_forward")
+    print(f"harness fig3 cell ({HARNESS_ROUNDS} rounds of F={HARNESS_INNER},"
+          f" DIALS + untrained-DIALS + {HARNESS_ROUNDS * HARNESS_INNER} GS "
+          f"steps): {cell_s:.3f} s, launches {counts}", flush=True)
+    t0 = time.perf_counter()
+    on_card = _quiet_bench(torch_run.table_memory, device=device)
+    on_cpu = _quiet_bench(torch_run.table_memory, device="cpu")
+    check(on_card == on_cpu, "table_memory: the card's rows differ from the "
+                             "CPU's")
+    check(all(r[k + "_port"] >= r[k] > 0 for r in on_card for k in
+              ("gs_state_bytes", "ls_state_bytes_per_agent")),
+          f"table_memory: port bytes below the reference's {on_card}")
+    lemma = _quiet_bench(torch_run.table_lemma2)
+    check(len(lemma) == 5 and all(
+        r["holds"] == 1 and all(math.isfinite(r[k]) for k in
+                                ("xi", "lhs_maxQdiff", "bound"))
+        for r in lemma), f"table_lemma2 rows {lemma}")
+    print(f"harness table_memory: {len(on_card)} rows, states on the card, "
+          f"rows equal the CPU's ({on_card[-1]['label']} gs_state_bytes "
+          f"{on_card[-1]['gs_state_bytes']} at the reference's dtypes, "
+          f"{on_card[-1]['gs_state_bytes_port']} held by the port); "
+          f"table_lemma2: {len(lemma)} certificates hold, max lhs "
+          f"{max(r['lhs_maxQdiff'] for r in lemma):.6e}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return counts
+
+
 def run_serving_path(device):
     """gemma2-9b at full width, bf16, params from a seeded generator: the
     prefill step over a B=2 x T=8192 prompt with the flash kernel and
@@ -2344,41 +2512,42 @@ def run_serving_path(device):
     return counts
 
 
-def device_summary(prof, wall: float, top: int = 12) -> dict:
-    """Device busy share of a traced window of ``wall`` seconds (the union
-    of all CUDA kernel intervals over the wall time) and device time and
-    launch count per kernel name, largest first."""
-    import torch
-    intervals, per_kernel = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        intervals.append((start, end))
-        ms, n = per_kernel.get(ev.name, (0.0, 0))
-        per_kernel[ev.name] = (ms + (end - start) / 1e3, n + 1)
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(intervals):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
+def device_summary(kept, match: str, top: int = 12) -> dict:
+    """Means over the kept calls of ``traced_calls``: device busy share
+    (the union of the call's kernel intervals over its host wall time),
+    kernels, device ms, and the device ms of the kernels named ``match``;
+    device time and launches by kernel name, largest first."""
+    busy, per_kernel = [], {}
+    for kernels, wall in kept:
+        busy_us, reach = 0.0, float("-inf")
+        for name, start, end in sorted(kernels, key=lambda k: k[1]):
+            if end > reach:
+                busy_us += end - max(start, reach)
+                reach = end
+            ms, n = per_kernel.get(name, (0.0, 0))
+            per_kernel[name] = (ms + (end - start) / 1e3, n + 1)
+        busy.append(busy_us / 1e6 / wall)
+    calls = len(kept)
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"device_kernels": len(intervals),
-            "device_busy_share": busy_us / 1e6 / wall,
-            "device_ms": sum(ms for ms, _ in per_kernel.values()),
-            "flash_ms": sum(ms for name, (ms, _) in per_kernel.items()
-                            if "flash_fwd" in name),
-            "top_kernels": [(name[:80], ms, n) for name, (ms, n) in ranked]}
+    return {"device_kernels": sum(len(k) for k, _ in kept) / calls,
+            "device_busy_share": sum(busy) / calls,
+            "wall_s": sum(w for _, w in kept) / calls,
+            "device_ms": sum(ms for ms, _ in per_kernel.values()) / calls,
+            "match_ms": sum(ms for name, (ms, _) in per_kernel.items()
+                            if match in name) / calls,
+            "top_kernels": [(name[:80], ms / calls, n / calls)
+                            for name, (ms, n) in ranked]}
 
 
 def profile_serving(run_prefill, run_serve_step):
-    """Where the serving path's time goes: one prefill and
-    PROFILE_DECODE_STEPS serve steps (both warm), each timed untraced and
-    then traced under ``torch.profiler``. Prints each window's wall
-    seconds (their difference is the profiler's cost), the device busy
-    share, the kernel launches, and device time by kernel name."""
+    """Where the serving path's time goes: the prefill and
+    PROFILE_DECODE_STEPS serve steps, each timed untraced and then
+    traced as ``traced_calls`` takes them (the prefill's 42
+    ``flash_fwd_sm90`` launches a call checked against the wrapper's
+    count). Prints each window's wall seconds a call (their difference is
+    the profiler's cost), the device busy share, the kernel launches, and
+    device time by kernel name, means over the kept calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def decode():
         for i in range(PROFILE_DECODE_STEPS):
@@ -2393,19 +2562,20 @@ def profile_serving(run_prefill, run_serve_step):
     for name, fn in (("prefill", run_prefill),
                      (f"{PROFILE_DECODE_STEPS} decode steps", decode)):
         untraced = timed(fn)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall = timed(fn)
-        summary = device_summary(prof, wall)
-        print(f"profile {name}: untraced {untraced:.4f} s, traced "
-              f"{wall:.4f} s, device busy {summary['device_busy_share']:.4f}"
-              f", {summary['device_kernels']} kernels, "
+        summary = device_summary(
+            traced_calls(fn, PROFILE_ITERS, "flash_fwd_sm90",
+                         "flash_fwd_sm90"), "flash_fwd")
+        print(f"profile {name} (mean of {PROFILE_ITERS} traced calls): "
+              f"untraced {untraced:.4f} s, traced "
+              f"{summary['wall_s']:.4f} s, device busy "
+              f"{summary['device_busy_share']:.4f}, "
+              f"{summary['device_kernels']:.0f} kernels, "
               f"{summary['device_ms']:.3f} ms of kernel time, flash "
-              f"{summary['flash_ms']:.3f} ms "
-              f"({summary['flash_ms'] / summary['device_ms']:.4f} of it)",
+              f"{summary['match_ms']:.3f} ms "
+              f"({summary['match_ms'] / summary['device_ms']:.4f} of it)",
               flush=True)
         for kname, ms, n in summary["top_kernels"]:
-            print(f"  {ms:10.3f} ms {n:6d}x  {kname}", flush=True)
+            print(f"  {ms:10.3f} ms {n:6.0f}x  {kname}", flush=True)
 
 
 def run_ssm_path(device):
@@ -2413,11 +2583,12 @@ def run_ssm_path(device):
     (2, 8192, 1536) bf16 activations, against ``use_kernel=False``: the
     counted call (one launch of ``ssd_chunk_sm90``), then one untimed
     warm-up call of each and the median of SSM_TIMED synchronised calls of
-    each, then one traced kernel call for the SSD kernel's share of the
-    layer's device time. Returns the launch counts of the counted call."""
+    each, then the kernel call traced as ``traced_calls`` takes it (its
+    one ``ssd_chunk_sm90`` launch a call checked against the wrapper's
+    count) for the SSD kernel's share of the layer's device time.
+    Returns the launch counts of the counted call."""
     import statistics
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import common
     from repro_torch.nn import ssm
     cfg = common.ssm_layer(MAMBA2["d_model"], MAMBA2["state"],
@@ -2447,8 +2618,9 @@ def run_ssm_path(device):
             fn()
             warm[k] = statistics.median(timed(fn)[0]
                                         for _ in range(SSM_TIMED))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            timed(layer[True])
+        summary = device_summary(
+            traced_calls(layer[True], PROFILE_ITERS, "ssd_chunk_sm90",
+                         "ssd_chunk_sm90"), "ssd_chunk_sm90")
     check(counts["ssd_intra_chunk"] == 1 and counts["ssd_chunk_sm90"] == 1
           and counts["ssd_chunk"] == 0,
           f"ssm_layer launched the SSD kernels {counts['ssd_intra_chunk']} "
@@ -2458,18 +2630,15 @@ def run_ssm_path(device):
           f"ssm_layer output {tuple(y_k.shape)} {y_k.dtype}")
     err = allclose_err([("ssm_layer, kernel vs plain", y_k, y_p)],
                        SSM_LAYER_TOL)
-    spans = [(ev.name, ev.time_range.end - ev.time_range.start)
-             for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    layer_us = sum(us for _, us in spans)
-    ssd_us = sum(us for name, us in spans if "ssd_chunk_sm90" in name)
     print(f"ssm layer: {cfg.num_heads} heads x {cfg.head_dim}, state "
           f"{cfg.state}, chunk {cfg.chunk}, on ({b}, {t}, {cfg.d_model}) "
           f"bf16: cold {cold_s:.4f} s; warm median of {SSM_TIMED} "
           f"{warm[True] * 1e3:.3f} ms with the kernel, "
-          f"{warm[False] * 1e3:.3f} ms plain; traced: {len(spans)} kernels, "
-          f"{layer_us / 1e3:.3f} ms of device time, ssd_chunk_sm90 "
-          f"{ssd_us / 1e3:.4f} ms ({ssd_us / layer_us:.4f} of it); max abs "
+          f"{warm[False] * 1e3:.3f} ms plain; traced (mean of "
+          f"{PROFILE_ITERS} calls): {summary['device_kernels']:.0f} kernels, "
+          f"{summary['device_ms']:.3f} ms of device time, ssd_chunk_sm90 "
+          f"{summary['match_ms']:.4f} ms "
+          f"({summary['match_ms'] / summary['device_ms']:.4f} of it); max abs "
           f"diff {err:.4e} (max |y| {float(y_p.abs().max()):.4f})",
           flush=True)
     return counts
@@ -2602,6 +2771,14 @@ def main(argv=None) -> int:
             "dials fault path", run_fault_path, device, smi)
         phase("dials small input vs plain", check_small_against_plain,
               device)
+        paths["experiment harness (fig3 warehouse cell)"] = (phase(
+            "experiment harness", run_harness_path, device), {})
+        # the GAE forward at the harness's shape: T=16, B=N*E=4*8
+        next(r for r in rows if r["name"] == "gae_forward")[
+            "at_harness_shape"] = phase(
+                "gae kernel vs plain at the harness shape",
+                check_gae_forward_at, gen, device, 16, 4 * 8, ppo_cfg.gamma,
+                ppo_cfg.lam)
         paths["contracts (walker, eager and capture calls; graph replays "
               "uncounted)"] = phase("contracts path", run_contracts_path,
                                     device, smi)
@@ -2635,7 +2812,8 @@ def main(argv=None) -> int:
               "library_ms": r.get("library_ms"),
               **{k: r[k] for k in ("library", "shape", "ms_by_shape",
                                    "bound_ms_by_shape", "call_ms",
-                                   "device_ms", "ms_by_route", "zamba2")
+                                   "device_ms", "ms_by_route", "zamba2",
+                                   "at_harness_shape")
                  if k in r},
               "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}

@@ -18,6 +18,12 @@ process coordination. It keeps the reference's process-group contract:
   peers (``init_timeout_s``) and a group timeout (``peer_death_grace_s``,
   :func:`grace_kwargs`): gloo's default of 30 minutes would block a
   collective with a dead peer that long;
+* :func:`shutdown` — leave the group. :func:`bootstrap` also registers
+  it to run at interpreter exit: a rank whose gloo group is still alive
+  when the interpreter finalises can abort after its work is done
+  ("terminate called without an active exception", only the main
+  Python thread alive), one that left the group first does not
+  (``tests/_torch_teardown_check.py``);
 * :func:`spawn_local` — ``n`` local ranks under the contract, each in a
   fresh ``spawn``-started process (forking after CUDA has initialised
   fails), on a free loopback port: what the port's tests, examples and
@@ -44,10 +50,12 @@ single card, which every rank shares (NCCL refuses two ranks on one GPU).
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import os
 import socket
+import threading
 import traceback
 from typing import Mapping, Optional
 
@@ -241,18 +249,68 @@ def bootstrap(cfg: Optional[BootstrapConfig] = None, *,
                             world_size=cfg.num_processes,
                             rank=cfg.process_id, **kwargs)
     _STORE = store
+    atexit.unregister(shutdown)           # registered once a process
+    atexit.register(shutdown)
     return DistContext(process_id=dist.get_rank(),
                        num_processes=dist.get_world_size(),
                        coordinator=cfg.coordinator, initialized=True)
 
 
-def shutdown() -> None:
-    """Leave the group :func:`bootstrap` joined (no-op without one)."""
+# how long shutdown's barrier waits for the other ranks to arrive
+SHUTDOWN_BARRIER_TIMEOUT_S = 30.0
+# how long shutdown waits for the destroy once its barrier failed
+DEAD_PEER_DESTROY_TIMEOUT_S = 5.0
+
+
+def shutdown(barrier_timeout_s: Optional[float] = SHUTDOWN_BARRIER_TIMEOUT_S
+             ) -> None:
+    """Leave the group :func:`bootstrap` joined (no-op without one): a
+    barrier bounded by ``barrier_timeout_s`` (None skips it), the group
+    destroyed, and a garbage collection so that a group object nothing
+    references is freed now and not in the interpreter's finalisation.
+    :func:`bootstrap` registers it with ``atexit``, so a script that
+    returns without it leaves the group all the same; a rank that
+    reached the interpreter's finalisation with its group alive could
+    abort after its work was done ("terminate called without an active
+    exception"; ``tests/test_torch_teardown.py`` runs the normal
+    return). When the barrier fails (a peer died, left or is late) the
+    destroy may block, so it runs on a daemon thread and is abandoned
+    after ``DEAD_PEER_DESTROY_TIMEOUT_S``."""
     global _STORE
+    import gc
+
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+        peers_met = True
+        if barrier_timeout_s is not None and dist.get_world_size() > 1:
+            try:
+                dist.monitored_barrier(timeout=datetime.timedelta(
+                    seconds=barrier_timeout_s))
+            except RuntimeError:
+                peers_met = False
+        if peers_met:
+            dist.destroy_process_group()
+        else:
+            _destroy_bounded(DEAD_PEER_DESTROY_TIMEOUT_S)
     _STORE = None
+    gc.collect()
+
+
+def _destroy_bounded(timeout_s: float) -> None:
+    import torch.distributed as dist
+
+    def _destroy():
+        try:
+            dist.destroy_process_group()
+        except Exception:           # noqa: BLE001 - a broken group
+            pass
+    t = threading.Thread(target=_destroy, daemon=True,
+                         name="dials-destroy-group")
+    try:
+        t.start()
+    except RuntimeError:            # no new thread at interpreter exit
+        return
+    t.join(timeout_s)
 
 
 # ---------------------------------------------------------------------------

@@ -285,7 +285,8 @@ def teardown(timeout_s: float = 5.0, *, telemetry=obs.DISABLED) -> bool:
     completed."""
     def _shutdown():
         try:
-            bootstrap.shutdown()
+            # no barrier: the peer it would wait for is dead
+            bootstrap.shutdown(barrier_timeout_s=None)
         except Exception:            # noqa: BLE001 - already dying
             pass
 

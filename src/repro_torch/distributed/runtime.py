@@ -76,9 +76,13 @@ COLLECTIVE_PRIMS: frozenset = frozenset({
 })
 
 # Registered c10d ops that do not communicate (the reference leaves
-# ``axis_index`` out of its table the same way).
+# ``axis_index`` out of its table the same way). ``_wrap_tensor_autograd``
+# (it wraps a tensor as an ``AsyncCollectiveTensor``) registers when
+# ``torch.distributed._functional_collectives`` is imported, which
+# ``torch.testing.assert_close`` does.
 NON_COMMUNICATING: frozenset = frozenset({
     "c10d.check_for_nan", "_c10d_functional.wait_tensor",
+    "_c10d_functional._wrap_tensor_autograd",
 })
 
 # Neighbour-only communication: what a region-decomposed GS body may

@@ -1,5 +1,6 @@
 """Nested dict/list/tuple containers of tensors — the port's stand-in for
-``jax.tree``. Containers are rebuilt, leaves are passed to ``fn``."""
+``jax.tree``. Containers are rebuilt (a ``NamedTuple`` as its own type,
+field by field), leaves are passed to ``fn``."""
 from __future__ import annotations
 
 import torch
@@ -10,9 +11,16 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
-                          for i, t in enumerate(tree))
+        return _rebuild(tree, [tree_map(fn, t, *(r[i] for r in rest))
+                               for i, t in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def _rebuild(like, items: list):
+    """A list or tuple of ``like``'s type holding ``items``."""
+    if hasattr(like, "_fields"):                 # a NamedTuple
+        return type(like)(*items)
+    return type(like)(items)
 
 
 def leaves(tree) -> list:
@@ -33,7 +41,7 @@ def unflatten_like(tree, flat: list):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
+            return _rebuild(t, [build(x) for x in t])
         return next(it)
 
     return build(tree)

@@ -25,12 +25,10 @@ writes its final state and round records to ``--out`` (``torch.save``).
 
 With ``--telemetry-dir`` each rank writes its event log there (the
 trainer's and the monitor's events). Prints ``MULTIHOST-OK`` (rank 0)
-on success. Ranks that both finish leave the group together (a barrier,
-then ``bootstrap.shutdown``) and exit with ``os._exit(0)``: the
-interpreter's own teardown of torch's distributed state, after a
-sharded run with ``--ckpt-dir``, aborted a finished rank 1 (SIGABRT,
-"terminate called without an active exception") about once in twenty
-runs on a loaded CPU, after its results were written.
+on success. Ranks that both finish leave the group through
+``bootstrap.shutdown`` (a barrier, the destroy) and return normally; only
+the host-drop survivor exits with ``os._exit(0)``, as the reference's
+does.
 """
 import argparse
 import os
@@ -137,11 +135,7 @@ def main():
     assert ctx.num_processes == 2, ctx
     {"hostdrop": run_hostdrop, "resume": run_resume,
      "async": run_async}[args.mode](args, ctx)
-    torch.distributed.barrier()
     bootstrap.shutdown()
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
 
 
 if __name__ == "__main__":
