@@ -4,6 +4,10 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only "lm architectures serving path"
+
+(``--only`` runs the named phases of PHASES, comma-separated, and the
+phases they read, after the build; its last line also names them.)
 
 It
   1. prints the card's name and power limit (nvidia-smi);
@@ -61,16 +65,18 @@ It
      round 0, resumed by a new trainer for round 1, its record and state
      against the uninterrupted run (max abs differences printed); the
      recurrent-policy path with the overlapped GS collect: three rounds
-     serial, three with ``async_collect=True`` (bound 2, telemetry on:
-     the tags [0, 0, 1] and [True, False, False], the JSONL log valid,
+     with ``async_collect=True`` (bound 2, telemetry on: the tags
+     [0, 0, 1] and [True, False, False], the JSONL log valid,
      ``gru_forward`` launched by the collect worker on its own stream) and
-     two at bound 0, bit for bit the serial run's records; then the
+     two at bound 0, bit for bit the records of the recurrent-policy
+     path's serial run; then the
      sharded runtime's fault-tolerance half on the recurrent-policy path
      (``run_fault_path``, two ranks sharing cuda:0, re-invocations of
      this script as ``--fault-worker``): an uninterrupted run with
      distributed checkpoints (every step in the reference's per-slice
-     layout), step 2 restored onto one shard and run on (bit for bit the
-     loop driver's flat restore), a host drop at round 2 (the survivor's
+     layout; three rounds), step 2 restored onto one shard and run on
+     (bit for bit the loop driver's flat restore), a host drop at round 2
+     (the survivor's
      records and its final state bit for bit that one-shard resume, the
      event log through ``tools/telemetry_report.py --check``), a recovery
      around the external coordinator under a chaos spec (the survivor
@@ -82,7 +88,8 @@ It
      kernel path against the plain path on a small input (one round,
      warehouse side=2); then the paper's experiment harness
      (``benchmarks/torch_run.py``): the ``fig3_learning`` cell of
-     warehouse at the ``--fast`` sizes (DIALS, untrained-DIALS and GS
+     warehouse at the ``--fast`` widths, cut to 2 rounds of F=5 (DIALS,
+     untrained-DIALS and GS
      rows, the reference's keys, finite, the GAE forward launched and
      held to its plain version at the cell's shape, T=16 x B=32),
      ``table_memory`` with its states on the card (rows equal the
@@ -95,7 +102,7 @@ It
      graph whose replays (outputs fed back) must equal the eager calls
      bit for bit, eager and replay milliseconds printed (a refused
      capture of the collect or the eval is printed as a finding); the
-     synchronising calls of a steady round at F=2 and F=5 by source line,
+     synchronising calls of a steady round at F=1 and F=2 by source line,
      which must match, and no kernel build after round 0;
   5. drives the serving path of gemma2-9b at full width (bf16, random
      weights from a seed): the prefill step over a B=2 x T=8192 prompt
@@ -106,7 +113,16 @@ It
      (device busy share, device time by kernel, flash's share), each
      traced over 5 calls after a warm-up, the last 3 kept, every kept
      call's traced flash launches equal to the wrapper's count (42 a
-     prefill), or the phase fails;
+     prefill), or the phase fails; then the registry's other eight
+     architectures (granite-moe, zamba2, mamba2 and whisper-tiny at full
+     width and depth; dbrx, qwen1.5, yi and llama-3.2-vision at full
+     width, cut in depth to fit the card), bf16, each in turn: a B=2 x
+     T=4096 prefill (whisper: 448 over 1,500 stub frames) with the flash
+     kernel and without it, the last logits within LOGIT_TOL, each
+     self-attention block launching ``flash_fwd_sm90`` once and nothing
+     else launched, the MoE's dropped share and aux terms; then a greedy
+     decode at B=4, finite; init, prefill and decode times, parameter
+     counts and peak memory printed;
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
      (2, 8192, 1536) bf16 activations (one launch of ``ssd_chunk_sm90``)
      against ``use_kernel=False``, then times both warm (median of 7) and
@@ -115,9 +131,10 @@ It
   7. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Each path (each of 4's, 5, 6) runs with every launch count set to 0 just
-before it and read just after (the kernels line gives each kernel's
-launches by path); each phase prints its seconds. Any failed phase
+Each path (each of 4's, 5's, 6) runs with every launch count set to 0
+just before it and read just after (the kernels line gives each kernel's
+launches by path); each phase prints its seconds, and a line before the
+table all of them. Any failed phase
 exits non-zero without the last line. Without CUDA, or without the
 repository beside it, it exits non-zero at once.
 """
@@ -170,8 +187,9 @@ FNN_ROUNDS = 1
 GRU_POLICY_ROUNDS = 2
 GS_TRAIN_STEPS = 5
 ENV_STEPS = 32
-# the overlapped collect on the recurrent-policy path: serial, async
-# (bound 2) and async at bound 0 (the serial schedule)
+# the overlapped collect on the recurrent-policy path: async (bound 2) and
+# async at bound 0 (the serial schedule), against the serial run of
+# run_gru_policy_path
 ASYNC_ROUNDS = 3
 ASYNC_ZERO_ROUNDS = 2
 # The sharded path: the recurrent-policy warehouse path again through the
@@ -196,33 +214,38 @@ SHARDED_POLICY_REL = 0.5
 # The fault path (the sharded runtime's fault-tolerance half): the
 # recurrent-policy warehouse path at side=10 on two ranks sharing cuda:0,
 # FAULT_ROUNDS rounds a run: an uninterrupted run with checkpoints, the
-# restore of step 2 onto one shard, a host drop at the top of round
-# FAULT_KILL_ROUND, a recovery under FAULT_CHAOS (rank 1's writer SIGKILLed
-# once its step-2 slice is prepared, its main thread parked in the round-2
-# heartbeat) and the overlapped collect at bound 0 (FAULT_ZERO_ROUNDS) and
-# 2 (FAULT_ASYNC_ROUNDS). The gate declares a silent rank dead after
-# FAULT_BEAT_TIMEOUT_S; a collective with a stalled peer fails after the
-# group's timeout FAULT_GRACE_S; a worker run is killed at FAULT_TIMEOUT_S.
-FAULT_ROUNDS = 4
+# restore of step FAULT_KILL_ROUND onto one shard, a host drop at the top
+# of round FAULT_KILL_ROUND, a recovery under FAULT_CHAOS (rank 1's writer
+# SIGKILLed once its slice of step FAULT_KILL_ROUND is prepared, its main
+# thread parked in that round's heartbeat) and the overlapped collect at
+# bound 0 (FAULT_ZERO_ROUNDS, held to that step of the uninterrupted run)
+# and 2 (FAULT_ASYNC_ROUNDS). Each run holds two-rank rounds before the
+# kill and solo rounds after it. The gate declares a silent rank dead
+# after FAULT_BEAT_TIMEOUT_S; a collective with a stalled peer fails after
+# the group's timeout FAULT_GRACE_S; a worker run is killed at
+# FAULT_TIMEOUT_S.
+FAULT_ROUNDS = 3
 FAULT_KILL_ROUND = 2
 FAULT_ZERO_ROUNDS = 2
 FAULT_ASYNC_ROUNDS = 3
 FAULT_BEAT_TIMEOUT_S = 15.0
 FAULT_GRACE_S = 120.0
 FAULT_TIMEOUT_S = 600
-FAULT_CHAOS = "crash@2:host=1:phase=prepared,delay@2:host=1:delay_s=120"
+FAULT_CHAOS = (f"crash@{FAULT_KILL_ROUND}:host=1:phase=prepared,"
+               f"delay@{FAULT_KILL_ROUND}:host=1:delay_s=120")
 
 # The contracts phase (repro_torch.analysis): the recurrent-policy
 # warehouse and the traffic paths at side=10, kernels on. Four programs
-# each, with the CUDA-graph replays GraphCapturable runs (the inner step
-# F times, as a round runs it); the round's synchronising calls at two
-# values of F. A capture the ring collect or the GS eval refuses is a
+# each, with the CUDA-graph replays GraphCapturable runs (as many eager
+# calls, a capture, as many replays, bit for bit); the round's
+# synchronising calls at two values of F, the least that show a count
+# growing with F. A capture the ring collect or the GS eval refuses is a
 # finding (ROADMAP queue 3), not a failure; every other rule fails the run.
 CONTRACT_PATHS = (("warehouse", "gru"), ("traffic", "fnn"))
-CONTRACT_REPLAYS = {"ring_collect": 2, "aip_round": 3,
-                    "ials_train": AIP_REFRESH, "gs_eval": 2}
+CONTRACT_REPLAYS = {"ring_collect": 1, "aip_round": 2, "ials_train": 2,
+                    "gs_eval": 2}
 MAY_REFUSE_CAPTURE = ("ring_collect", "gs_eval")
-SYNC_REFRESH = (2, 5)
+SYNC_REFRESH = (1, 2)
 
 # The serving slice: gemma2-9b at full width (src/repro/configs/gemma2_9b.py),
 # prompt B=2 x T=8192 (prefill_32k cut from B=32 x 32768), greedy decode of
@@ -240,6 +263,30 @@ MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
 ZAMBA2 = dict(heads=64, state=64)
 SSM_INPUT = (2, 8192)
 SSM_TIMED = 7
+
+# The registry's other eight architectures served (their reference
+# configs, src/repro/configs/): bf16, weights drawn on the card from a
+# seed, full width. granite-moe, zamba2, mamba2 and whisper at full depth;
+# the four whose weights one 80 GB card cannot hold cut to LM_DEPTH_CUT
+# layers (llama-vision: one period of four self + one cross block).
+# Prefill B=2 x T=4096 (whisper's decoder: its target length 448, over
+# the stub encoder's 1,500 frames) with the flash kernel and without;
+# greedy decode of LM_DECODE_NEW tokens at B=4 after LM_DECODE_PROMPT.
+LM_ARCHS = ("granite-moe-1b-a400m", "zamba2-1.2b", "mamba2-780m",
+            "whisper-tiny", "dbrx-132b", "qwen1.5-32b", "yi-34b",
+            "llama-3.2-vision-90b")
+LM_DEPTH_CUT = {"dbrx-132b": 2, "qwen1.5-32b": 8, "yi-34b": 8,
+                "llama-3.2-vision-90b": 5}
+# flash launches a prefill: one a self-attention block (zamba2: one a
+# shared application, 19; whisper: its decoder's 4, none in the encoder;
+# llama-vision: 4 a period; mamba2 none)
+LM_FLASH_LAUNCHES = {"granite-moe-1b-a400m": 24, "zamba2-1.2b": 19,
+                     "mamba2-780m": 0, "whisper-tiny": 4, "dbrx-132b": 2,
+                     "qwen1.5-32b": 8, "yi-34b": 8,
+                     "llama-3.2-vision-90b": 4}
+LM_PROMPT = (2, 4096)
+WHISPER_TARGET = 448
+LM_DECODE_BATCH, LM_DECODE_PROMPT, LM_DECODE_NEW = 4, 8, 8
 
 
 class PhaseError(RuntimeError):
@@ -685,6 +732,68 @@ def check_flash(gen, device):
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=bound,
                 library_ms=lib_ms, library=lib_name if lib_ms is not None
                 else None)
+
+
+def check_flash_at_lm_shapes(gen, device):
+    """The tensor-core flash kernel at the shapes the ``lm architectures
+    serving path`` gives it (one per architecture with self-attention:
+    B=2 rows of LM_PROMPT, whisper's decoder at WHISPER_TARGET; causal, no
+    window or softcap), bf16, q scaled by FLASH_Q_SCALE, held to the plain
+    version in float32 on the same inputs (FLASH_TOL); kernel, plain and
+    ``scaled_dot_product_attention`` (causal, GQA: the same function here)
+    times with CUDA events, and the bound. Returns {arch: numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.launch import steps
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = steps.model_cfg(registry.get(arch))
+        attn = next((ls.attn for ls in cfg.period + (cfg.shared,)
+                     if ls is not None and ls.mixer == "attn"), None)
+        if attn is None:
+            continue
+        b, t = LM_PROMPT
+        if arch == "whisper-tiny":
+            t = WHISPER_TARGET
+        h, hkv, d = attn.num_heads, attn.num_kv_heads, attn.dh
+        rnd = lambda n: torch.randn(b * n, t, d, generator=gen,
+                                    device=device).bfloat16()
+        q, k, v = rnd(h) * FLASH_Q_SCALE, rnd(hkv), rnd(hkv)
+        got = launched(fk.LAUNCHES, "flash_fwd_sm90",
+                       lambda: fk.forward(q, k, v, causal=True))
+        want = torch.cat([fr.attention_bhsd(
+            q[i * h:(i + 1) * h].float(), k[i * hkv:(i + 1) * hkv].float(),
+            v[i * hkv:(i + 1) * hkv].float(), causal=True)
+            for i in range(b)])
+        err = allclose_rel(f"flash bf16 at {arch}'s shape", got, want,
+                           *FLASH_TOL["bfloat16"])
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fk.forward(q, k, v, causal=True), 5)
+        plain_ms = cuda_ms(lambda: torch.cat([fr.attention_bhsd(
+            q[i * h:(i + 1) * h], k[i * hkv:(i + 1) * hkv],
+            v[i * hkv:(i + 1) * hkv], causal=True) for i in range(b)]), 1)
+        qb, kb, vb = (x.view(b, -1, t, d) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True, enable_gqa=True), 5)
+        flop = 4.0 * d * b * h * live_pairs(t, None)
+        nbytes = 2.0 * (2 * b * h * t * d + 2 * b * hkv * t * d)
+        bound = bound_ms(nbytes, flop, PEAK_BF16_PER_S)
+        out[arch] = {"shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": lib_ms,
+                     "library": "scaled_dot_product_attention (causal, GQA)"}
+        print(f"flash bf16 at {arch}'s prefill shape q {tuple(q.shape)}, "
+              f"k/v {tuple(k.shape)}: {ms:.4f} ms ({flop / ms / 1e9:.2f} "
+              f"TFLOP/s, {bound[0] / ms:.4f} of the bound {bound[0]:.4f} ms "
+              f"by {bound[1]}), plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms; max abs err {err:.3e}", flush=True)
+        del q, k, v, qb, kb, vb
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_library_ms(q, k, v, b, cases):
@@ -1138,15 +1247,18 @@ def run_gru_policy_path(device):
     128), gru_hidden 128) and the GRU AIP at the library defaults,
     GRU_POLICY_ROUNDS rounds: the GRU kernels at hidden 128 in the
     rollout cell and in ppo_loss. Returns (counts, by shape, the final
-    state and the history) for the resume check."""
+    state and the history, for the resume and sharded checks, and the
+    ``gru_forward`` launches by stream, for the async path's)."""
     from repro_torch import random as R
     from repro_torch.marl.ppo import PPOConfig
     trainer = make_trainer("warehouse", SIDE, device=device,
                            use_kernels="on", rounds=GRU_POLICY_ROUNDS,
                            refresh=AIP_REFRESH, policy_kind="gru")
+    from repro_torch.kernels.gru import kernel as gk
     state, history, counts, by_shape = drive_dials(
         "gru-policy path", trainer, R.key(0, device=device),
         GRU_POLICY_ROUNDS, "policy=cuda,aip=cuda,ppo=cuda")
+    streams = dict(gk.STREAM_LAUNCHES["gru_forward"])
     n_agents = trainer.info.n_agents
     wh = tuple(state["ials"]["params"]["gru"]["wh"].shape)
     check(wh == (n_agents, 128, 384),
@@ -1165,7 +1277,7 @@ def run_gru_policy_path(device):
                   f"gru-policy path never launched {name} at {key}")
     check(counts["gae_forward"] > 0, "gru-policy path never launched "
                                      "gae_forward")
-    return counts, by_shape, state, history
+    return counts, by_shape, state, history, streams
 
 
 # ---------------------------------------------------------------------------
@@ -1528,17 +1640,19 @@ def run_resume_path(device, straight):
     return counts, by_shape
 
 
-def run_async_path(device, smi):
+def run_async_path(device, smi, serial, serial_streams):
     """The recurrent-policy warehouse path (side=10, ``use_kernels="on"``,
-    F=AIP_REFRESH) ASYNC_ROUNDS rounds serial, then ASYNC_ROUNDS rounds
-    with the overlapped collect (``async_collect=True``,
-    ``max_aip_staleness=2``, ``telemetry_dir`` under build/), then
-    ASYNC_ZERO_ROUNDS rounds at ``max_aip_staleness=0``. Checks the tags
-    (``data_round`` [0, 0, 1], ``forced_sync`` [True, False, False]), the
-    telemetry log (every round record valid, rounds monotone, the
-    run_start/collect_obtain/round/run_end events), ``gru_forward``
-    launched by the collect worker on a stream other than the driver's,
-    and the staleness-0 records bit for bit the serial run's."""
+    F=AIP_REFRESH) ASYNC_ROUNDS rounds with the overlapped collect
+    (``async_collect=True``, ``max_aip_staleness=2``, ``telemetry_dir``
+    under build/), then ASYNC_ZERO_ROUNDS rounds at
+    ``max_aip_staleness=0``, against the serial run of the same path
+    (``run_gru_policy_path``'s records ``serial`` and its ``gru_forward``
+    launches by stream). Checks the tags (``data_round`` [0, 0, 1],
+    ``forced_sync`` [True, False, False]), the telemetry log (every round
+    record valid, rounds monotone, the run_start/collect_obtain/round/
+    run_end events), ``gru_forward`` launched by the collect worker on a
+    stream other than the driver's and by the serial run on the driver's
+    alone, and the staleness-0 records bit for bit the serial run's."""
     import shutil
     import torch
     from repro_torch import random as R
@@ -1548,9 +1662,10 @@ def run_async_path(device, smi):
     tel_dir = os.path.join(ROOT, "build", "chip_smoke_telemetry")
     shutil.rmtree(tel_dir, ignore_errors=True)
     driver = torch.cuda.current_stream(device).cuda_stream
-    runs, counts = {}, None
+    check(ASYNC_ZERO_ROUNDS <= len(serial), "async: the serial run is "
+                                            "shorter than the bound-0 run")
+    runs, counts = {"serial": (serial, serial_streams)}, None
     for label, rounds, kw in (
-            ("serial", ASYNC_ROUNDS, {}),
             ("async", ASYNC_ROUNDS, dict(async_collect=True,
                                          max_aip_staleness=2,
                                          telemetry_dir=tel_dir)),
@@ -1923,22 +2038,24 @@ def run_fault_path(device, smi):
     1. an uninterrupted run of FAULT_ROUNDS rounds with ``ckpt_dir``:
        every step in the reference's layout (one slice per rank,
        ``replicated/``, a verifying COMMIT);
-    2. in this process, step 2 restored into a one-shard runner (two
-       slices onto one shard, a ``restore_reshard`` event) and run on for
-       rounds 2..; the loop driver's flat-manager restore of the same
-       step bit for bit the one-shard restore;
-    3. a host drop: rank 1 SIGKILLed at the top of round 2, the survivor
-       reassigned (records n_shards [2, 2, 1, 1], dead_hosts [1],
-       reassigned 1) and bit for bit (2)'s final state; the merged event
-       log passing ``tools/telemetry_report.py --check`` with its
-       ``host_death`` and ``elastic_reassign``;
+    2. in this process, step K = FAULT_KILL_ROUND restored into a
+       one-shard runner (two slices onto one shard, a ``restore_reshard``
+       event) and run on for rounds K..; the loop driver's flat-manager
+       restore of the same step bit for bit the one-shard restore;
+    3. a host drop: rank 1 SIGKILLed at the top of round K, the survivor
+       reassigned (records n_shards 2 before round K and 1 from it,
+       dead_hosts [1] and reassigned 1 at round K alone) and bit for bit
+       (2)'s final state; the merged event log passing
+       ``tools/telemetry_report.py --check`` with its ``host_death`` and
+       ``elastic_reassign``;
     4. a recovery around the external coordinator under the chaos spec
        FAULT_CHAOS: rank 1 SIGKILLed (-9), the survivor re-executed as
-       generation 1, resuming rounds [2, 3] solo, bit for bit (2)'s final
+       generation 1, resuming rounds K.. solo, bit for bit (2)'s final
        state, within the two-rank tolerances of (1), the merged log
        passing ``--check --expect-recovery``;
     5. the sharded overlapped collect: bound 0 bit for bit (1)'s records
-       and state over the same rounds, bound 2 tags [0, 0, 1].
+       and its step FAULT_ZERO_ROUNDS state over the same rounds, bound 2
+       tags [0, 0, 1].
 
     Prints each rank's round_s and mirror_s, the saves' prepare and
     commit seconds, the restore seconds, the gate's wait until the death
@@ -1950,6 +2067,10 @@ def run_fault_path(device, smi):
     from repro_torch import random as R
     from repro_torch.checkpoint import distributed as dckpt
     from repro_torch.obs import sinks
+    kill = FAULT_KILL_ROUND
+    check(0 < kill < FAULT_ROUNDS and 0 < FAULT_ZERO_ROUNDS <= FAULT_ROUNDS,
+          f"fault path: kill round {kill} and bound-0 rounds "
+          f"{FAULT_ZERO_ROUNDS} must fall inside a run of {FAULT_ROUNDS}")
     base = os.path.join(ROOT, "build", "chip_smoke_fault")
     shutil.rmtree(base, ignore_errors=True)
     total = {}
@@ -1998,11 +2119,12 @@ def run_fault_path(device, smi):
               f"fault (1) step {s}: COMMIT does not verify: {meta}")
     straight_parts = ranks[0]["parts"]
 
-    # (2) restore step 2: one shard in this process, and the loop driver
+    # (2) restore step K (one the run saved): one shard in this process,
+    # and the loop driver
     d2 = os.path.join(base, "one_shard")
     os.makedirs(os.path.join(d2, "ckpt"))
-    shutil.copytree(os.path.join(ck1, "step_2"),
-                    os.path.join(d2, "ckpt", "step_2"))
+    shutil.copytree(os.path.join(ck1, f"step_{kill}"),
+                    os.path.join(d2, "ckpt", f"step_{kill}"))
     key = R.key(0, device=device)
     one = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
                        rounds=FAULT_ROUNDS, refresh=AIP_REFRESH,
@@ -2020,7 +2142,7 @@ def run_fault_path(device, smi):
     flat = loop.restore_or_init(key)
     torch.cuda.synchronize()
     restore_flat_s = time.perf_counter() - t0
-    check(restored["round"] == flat["round"] == 2,
+    check(restored["round"] == flat["round"] == kill,
           f"fault (2): restored rounds {restored['round']}, {flat['round']}")
     check(_same(_fault_leaves(restored), _fault_leaves(flat)) and
           torch.equal(restored["key"], flat["key"]),
@@ -2034,7 +2156,7 @@ def run_fault_path(device, smi):
     counts = launch_counts()
     _fault_kernels("fault (2) one shard", counts)
     add(counts)
-    check([x["round"] for x in history] == list(range(2, FAULT_ROUNDS)),
+    check([x["round"] for x in history] == list(range(kill, FAULT_ROUNDS)),
           f"fault (2): rounds {[x['round'] for x in history]}")
     reshard = [e for e in sinks.read_jsonl(sinks.proc_path(
         os.path.join(d2, "tel"), 0)) if e["event"] == "restore_reshard"]
@@ -2042,7 +2164,7 @@ def run_fault_path(device, smi):
                              reshard[0]["new_shards"]) == (2, 1),
           f"fault (2): restore_reshard events {reshard}")
     ref_state = _fault_leaves(state)
-    print(f"fault (2) restore of step 2 on {smi}: one shard "
+    print(f"fault (2) restore of step {kill} on {smi}: one shard "
           f"{restore_one_s:.4f} s, loop driver (flat manager) "
           f"{restore_flat_s:.4f} s; one-shard round_s {round_s(history)}; "
           f"launches {counts}", flush=True)
@@ -2069,15 +2191,17 @@ def run_fault_path(device, smi):
           f"{out['counts']}", flush=True)
     _fault_kernels("fault (3) survivor", out["counts"])
     add(out["counts"])
-    check([x["n_shards"] for x in hist] == [2, 2, 1, 1],
+    after = FAULT_ROUNDS - kill - 1
+    check([x["n_shards"] for x in hist] == [2] * kill + [1] * (after + 1),
           f"fault (3): n_shards {[x['n_shards'] for x in hist]}")
-    check([x["dead_hosts"] for x in hist] == [[], [], [1], []],
+    check([x["dead_hosts"] for x in hist] == [[]] * kill + [[1]]
+          + [[]] * after,
           f"fault (3): dead_hosts {[x['dead_hosts'] for x in hist]}")
-    check([x["reassigned"] for x in hist] == [0, 0, 1, 0],
+    check([x["reassigned"] for x in hist] == [0] * kill + [1] + [0] * after,
           f"fault (3): reassigned {[x['reassigned'] for x in hist]}")
     check(_same(out["state"], ref_state),
-          "fault (3): the survivor's final state is not bit for bit the "
-          "one-shard resume from step 2")
+          f"fault (3): the survivor's final state is not bit for bit the "
+          f"one-shard resume from step {kill}")
     _telemetry_report(os.path.join(d3, "tel"))
     events = _fault_events(os.path.join(d3, "tel"))
     for r in range(2):
@@ -2126,13 +2250,13 @@ def run_fault_path(device, smi):
     hist = out["history"]
     check((out["gen"], out["world"]) == (1, 1),
           f"fault (4): generation {out['gen']}, world {out['world']}")
-    check([x["round"] for x in hist] == list(range(2, FAULT_ROUNDS)),
+    check([x["round"] for x in hist] == list(range(kill, FAULT_ROUNDS)),
           f"fault (4): resumed rounds {[x['round'] for x in hist]}")
     _fault_kernels("fault (4) survivor", out["counts"])
     add(out["counts"])
     check(_same(out["state"], ref_state),
-          "fault (4): the survivor's final state is not bit for bit the "
-          "one-shard resume from step 2")
+          f"fault (4): the survivor's final state is not bit for bit the "
+          f"one-shard resume from step {kill}")
     from repro_torch.tree import leaves
     init = make_trainer("warehouse", SIDE, device=device, use_kernels="on",
                         rounds=1, refresh=AIP_REFRESH, policy_kind="gru")
@@ -2155,7 +2279,7 @@ def run_fault_path(device, smi):
     t_death = first_t("host_death")
     t_boot = first_t("rebootstrap")
     t_start = [e["t"] for e in events if e["event"] == "run_start"][-1]
-    t_round = first_t("round", round=2)
+    t_round = first_t("round", round=kill)
     print(f"fault (4) recovery on {smi}: SIGKILL to death declared "
           f"{t_death - t_kill:.3f} s, to the re-executed bootstrap "
           f"{t_boot - t_kill:.3f} s, to the resumed run_start "
@@ -2169,7 +2293,7 @@ def run_fault_path(device, smi):
     keys = ("gs_return", "aip_ce_before", "aip_ce_after", "ials_reward",
             "data_round", "stale_forced", "staleness_min", "staleness_mean",
             "staleness_max", "n_shards")
-    step2, _ = _restore_full(device, ck1, 2)
+    zero_step, _ = _restore_full(device, ck1, FAULT_ZERO_ROUNDS)
     for out in ranks:
         r, runs = out["rank"], out["async"]
         zero, lag = runs["bound0"]["history"], runs["bound2"]["history"]
@@ -2191,8 +2315,9 @@ def run_fault_path(device, smi):
               [x["forced_sync"] for x in lag] == [True, False, False],
               f"fault (5) rank {r}: bound-2 tags "
               f"{[x['data_round'] for x in lag]}")
-    check(_same(ranks[0]["async"]["bound0"]["state"], step2),
-          "fault (5): the bound-0 state is not bit for bit (1)'s step 2")
+    check(_same(ranks[0]["async"]["bound0"]["state"], zero_step),
+          f"fault (5): the bound-0 state is not bit for bit (1)'s step "
+          f"{FAULT_ZERO_ROUNDS}")
     for k in ("gru_forward", "gru_backward", "gae_forward"):
         check(total.get(k, 0) > 0, f"fault path never launched {k}")
     return total, {}
@@ -2331,8 +2456,9 @@ def run_contracts_path(device, smi):
 # ---------------------------------------------------------------------------
 # the paper's experiment harness (benchmarks/torch_run.py)
 # ---------------------------------------------------------------------------
-# torch_run.py's --fast fig3_learning sizes (benchmarks/run.py:78-79)
-HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 3, 10
+# torch_run.py's --fast fig3_learning cell (3 rounds of F=10,
+# benchmarks/run.py:78-79) cut in depth to 2 rounds of F=5
+HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 2, 5
 HARNESS_DIALS_KEYS = {"label", "final_gs_return", "best_gs_return",
                       "aip_ce_final", "wall_s"}
 
@@ -2350,7 +2476,7 @@ def _quiet_bench(fn, *args, **kw):
 def run_harness_path(device):
     """The paper's experiment harness on the card (``benchmarks/
     torch_run.py``): ``fig3_env_rows`` for warehouse at the ``--fast``
-    sizes (HARNESS_ROUNDS rounds of F=HARNESS_INNER, the reference's
+    widths (HARNESS_ROUNDS rounds of F=HARNESS_INNER, the reference's
     widths: an FNN AIP and policy, so the GAE forward is the kernel this
     path launches), kernels on, its DIALS, untrained-DIALS and GS rows
     checked for the reference's keys and finite values; ``table_memory``
@@ -2578,6 +2704,229 @@ def profile_serving(run_prefill, run_serve_step):
             print(f"  {ms:10.3f} ms {n:6.0f}x  {kname}", flush=True)
 
 
+def with_model_cfg(spec, **kw):
+    """``spec`` with its model config's fields ``kw`` replaced (an
+    enc-dec's decoder config)."""
+    import dataclasses
+    if spec.kind == "encdec":
+        return dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, decoder=dataclasses.replace(spec.cfg.decoder, **kw)))
+    return dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, **kw))
+
+
+class RouteLog:
+    """The MoE routes of a run, in call order: every result of
+    ``repro_torch.nn.moe.route_groups`` while :meth:`record` is open. A
+    second run under :meth:`replay` takes those routes in place of its
+    own: bf16 rounding that differs between two prefills can flip a top-k
+    choice on a near tie, and the flash-against-plain comparison is of
+    the attention kernel's numerics, not of such a flip. ``replay`` counts
+    the (token, layer) expert sets its own routing would have changed."""
+
+    def __init__(self):
+        self.routes, self.flips, self.choices = [], 0, 0
+
+    def _patched(self, fn):
+        import contextlib
+        from repro_torch.nn import moe
+
+        @contextlib.contextmanager
+        def ctx():
+            real = moe.route_groups
+            moe.route_groups = lambda p, x, cfg: fn(real, p, x, cfg)
+            try:
+                yield self
+            finally:
+                moe.route_groups = real
+        return ctx()
+
+    def record(self):
+        def rec(real, p, x, cfg):
+            out = real(p, x, cfg)
+            self.routes.append(out)
+            return out
+        return self._patched(rec)
+
+    def replay(self):
+        it = iter(self.routes)
+
+        def rep(real, p, x, cfg):
+            own, out = real(p, x, cfg)[1], next(it)
+            self.flips += int((own.sort(-1).values
+                               != out[1].sort(-1).values).any(-1).sum())
+            self.choices += own.shape[0] * own.shape[1]
+            return out
+        return self._patched(rep)
+
+    def dropped_share(self) -> float:
+        """The share of (token, k) pairs the recorded routes dropped."""
+        kept = sum(float(r[3].sum()) for r in self.routes)
+        return 1.0 - kept / sum(r[3].numel() for r in self.routes)
+
+    def aux(self) -> dict:
+        """The aux terms summed over the recorded MoE layers."""
+        return {name: sum(float(r[5][name]) for r in self.routes)
+                for name in ("load_balance", "z_loss")}
+
+
+def _lm_batch(spec, b, t, gen, device):
+    """Tokens and the stub frontend's input (frames or patches), drawn
+    from ``gen`` on the card."""
+    import torch
+    cfg = spec.cfg.decoder if spec.kind == "encdec" else spec.cfg
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                                     device=device)}
+    if spec.kind == "encdec":
+        batch["frames"] = torch.randn(b, spec.n_frames, spec.cfg.d_model,
+                                      generator=gen, device=device
+                                      ).to(spec.cfg.dtype)
+    elif spec.kind == "vlm":
+        batch["patches"] = torch.randn(b, spec.n_patches, spec.vision_dim,
+                                       generator=gen, device=device
+                                       ).to(spec.cfg.dtype)
+    return batch
+
+
+def serve_arch(arch, device, smi):
+    """One architecture of ``run_lm_archs_path``; returns its flash
+    launches."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    spec = registry.get(arch)
+    full = steps.model_cfg(spec).n_layers
+    if arch in LM_DEPTH_CUT:
+        spec = with_model_cfg(spec, n_layers=LM_DEPTH_CUT[arch])
+    cfg = steps.model_cfg(spec)
+    flash = with_model_cfg(spec, use_flash=True)
+    plain = with_model_cfg(spec, use_flash=False)
+    want = sum(ls.mixer == "attn" for ls in cfg.period) * cfg.repeats \
+        + (cfg.repeats if cfg.shared is not None else 0)
+    check(want == LM_FLASH_LAUNCHES[arch],
+          f"{arch}: {want} self-attention blocks a prefill, not "
+          f"{LM_FLASH_LAUNCHES[arch]}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.init_params(flash, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.param_count(params)
+    print(f"lm {arch} on {smi}: {cfg.n_layers} of {full} layers"
+          f"{' (depth cut)' if cfg.n_layers < full else ''}, init "
+          f"{init_s:.3f} s, param_count {n_params}, active_param_count "
+          f"{api.active_param_count(params, spec)}, param_bytes "
+          f"{api.param_bytes(params)}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(1)
+    b, t = LM_PROMPT
+    if spec.kind == "encdec":
+        t = WHISPER_TARGET
+    batch = _lm_batch(spec, b, t, gen, device)
+    for warm in (flash, plain):    # untimed: first-use costs of each path
+        steps.make_prefill_step(warm)(params, batch)
+    torch.cuda.synchronize()
+    routes = RouteLog()
+    reset_counts()
+    t0 = time.perf_counter()
+    with routes.record():
+        logits_k = steps.make_prefill_step(flash)(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    with routes.replay():
+        logits_p = steps.make_prefill_step(plain)(params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(launch_counts() == counts, f"{arch}: the plain prefill launched "
+                                     f"a kernel")
+    check(counts["flash_attention"] == want
+          and counts["flash_fwd_sm90"] == want and counts["flash_fwd"] == 0,
+          f"{arch}: prefill launched flash {counts['flash_attention']} times "
+          f"({counts['flash_fwd_sm90']} tensor-core, {counts['flash_fwd']} "
+          f"FFMA), not {want} (all bf16: all tensor-core)")
+    check(all(v == 0 for k, v in counts.items()
+              if not k.startswith("flash")),
+          f"{arch}: the prefill launched another kernel: {counts}")
+    check(tuple(logits_k.shape) == (b, 1, cfg.vocab),
+          f"{arch}: prefill logits of shape {tuple(logits_k.shape)}")
+    err = allclose_err([(f"{arch} prefill last logits, flash vs plain",
+                         logits_k, logits_p)], LOGIT_TOL)
+    agree = int((logits_k.argmax(-1) == logits_p.argmax(-1)).sum())
+    moe = ""
+    if routes.routes:
+        aux = routes.aux()
+        check(all(math.isfinite(v) for v in aux.values()),
+              f"{arch}: non-finite MoE aux terms {aux}")
+        moe = (f"; MoE: {len(routes.routes)} layers, dropped (token, k) "
+               f"share {routes.dropped_share():.6f}, aux {aux}, routes the "
+               f"plain prefill would have changed {routes.flips} of "
+               f"{routes.choices} (replayed)")
+    print(f"lm {arch} on {smi}: prefill B={b} T={t} {prefill_s:.3f} s with "
+          f"the flash kernel ({counts['flash_attention']} launches), "
+          f"{plain_s:.3f} s plain; last logits max abs diff {err:.4e} (max "
+          f"|logit| {float(logits_p.abs().max()):.4f}), argmax agrees "
+          f"{agree}/{b}{moe}", flush=True)
+    del logits_k, logits_p, batch
+
+    serve = steps.make_serve_step(flash)
+    binp = _lm_batch(spec, LM_DECODE_BATCH, LM_DECODE_PROMPT, gen, device)
+    prompt = binp.pop("tokens")
+    max_len = LM_DECODE_PROMPT + LM_DECODE_NEW
+    with torch.inference_mode():
+        caches = api.init_caches(params, flash, LM_DECODE_BATCH, max_len,
+                                 batch_inputs=binp)
+    finite, out = [], []
+    for i in range(LM_DECODE_PROMPT):
+        logits, caches = serve(params, prompt[:, i:i + 1], caches, i)
+        finite.append(torch.isfinite(logits).all())
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE_PROMPT, max_len):
+        logits, caches = serve(params, tok, caches, i)
+        finite.append(torch.isfinite(logits).all())
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (LM_DECODE_BATCH, 1, cfg.vocab),
+          f"{arch}: decode logits of shape {tuple(logits.shape)}")
+    check(bool(torch.stack(finite).all()), f"{arch}: non-finite decode "
+                                           f"logits")
+    check(tuple(torch.cat(out, 1).shape) == (LM_DECODE_BATCH, LM_DECODE_NEW),
+          f"{arch}: decode produced {tuple(torch.cat(out, 1).shape)}")
+    print(f"lm {arch} on {smi}: decode B={LM_DECODE_BATCH}, "
+          f"{LM_DECODE_NEW} steps after a {LM_DECODE_PROMPT}-token prompt "
+          f"in {decode_s:.3f} s ({LM_DECODE_BATCH * LM_DECODE_NEW / decode_s:.3f}"
+          f" tok/s); peak memory {torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_lm_archs_path(device, smi):
+    """The registry's other eight architectures (LM_ARCHS) served on the
+    card, each in turn and freed before the next: the prefill step with
+    the flash kernel and without it, each timed after an untimed call
+    (their last-position logits within
+    LOGIT_TOL times max(1, max |logit|); the plain run replays the flash
+    run's MoE routes, see ``RouteLog``), each self-attention block
+    launching ``flash_fwd_sm90`` once (LM_FLASH_LAUNCHES) and nothing
+    else launched (no SSD kernel on any model path), then a greedy decode
+    through ``make_serve_step`` (finite logits of the right shape).
+    Returns the launch counts of the flash prefills."""
+    total = {}
+    for arch in LM_ARCHS:
+        for k, n in serve_arch(arch, device, smi).items():
+            total[k] = total.get(k, 0) + n
+    check(total["flash_attention"] == sum(LM_FLASH_LAUNCHES.values()),
+          f"lm architectures: {total['flash_attention']} flash launches")
+    return total
+
+
 def run_ssm_path(device):
     """``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
     (2, 8192, 1536) bf16 activations, against ``use_kernel=False``: the
@@ -2673,6 +3022,37 @@ def check_small_against_plain(device):
           "small input: non-finite record")
 
 
+PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
+          "ssd kernel vs plain", "dials main path",
+          "dials warehouse gru-policy path", "dials sharded path",
+          "dials traffic path", "envs on the card",
+          "checkpoint resume on the card", "dials async collect path",
+          "dials fault path", "dials small input vs plain",
+          "experiment harness", "gae kernel vs plain at the harness shape",
+          "contracts path", "gemma2-9b serving path",
+          "lm architectures serving path", "mamba2 ssm layer path")
+# phases that read an earlier phase's results
+NEEDS = {"dials sharded path": "dials warehouse gru-policy path",
+         "checkpoint resume on the card": "dials warehouse gru-policy path",
+         "dials async collect path": "dials warehouse gru-policy path",
+         "gae kernel vs plain at the harness shape":
+             "gru/gae kernels vs plain"}
+
+
+def selected(argv):
+    """The phases to run: all of PHASES, or those ``--only a,b`` names
+    (with the phases they read); the build and the kernel resources
+    always run."""
+    if "--only" not in argv:
+        return set(PHASES)
+    names = set(argv[argv.index("--only") + 1].split(","))
+    unknown = names - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; "
+                         f"choose from {list(PHASES)}")
+    return names | {NEEDS[n] for n in names if n in NEEDS}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -2690,6 +3070,7 @@ def main(argv=None) -> int:
         return 2
     if "--fault-worker" in argv:
         return fault_worker(argv)
+    run = selected(argv)
     sys.path.insert(0, src)
     # the entry points' device rule, which also sets the reference's matmul
     # numerics for the plain versions timed below
@@ -2732,11 +3113,19 @@ def main(argv=None) -> int:
                   "gru_h128": [(n_agents, 16, 4, 128), (n_agents, 1, 16, 128),
                                (n_agents, 1, 8, 128), (1, 16, 64, 128),
                                (1, 128, 256, 128)]}
-        rows = phase("gru/gae kernels vs plain", lambda: check_gru(
-            gen, device, shapes) + check_gae(
-            gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam))
-        rows.append(phase("flash kernel vs plain", check_flash, gen, device))
-        rows.append(phase("ssd kernel vs plain", check_ssd, gen, device))
+        rows = []
+        if "gru/gae kernels vs plain" in run:
+            rows += phase("gru/gae kernels vs plain", lambda: check_gru(
+                gen, device, shapes) + check_gae(
+                gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam))
+        if "flash kernel vs plain" in run:
+            rows.append(phase("flash kernel vs plain", check_flash, gen,
+                              device))
+            rows[-1]["at_lm_shapes"] = phase(
+                "flash kernel vs plain at the lm shapes",
+                check_flash_at_lm_shapes, gen, device)
+        if "ssd kernel vs plain" in run:
+            rows.append(phase("ssd kernel vs plain", check_ssd, gen, device))
         for row in rows:
             print(f"kernel {row['name']}: max abs err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
@@ -2746,46 +3135,70 @@ def main(argv=None) -> int:
 
         # each path runs with every count set to 0 just before it and
         # read just after: path -> (counts, GRU counts by shape)
-        paths = {"dials warehouse fnn-policy": phase(
-            "dials main path", run_main_path, device)}
-        *gru_path, state, history = phase(
-            "dials warehouse gru-policy path", run_gru_policy_path, device)
-        paths["dials warehouse gru-policy"] = tuple(gru_path)
-        *one_shard, rank_counts = phase(
-            "dials sharded path", run_sharded_path, device, smi, history,
-            state)
-        paths["dials sharded (1 shard, in process)"] = tuple(one_shard)
-        paths[f"dials sharded ({SHARDED_RANKS} ranks)"] = (
-            {k: sum(c.get(k, 0) for c in rank_counts)
-             for k in rank_counts[0]}, {})
-        paths["dials traffic"] = phase("dials traffic path",
-                                       run_traffic_path, device)
-        paths["envs"] = phase("envs on the card", run_envs_on_card, device)
-        paths["checkpoint resume"] = phase(
-            "checkpoint resume on the card", run_resume_path, device,
-            (state, history))
-        del state, history
-        paths["dials async collect"] = phase(
-            "dials async collect path", run_async_path, device, smi)
-        paths["dials fault path (two ranks on cuda:0)"] = phase(
-            "dials fault path", run_fault_path, device, smi)
-        phase("dials small input vs plain", check_small_against_plain,
-              device)
-        paths["experiment harness (fig3 warehouse cell)"] = (phase(
-            "experiment harness", run_harness_path, device), {})
-        # the GAE forward at the harness's shape: T=16, B=N*E=4*8
-        next(r for r in rows if r["name"] == "gae_forward")[
-            "at_harness_shape"] = phase(
-                "gae kernel vs plain at the harness shape",
-                check_gae_forward_at, gen, device, 16, 4 * 8, ppo_cfg.gamma,
-                ppo_cfg.lam)
-        paths["contracts (walker, eager and capture calls; graph replays "
-              "uncounted)"] = phase("contracts path", run_contracts_path,
-                                    device, smi)
-        paths["gemma2-9b serving"] = (phase(
-            "gemma2-9b serving path", run_serving_path, device), {})
-        paths["mamba2 ssm layer"] = (phase(
-            "mamba2 ssm layer path", run_ssm_path, device), {})
+        paths = {}
+        if "dials main path" in run:
+            paths["dials warehouse fnn-policy"] = phase(
+                "dials main path", run_main_path, device)
+        if "dials warehouse gru-policy path" in run:
+            *gru_path, state, history, streams = phase(
+                "dials warehouse gru-policy path", run_gru_policy_path,
+                device)
+            paths["dials warehouse gru-policy"] = tuple(gru_path)
+        if "dials sharded path" in run:
+            *one_shard, rank_counts = phase(
+                "dials sharded path", run_sharded_path, device, smi,
+                history, state)
+            paths["dials sharded (1 shard, in process)"] = tuple(one_shard)
+            paths[f"dials sharded ({SHARDED_RANKS} ranks)"] = (
+                {k: sum(c.get(k, 0) for c in rank_counts)
+                 for k in rank_counts[0]}, {})
+        if "dials traffic path" in run:
+            paths["dials traffic"] = phase("dials traffic path",
+                                           run_traffic_path, device)
+        if "envs on the card" in run:
+            paths["envs"] = phase("envs on the card", run_envs_on_card,
+                                  device)
+        if "checkpoint resume on the card" in run:
+            paths["checkpoint resume"] = phase(
+                "checkpoint resume on the card", run_resume_path, device,
+                (state, history))
+        if "dials async collect path" in run:
+            paths["dials async collect"] = phase(
+                "dials async collect path", run_async_path, device, smi,
+                history, streams)
+        if "dials warehouse gru-policy path" in run:
+            del state, history
+        if "dials fault path" in run:
+            paths["dials fault path (two ranks on cuda:0)"] = phase(
+                "dials fault path", run_fault_path, device, smi)
+        if "dials small input vs plain" in run:
+            phase("dials small input vs plain", check_small_against_plain,
+                  device)
+        if "experiment harness" in run:
+            paths["experiment harness (fig3 warehouse cell)"] = (phase(
+                "experiment harness", run_harness_path, device), {})
+        if "gae kernel vs plain at the harness shape" in run:
+            # the GAE forward at the harness's shape: T=16, B=N*E=4*8
+            next(r for r in rows if r["name"] == "gae_forward")[
+                "at_harness_shape"] = phase(
+                    "gae kernel vs plain at the harness shape",
+                    check_gae_forward_at, gen, device, 16, 4 * 8,
+                    ppo_cfg.gamma, ppo_cfg.lam)
+        if "contracts path" in run:
+            paths["contracts (walker, eager and capture calls; graph "
+                  "replays uncounted)"] = phase("contracts path",
+                                                run_contracts_path, device,
+                                                smi)
+        if "gemma2-9b serving path" in run:
+            paths["gemma2-9b serving"] = (phase(
+                "gemma2-9b serving path", run_serving_path, device), {})
+        if "lm architectures serving path" in run:
+            paths["lm architectures serving (8 archs, flash prefills)"] = (
+                phase("lm architectures serving path", run_lm_archs_path,
+                      device, smi), {})
+        if "mamba2 ssm layer path" in run:
+            paths["mamba2 ssm layer"] = (phase(
+                "mamba2 ssm layer path", run_ssm_path, device), {})
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
@@ -2796,16 +3209,20 @@ def main(argv=None) -> int:
                 merged = by_shape.setdefault(k, {})
                 for shape, n in tbl.items():
                     merged[shape] = merged.get(shape, 0) + n
-        for name in ("gru_forward", "gru_backward", "gae_forward",
-                     "flash_attention", "ssd_intra_chunk"):
-            check(counts[name] > 0, f"its path never launched {name}")
+        if run == set(PHASES):
+            for name in ("gru_forward", "gru_backward", "gae_forward",
+                         "flash_attention", "ssd_intra_chunk"):
+                check(counts[name] > 0, f"its path never launched {name}")
+        print(f"phases on {smi}: "
+              f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
+              f"total {sum(phases.values()):.1f} s", flush=True)
     except Exception as exc:       # every phase failure ends the run
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr, flush=True)
         raise
 
     table = [{"name": r["name"], "route": r["route"], "source": r["source"],
-              "replaces": r["replaces"], "launches": counts[r["name"]],
+              "replaces": r["replaces"], "launches": counts.get(r["name"], 0),
               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
               "bound_by": r["bound"][1],
@@ -2813,7 +3230,7 @@ def main(argv=None) -> int:
               **{k: r[k] for k in ("library", "shape", "ms_by_shape",
                                    "bound_ms_by_shape", "call_ms",
                                    "device_ms", "ms_by_route", "zamba2",
-                                   "at_harness_shape")
+                                   "at_harness_shape", "at_lm_shapes")
                  if k in r},
               "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}
@@ -2823,7 +3240,8 @@ def main(argv=None) -> int:
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()},
+        **({} if run == set(PHASES) else {"only": sorted(run)})}))
     return 0
 
 

@@ -32,11 +32,19 @@ def main():
     args = ap.parse_args()
 
     spec = registry.get(args.arch, reduced=not args.full)
+    if not spec.has_decode or spec.kind == "encdec":
+        raise SystemExit(f"{args.arch} has no plain LM decode path")
     cfg = spec.cfg
     params = steps.init_params(spec, seed=0, device=args.device)
     device = params["embed"]["table"].device
     max_len = args.prompt_len + args.new_tokens
-    caches = api.init_caches(params, spec, args.batch, max_len)
+    binp = {}
+    if spec.kind == "vlm":     # the stub vision tower's patch embeddings
+        binp["patches"] = torch.zeros(
+            (args.batch, spec.n_patches, spec.vision_dim),
+            dtype=torch.bfloat16, device=device)
+    caches = api.init_caches(params, spec, args.batch, max_len,
+                             batch_inputs=binp)
     decode = steps.make_serve_step(spec)
 
     def sync():

@@ -1,11 +1,10 @@
 """Builders shared by the architecture config files — the port of
-``repro/configs/common.py``. ``moe_layer`` is not ported (ROADMAP queue 1
-item 12) and raises."""
+``repro/configs/common.py``."""
 from __future__ import annotations
 
 from repro_torch.models import api, blocks
 from repro_torch.nn import attention as attn_mod
-from repro_torch.nn import layers, ssm as ssm_mod
+from repro_torch.nn import layers, moe as moe_mod, ssm as ssm_mod
 
 
 def attn_cfg(d_model, heads, kv_heads, *, head_dim=None, bias=False,
@@ -29,9 +28,18 @@ def dense_layer(d_model, heads, kv_heads, d_ff, **kw):
         post_norm=post_norm, d_model=d_model)
 
 
-def moe_layer(*args, **kw):
-    raise NotImplementedError(
-        "MoE layers are not ported yet (ROADMAP queue 1 item 12)")
+def moe_layer(d_model, heads, kv_heads, d_ff, n_experts, top_k, *,
+              dispatch="gather", token_shards=16, **kw):
+    # the gather dispatch with group-local routing (16 token groups) is the
+    # reference's shipped default; dispatch="dense" is its Switch/Mesh-style
+    # ablation (the same result, one global routing group)
+    return blocks.LayerSpec(
+        mixer="attn", attn=attn_cfg(d_model, heads, kv_heads, **kw),
+        ffn="moe",
+        moe=moe_mod.MoEConfig(d_model=d_model, d_ff=d_ff,
+                              num_experts=n_experts, top_k=top_k,
+                              dispatch=dispatch, token_shards=token_shards),
+        d_model=d_model)
 
 
 def ssm_layer(d_model, state, *, head_dim=64, chunk=128):

@@ -1,29 +1,34 @@
 """Architecture registry — the port of ``repro/configs/registry.py``:
-``get(arch_id, reduced=...)`` -> ArchSpec over the ported archs.
+``get(arch_id, reduced=...)`` -> ArchSpec, over all ten architectures of
+the reference.
 
-Ported: gemma2-9b and tinyllama-1.1b (dense decoder LMs). Every other
-arch of the reference raises ``NotImplementedError`` (ROADMAP queue 1 item
-17). ``input_specs``/``concrete_inputs`` (JAX ShapeDtypeStruct stand-ins
-for the dry-run) are not ported; callers draw tokens from a seeded
+Left out: ``input_specs``, ``concrete_inputs`` and ``cell_supported``
+(the dry-run's ShapeDtypeStruct stand-ins and cells, the LM mesh, ROADMAP
+queue 1 item 12d); callers draw tokens, frames and patches from a seeded
 ``torch.Generator``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import gemma2_9b, tinyllama_1_1b
+from repro_torch.configs import (dbrx_132b, gemma2_9b, granite_moe_1b,
+                                 llama32_vision_90b, mamba2_780m,
+                                 qwen1_5_32b, tinyllama_1_1b, whisper_tiny,
+                                 yi_34b, zamba2_1_2b)
 
 ARCHS = {
+    "yi-34b": yi_34b.make,
     "gemma2-9b": gemma2_9b.make,
     "tinyllama-1.1b": tinyllama_1_1b.make,
+    "qwen1.5-32b": qwen1_5_32b.make,
+    "zamba2-1.2b": zamba2_1_2b.make,
+    "granite-moe-1b-a400m": granite_moe_1b.make,
+    "dbrx-132b": dbrx_132b.make,
+    "whisper-tiny": whisper_tiny.make,
+    "llama-3.2-vision-90b": llama32_vision_90b.make,
+    "mamba2-780m": mamba2_780m.make,
 }
-NOT_PORTED = ("yi-34b", "qwen1.5-32b", "zamba2-1.2b", "granite-moe-1b-a400m",
-              "dbrx-132b", "whisper-tiny", "llama-3.2-vision-90b",
-              "mamba2-780m")
 
 
 def get(arch_id: str, *, reduced: bool = False):
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP queue 1 item 12)")
     return ARCHS[arch_id](reduced=reduced)
 
 

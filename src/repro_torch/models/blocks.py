@@ -1,17 +1,18 @@
-"""Transformer blocks and the layer-period abstraction — the port of
-``repro/models/blocks.py``.
+"""Transformer / SSM / MoE blocks and the layer-period abstraction — the
+port of ``repro/models/blocks.py``.
 
 A model is ``n_layers`` blocks arranged as ``repeats`` copies of a short
-``period`` of :class:`LayerSpec`s (period 1 = plain llama; period 2 =
-gemma2 local/global alternation). Params for each period position are
-stacked along a leading repeats axis, as in the reference, so a JAX
-params tree carries across leaf for leaf.
+``period`` of heterogeneous :class:`LayerSpec`s (period 1 = plain llama;
+period 2 = gemma2 local/global alternation; period 5 = llama-vision
+4×self + 1×cross; zamba2 = 2×ssm + a *shared* attention block). Params for
+each period position are stacked along a leading repeats axis, as in the
+reference, so a JAX params tree carries across leaf for leaf.
 
-Ported: the attention mixer, the MLP ffn and gemma2's post-norms.
-``mixer="ssm"``, ``mixer="cross_attn"`` and ``ffn="moe"`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 12): the SSM layer itself is
-ported (``repro_torch.nn.ssm``), but no model path on the card runs it
-yet. Left out: the logical-axis specs.
+Mixers: self-attention (``attn``), the Mamba-2 SSM layer (``ssm``, run
+without the SSD kernel, as the reference's block runs it) and
+cross-attention (``cross_attn``, with llama-vision's tanh gates); ffns: the
+MLP, MoE (``moe``, which returns the aux terms) or none. Left out: the
+logical-axis specs (ROADMAP queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.nn import attention as attn_mod
-from repro_torch.nn import layers, ssm as ssm_mod
+from repro_torch.nn import layers, moe as moe_mod, ssm as ssm_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +33,7 @@ class LayerSpec:
     ssm: Optional[ssm_mod.SSMConfig] = None
     ffn: str = "mlp"                          # mlp | moe | none
     mlp: Optional[layers.MLPConfig] = None
-    moe: Optional[object] = None
+    moe: Optional[moe_mod.MoEConfig] = None
     post_norm: bool = False                   # gemma2-style post-block norms
     gated_cross: bool = False                 # llama-vision tanh-gated cross
     cross_kv_dim: Optional[int] = None
@@ -40,72 +41,109 @@ class LayerSpec:
     dtype: object = torch.bfloat16
 
 
-def _check_ported(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"mixer={spec.mixer!r} blocks are not ported yet (ROADMAP queue 1 "
-            f"item 12); the SSM layer runs through repro_torch.nn.ssm."
-            f"ssm_layer")
-    if spec.ffn not in ("mlp", "none"):
-        raise NotImplementedError(
-            f"ffn={spec.ffn!r} is not ported yet (ROADMAP queue 1 item 12)")
-
-
 def block_init(gen, spec: LayerSpec):
-    _check_ported(spec)
     dev = gen.device
-    p = {"norm1": layers.rmsnorm_init(spec.d_model, dev),
-         "mixer": attn_mod.attention_init(gen, spec.attn)}
+    p = {"norm1": layers.rmsnorm_init(spec.d_model, dev)}
+    if spec.mixer == "attn":
+        p["mixer"] = attn_mod.attention_init(gen, spec.attn)
+    elif spec.mixer == "cross_attn":
+        p["mixer"] = attn_mod.cross_attention_init(
+            gen, spec.attn, kv_dim=spec.cross_kv_dim)
+        if spec.gated_cross:
+            p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=dev)
+            p["gate_ffn"] = torch.zeros((), dtype=torch.float32, device=dev)
+    elif spec.mixer == "ssm":
+        p["mixer"] = ssm_mod.ssm_init(gen, spec.ssm)
+    else:
+        raise ValueError(spec.mixer)
     if spec.post_norm:
         p["norm1_post"] = layers.rmsnorm_init(spec.d_model, dev)
     if spec.ffn != "none":
         p["norm2"] = layers.rmsnorm_init(spec.d_model, dev)
-        p["ffn"] = layers.mlp_init(gen, spec.mlp)
+        if spec.ffn == "mlp":
+            p["ffn"] = layers.mlp_init(gen, spec.mlp)
+        else:
+            p["ffn"] = moe_mod.moe_init(gen, spec.moe)
         if spec.post_norm:
             p["norm2_post"] = layers.rmsnorm_init(spec.d_model, dev)
     return p
 
 
+def _gate(p, name: str, spec: LayerSpec, h):
+    """llama-vision's tanh gate on a cross block's branch."""
+    if spec.gated_cross:
+        return h * torch.tanh(p[name]).to(h.dtype)
+    return h
+
+
 def _ffn(p, spec: LayerSpec, x):
-    """The residual ffn half of a block (identity without an ffn)."""
+    """The residual ffn half of a block: (x, moe aux or None)."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = layers.rmsnorm(p["norm2"], x)
-    h = layers.mlp(p["ffn"], h, activation=spec.mlp.activation)
+    aux = None
+    if spec.ffn == "mlp":
+        h = layers.mlp(p["ffn"], h, activation=spec.mlp.activation)
+    else:
+        h, aux = moe_mod.moe_layer(p["ffn"], h, spec.moe)
+    h = _gate(p, "gate_ffn", spec, h)
     if spec.post_norm:
         h = layers.rmsnorm(p["norm2_post"], h)
+    return x + h, aux
+
+
+def _mixer_out(p, spec: LayerSpec, x, h):
+    """The residual add of the mixer's output h (post-norm first)."""
+    if spec.post_norm:
+        h = layers.rmsnorm(p["norm1_post"], h)
     return x + h
 
 
-def block_apply(p, x, spec: LayerSpec, *, positions=None,
+def block_apply(p, x, spec: LayerSpec, *, cross_kv=None, positions=None,
                 use_flash: bool = False):
     """Returns (x, moe_aux_or_None). x: (B, T, d_model)."""
-    _check_ported(spec)
     h = layers.rmsnorm(p["norm1"], x)
-    h = attn_mod.self_attention(p["mixer"], h, spec.attn,
-                                positions=positions, use_flash=use_flash)
-    if spec.post_norm:
-        h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn(p, spec, x + h), None
+    if spec.mixer == "attn":
+        h = attn_mod.self_attention(p["mixer"], h, spec.attn,
+                                    positions=positions, use_flash=use_flash)
+    elif spec.mixer == "cross_attn":
+        h = attn_mod.cross_attention(p["mixer"], h, cross_kv, spec.attn)
+        h = _gate(p, "gate_attn", spec, h)
+    else:
+        h = ssm_mod.ssm_layer(p["mixer"], h, spec.ssm)
+    return _ffn(p, spec, _mixer_out(p, spec, x, h))
 
 
+# ---------------------------------------------------------------------------
+# Decode (single token, cached)
+# ---------------------------------------------------------------------------
 def init_block_cache(spec: LayerSpec, batch: int, max_len: int,
                      device="cpu"):
-    """Cache for one block: sliding-window layers allocate only
-    ``window`` slots (a ring buffer)."""
-    _check_ported(spec)
-    window = spec.attn.sliding_window
-    slots = min(max_len, window) if window else max_len
-    return attn_mod.init_kv_cache(spec.attn, batch, slots, device=device)
+    """Cache for one self-attention or SSM block: sliding-window layers
+    allocate only ``window`` slots (a ring buffer). Cross-attention blocks
+    hold K/V projected once from the source (``lm.init_caches``)."""
+    if spec.mixer == "attn":
+        window = spec.attn.sliding_window
+        slots = min(max_len, window) if window else max_len
+        return attn_mod.init_kv_cache(spec.attn, batch, slots, device=device)
+    if spec.mixer == "ssm":
+        return ssm_mod.init_ssm_cache(spec.ssm, batch, device=device)
+    raise ValueError(f"{spec.mixer} blocks take their cache from "
+                     f"lm.init_caches(cross_src=...)")
 
 
 def block_decode(p, x, cache, index: int, spec: LayerSpec):
-    """One-token decode. x: (B, 1, d). Returns (x, cache); the cache is
-    updated in place."""
-    _check_ported(spec)
+    """One-token decode of a self-attention or SSM block. x: (B, 1, d).
+    Returns (x, cache); the cache is updated in place."""
     h = layers.rmsnorm(p["norm1"], x)
-    h, cache = attn_mod.decode_self_attention(p["mixer"], h, cache, index,
-                                              spec.attn)
-    if spec.post_norm:
-        h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn(p, spec, x + h), cache
+    if spec.mixer == "attn":
+        h, cache = attn_mod.decode_self_attention(p["mixer"], h, cache,
+                                                  index, spec.attn)
+    elif spec.mixer == "ssm":
+        h, new = ssm_mod.ssm_decode_step(p["mixer"], h, cache, spec.ssm)
+        for name in ("conv", "state"):
+            cache[name].copy_(new[name])
+    else:
+        raise ValueError(f"{spec.mixer} blocks decode through "
+                         f"lm._decode_cross")
+    return _ffn(p, spec, _mixer_out(p, spec, x, h))[0], cache

@@ -1,20 +1,23 @@
-"""Decoder-only LM — the port of ``repro/models/lm.py``, forward only.
+"""Decoder-only LM (and the generic backbone of enc-dec / VLM) — the port
+of ``repro/models/lm.py``, forward only.
 
 * Params for each period position are stacked on a leading repeats axis,
   exactly as the reference's ``init_lm`` (``jax.vmap(block_init)``), so a
   JAX params tree carries across leaf for leaf. :func:`forward` and
   :func:`decode_step` are Python loops over the repeats where the
-  reference has a ``lax.scan``.
-* ``use_flash`` routes every attention layer's prefill through the flash
-  kernel (``repro_torch.kernels.flash_attention``) on CUDA tensors; on
-  CPU tensors it runs the kernel's plain version.
-* Decode threads stacked per-layer caches, updated in place.
+  reference has a ``lax.scan``. A zamba-style ``shared`` block keeps one
+  unstacked copy, applied once per repeat after the period, with a KV
+  cache of its own per repeat.
+* ``use_flash`` routes every self-attention layer's prefill through the
+  flash kernel (``repro_torch.kernels.flash_attention``) on CUDA tensors;
+  on CPU tensors it runs the kernel's plain version.
+* Decode threads stacked per-layer caches, updated in place;
+  cross-attention blocks read K/V projected once from the source.
 
-Left out: ``token_xent``/``lm_loss`` (the training slice), the
-zamba-style ``shared`` block and cross-attention (``ModelConfig.shared``
-must be None; ROADMAP queue 1 item 12), ``act_constraint`` (mesh
-sharding) and the logical-axis specs. ``remat`` and ``scan_unroll`` are
-accepted and ignored: there is no autodiff or XLA scan here.
+Left out: ``token_xent``/``lm_loss`` (LM training, ROADMAP queue 1 item
+12b), ``act_constraint`` and the logical-axis specs (the LM mesh, item
+12d). ``remat`` and ``scan_unroll`` are accepted and ignored: there is no
+autodiff or XLA scan here.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import blocks
+from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import layers
 from repro_torch.tree import tree_map
 
@@ -52,13 +56,6 @@ class ModelConfig:
         return self.n_layers // len(self.period)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.shared is not None:
-        raise NotImplementedError(
-            "shared (zamba-style) blocks are not ported yet (ROADMAP queue 1 "
-            "item 12)")
-
-
 def _stacked_init(gen, spec: blocks.LayerSpec, repeats: int):
     """``repeats`` blocks stacked on a leading axis, filled one block at a
     time (the full stack is never held twice)."""
@@ -76,7 +73,6 @@ def _stacked_init(gen, spec: blocks.LayerSpec, repeats: int):
 
 def init_lm(gen, cfg: ModelConfig):
     """Params on ``gen.device`` from a seeded ``torch.Generator``."""
-    _check_ported(cfg)
     params = {
         "embed": layers.embedding_init(gen, cfg.vocab, cfg.d_model,
                                        dtype=cfg.dtype,
@@ -85,6 +81,8 @@ def init_lm(gen, cfg: ModelConfig):
         "layers": [_stacked_init(gen, spec, cfg.repeats)
                    for spec in cfg.period],
     }
+    if cfg.shared is not None:
+        params["shared"] = blocks.block_init(gen, cfg.shared)
     if not cfg.tie_embeddings:
         params["unembed"] = layers.linear_init(gen, cfg.d_model, cfg.vocab,
                                                dtype=cfg.dtype)
@@ -98,20 +96,35 @@ def _layer(stacked, r: int):
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def forward(params, tokens, cfg: ModelConfig, *, positions=None):
+def _add_aux(total, aux):
+    if aux is not None:
+        for name in total:
+            total[name] = total[name] + aux[name]
+
+
+def forward(params, tokens, cfg: ModelConfig, *, cross_kv=None,
+            positions=None):
     """tokens: (B, T) integer -> (final hidden states (B, T, d_model),
-    aux), aux holding the reference's (here always zero) MoE losses."""
-    _check_ported(cfg)
+    aux), aux holding the MoE losses summed over layers and repeats (zero
+    without MoE layers; the shared block's are dropped, as the
+    reference's)."""
     x = layers.embedding_lookup(params["embed"], tokens,
                                 scale_by_sqrt_dim=cfg.embed_scale)
+    aux = {name: torch.zeros((), dtype=torch.float32, device=x.device)
+           for name in ("load_balance", "z_loss")}
+    shared_p = params.get("shared")
     for r in range(cfg.repeats):
         for j, spec in enumerate(cfg.period):
-            x, _ = blocks.block_apply(_layer(params["layers"][j], r), x, spec,
-                                      positions=positions,
+            x, a = blocks.block_apply(_layer(params["layers"][j], r), x, spec,
+                                      cross_kv=cross_kv, positions=positions,
+                                      use_flash=cfg.use_flash)
+            _add_aux(aux, a)
+        if shared_p is not None:
+            x, _ = blocks.block_apply(shared_p, x, cfg.shared,
+                                      cross_kv=cross_kv, positions=positions,
                                       use_flash=cfg.use_flash)
     x = layers.rmsnorm(params["final_norm"], x)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"load_balance": zero, "z_loss": zero.clone()}
+    return x, aux
 
 
 def logits_fn(params, x, cfg: ModelConfig):
@@ -126,30 +139,72 @@ def logits_fn(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
-def init_caches(params, cfg: ModelConfig, batch: int, max_len: int):
-    """Stacked caches: one tree per period position, leading repeats axis
-    (real tensors, not broadcasts: decode writes them in place)."""
-    _check_ported(cfg)
+def _stack(one, repeats: int):
+    """``repeats`` copies of a cache on a leading axis (real tensors, not
+    broadcasts: decode writes them in place)."""
+    return tree_map(lambda a: a[None].repeat((repeats,) + (1,) * a.ndim),
+                    one)
+
+
+def init_caches(params, cfg: ModelConfig, batch: int, max_len: int,
+                cross_src=None):
+    """Stacked caches: one tree per period position, leading repeats axis.
+    Cross-attention blocks hold K/V projected from ``cross_src`` once per
+    layer."""
     device = params["embed"]["table"].device
     caches = []
-    for spec in cfg.period:
-        one = blocks.init_block_cache(spec, batch, max_len, device=device)
-        caches.append(tree_map(
-            lambda a: a[None].repeat((cfg.repeats,) + (1,) * a.ndim), one))
-    return {"layers": caches, "shared": None}
+    for j, spec in enumerate(cfg.period):
+        if spec.mixer == "cross_attn":
+            mixer = params["layers"][j]["mixer"]
+            shape = cross_src.shape[:2] + (spec.attn.num_kv_heads,
+                                           spec.attn.dh)
+            caches.append({
+                name: torch.stack([
+                    layers.linear(_layer(mixer[name], r), cross_src)
+                    .reshape(shape) for r in range(cfg.repeats)])
+                for name in ("k", "v")})
+        else:
+            caches.append(_stack(blocks.init_block_cache(
+                spec, batch, max_len, device=device), cfg.repeats))
+    shared = None
+    if cfg.shared is not None:
+        shared = _stack(blocks.init_block_cache(cfg.shared, batch, max_len,
+                                                device=device), cfg.repeats)
+    return {"layers": caches, "shared": shared}
+
+
+def _decode_cross(p, x, cache, spec):
+    """Cross-attn decode against precomputed K/V."""
+    h = layers.rmsnorm(p["norm1"], x)
+    b = x.shape[0]
+    dh = spec.attn.dh
+    q = layers.linear(p["mixer"]["q"], h).reshape(b, 1, spec.attn.num_heads,
+                                                  dh)
+    out = attn_mod.attend(q, cache["k"], cache["v"], causal=False,
+                          softcap=spec.attn.attn_softcap)
+    h = layers.linear(p["mixer"]["o"], out.reshape(b, 1, -1))
+    h = blocks._gate(p, "gate_attn", spec, h)
+    return blocks._ffn(p, spec, x + h)[0]
 
 
 def decode_step(params, token, caches, index: int, cfg: ModelConfig):
     """token: (B, 1) integer, index: the absolute position (a Python int).
     Returns (logits (B, 1, V) fp32, caches); the caches are updated in
     place (the reference's serve step donates them)."""
-    _check_ported(cfg)
     x = layers.embedding_lookup(params["embed"], token,
                                 scale_by_sqrt_dim=cfg.embed_scale)
+    shared_p = params.get("shared")
     for r in range(cfg.repeats):
         for j, spec in enumerate(cfg.period):
-            x, _ = blocks.block_decode(_layer(params["layers"][j], r), x,
-                                       _layer(caches["layers"][j], r), index,
-                                       spec)
+            p, cache = _layer(params["layers"][j], r), \
+                _layer(caches["layers"][j], r)
+            if spec.mixer == "cross_attn":
+                x = _decode_cross(p, x, cache, spec)
+            else:
+                x, _ = blocks.block_decode(p, x, cache, index, spec)
+        if shared_p is not None:
+            x, _ = blocks.block_decode(shared_p, x,
+                                       _layer(caches["shared"], r), index,
+                                       cfg.shared)
     x = layers.rmsnorm(params["final_norm"], x)
     return logits_fn(params, x, cfg), caches

@@ -15,8 +15,9 @@ and runs its plain version on CPU tensors, as the reference's flag runs
 the Pallas kernel in interpret mode off the TPU.
 
 Left out: ``_attend_decode_sharded`` (the mesh-sharded decode softmax;
-``decode_self_attention`` raises if handed a ``logits_constraint``),
-cross-attention (whisper, llama-vision) and the logical-axis specs.
+``decode_self_attention`` raises if handed a ``logits_constraint``) and
+the logical-axis specs, both with the LM mesh (ROADMAP queue 1 item
+12d).
 """
 from __future__ import annotations
 
@@ -263,7 +264,7 @@ def decode_self_attention(params, x, cache, cache_index: int,
     if logits_constraint is not None:
         raise NotImplementedError(
             "the mesh-sharded decode softmax is not ported (it comes with "
-            "launch/mesh, ROADMAP queue 1 item 12)")
+            "the LM mesh, ROADMAP queue 1 item 12d)")
     b = x.shape[0]
     dh = cfg.dh
     slots = cache["k"].shape[1]
@@ -282,3 +283,35 @@ def decode_self_attention(params, x, cache, cache_index: int,
                  q_offset=cache_index, kv_positions=cache["pos"])
     out = layers.linear(params["o"], out.reshape(b, 1, cfg.num_heads * dh))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder, llama-vision image layers)
+# ---------------------------------------------------------------------------
+def cross_attention_init(gen, cfg: AttentionConfig,
+                         kv_dim: Optional[int] = None):
+    dh = cfg.dh
+    kv_dim = kv_dim or cfg.d_model
+    return {
+        "q": layers.linear_init(gen, cfg.d_model, cfg.num_heads * dh,
+                                dtype=cfg.dtype),
+        "k": layers.linear_init(gen, kv_dim, cfg.num_kv_heads * dh,
+                                dtype=cfg.dtype),
+        "v": layers.linear_init(gen, kv_dim, cfg.num_kv_heads * dh,
+                                dtype=cfg.dtype),
+        "o": layers.linear_init(gen, cfg.num_heads * dh, cfg.d_model,
+                                dtype=cfg.dtype),
+    }
+
+
+def cross_attention(params, x, kv_src, cfg: AttentionConfig):
+    """x: (B, Tq, d_model); kv_src: (B, Tk, kv_dim). No RoPE, no mask."""
+    b, tq, _ = x.shape
+    dh = cfg.dh
+    q = _split_heads(layers.linear(params["q"], x), cfg.num_heads, dh)
+    k = _split_heads(layers.linear(params["k"], kv_src), cfg.num_kv_heads,
+                     dh)
+    v = _split_heads(layers.linear(params["v"], kv_src), cfg.num_kv_heads,
+                     dh)
+    out = attend(q, k, v, causal=False, softcap=cfg.attn_softcap)
+    return layers.linear(params["o"], out.reshape(b, tq, cfg.num_heads * dh))

@@ -13,8 +13,8 @@ matching bf16 operands accumulates in fp32 (on the card,
 ``allow_bf16_reduced_precision_reduction`` off), and fp32 operands run in
 full fp32 (no TF32).
 
-Left out: ``layernorm`` (whisper only) and the logical-axis specs (mesh
-sharding, not ported).
+Left out: the logical-axis specs (mesh sharding, ROADMAP queue 1 item
+12d).
 """
 from __future__ import annotations
 
@@ -66,6 +66,20 @@ def rmsnorm(params, x, *, eps: float = 1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + params["scale"])).to(dtype)
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, *, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,18 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def leaves_with_path(tree, path=()) -> list:
+    """(keys, leaf) pairs in :func:`leaves` order; a key is a dict key or
+    a list index, as ``jax.tree_util.tree_flatten_with_path`` gives."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in leaves_with_path(t, path + (i,))]
+    return [(path, tree)]
+
+
 def unflatten_like(tree, flat: list):
     """Rebuild ``tree``'s structure from leaves in :func:`leaves` order."""
     it = iter(flat)

@@ -6,7 +6,10 @@ go through a JAX function and its ``repro_torch`` counterpart; JAX runs on
 the CPU with ``use_kernels="off"`` (its own tests hold its Pallas kernels
 to that oracle).
 """
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -66,3 +69,35 @@ def assert_tree_equal(a, b):
 
 def jkey_to_torch(key):
     return torch.tensor(np.asarray(key).astype(np.int64))
+
+
+def layer_dtype(ls, dt):
+    """A LayerSpec with every config dtype set to ``dt``."""
+    subs = {name: dataclasses.replace(getattr(ls, name), dtype=dt)
+            for name in ("attn", "ssm", "mlp", "moe")
+            if getattr(ls, name) is not None}
+    return dataclasses.replace(ls, dtype=dt, **subs)
+
+
+def replace_model_dtype(cfg, dt):
+    """A ModelConfig with every config dtype set to ``dt``."""
+    return dataclasses.replace(
+        cfg, dtype=dt, period=tuple(layer_dtype(ls, dt)
+                                    for ls in cfg.period),
+        shared=cfg.shared and layer_dtype(cfg.shared, dt))
+
+
+def plain(obj):
+    """A config as nested plain values: dataclasses by class name and
+    field, dtypes by name, on either side."""
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__,
+                {f.name: plain(getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(plain(x) for x in obj)
+    if isinstance(obj, torch.dtype):
+        return str(obj).replace("torch.", "")
+    if isinstance(obj, type) or "dtype" in type(obj).__name__.lower():
+        return jnp.dtype(obj).name
+    return obj

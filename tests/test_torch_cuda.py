@@ -32,6 +32,8 @@ bit, ``ReshardCollectives`` on the card's re-shard transfers, and the
 peer-failure markers on the errors a broken group raises while it
 reduces CUDA tensors.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -863,3 +865,67 @@ def test_lm_kernel_wrappers_refuse_bad_inputs(cuda_device):
                            .transpose(1, 2), bm, chunk=32)
     with pytest.raises(ValueError, match="chunk"):
         ssd_kernel.forward(xw, la, bm, bm, chunk=24)
+
+
+def _card_layer(ls, dtype):
+    """A reduced LayerSpec in ``dtype`` with its attention widened to
+    head_dim 64 (the flash kernel takes 64, 128 or 256; the reduced
+    configs have 16)."""
+    subs = {name: dataclasses.replace(getattr(ls, name), dtype=dtype)
+            for name in ("attn", "ssm", "mlp", "moe")
+            if getattr(ls, name) is not None}
+    if ls.attn is not None:
+        subs["attn"] = dataclasses.replace(subs["attn"], head_dim=64)
+    return dataclasses.replace(ls, dtype=dtype, **subs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,launches", [("granite-moe-1b-a400m", 2),
+                                           ("zamba2-1.2b", 1)])
+def test_moe_and_hybrid_prefill_flash_matches_plain(cuda_device, arch,
+                                                    launches, dtype):
+    """One prefill step of reduced granite-moe (two MoE blocks) and
+    reduced zamba2 (two SSM blocks and the shared attention block, once)
+    with ``use_flash=True`` against the plain prefill, head_dim widened
+    to 64, B=2 x T=256: the last logits within 1e-4 (float32, the FFMA
+    kernel's 2e-5 through two blocks and the unembedding) or 5e-2
+    (bfloat16, the tensor-core kernel; ``chip_smoke.py``'s LOGIT_TOL)
+    times max(1, largest magnitude), one flash launch per self-attention
+    block, all of the dtype's kernel. The plain run takes the flash run's
+    MoE routes (``chip_smoke.RouteLog``): a bf16 rounding difference may
+    flip a top-k choice on a near tie, which is not the kernel's fault."""
+    import chip_smoke
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    spec = registry.get(arch, reduced=True)
+    cfg = spec.cfg
+    cfg = dataclasses.replace(
+        cfg, dtype=dtype,
+        period=tuple(_card_layer(ls, dtype) for ls in cfg.period),
+        shared=cfg.shared and _card_layer(cfg.shared, dtype))
+    flash = dataclasses.replace(spec, cfg=dataclasses.replace(
+        cfg, use_flash=True))
+    plain = dataclasses.replace(spec, cfg=dataclasses.replace(
+        cfg, use_flash=False))
+    params = steps.init_params(flash, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                         device=cuda_device)
+    routes = chip_smoke.RouteLog()
+    counts = dict(fa_kernel.LAUNCHES)
+    with routes.record():
+        got = steps.make_prefill_step(flash)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    after = dict(fa_kernel.LAUNCHES)
+    with routes.replay():
+        want = steps.make_prefill_step(plain)(params, {"tokens": toks})
+    assert len(routes.routes) == (2 if arch.startswith("granite") else 0)
+    kernel = "flash_fwd" if dtype == torch.float32 else "flash_fwd_sm90"
+    other = "flash_fwd_sm90" if dtype == torch.float32 else "flash_fwd"
+    assert {k: after[k] - counts[k] for k in counts} == {
+        "flash_attention": launches, kernel: launches, other: 0}
+    assert fa_kernel.LAUNCHES == after      # the plain prefill: none
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (2, 1, cfg.vocab)
+    assert_close_scaled(got, want, 1e-4 if dtype == torch.float32 else 5e-2)
