@@ -58,8 +58,8 @@ It
      bit for bit, ``CollectiveFree``/``HaloOnly`` on its programs, its
      launch counts returned to the kernels line); traffic with the FNN
      policy (one round), then the GS-trained baseline (``make_gs_trainer``,
-     5 timed ``train_fn`` steps and one ``eval_fn``, launching the GAE
-     kernel); powergrid and supplychain, a 32-step GS trajectory each on
+     3 timed ``train_fn`` steps and one ``eval_fn``, launching the GAE
+     kernel); powergrid and supplychain, a 16-step GS trajectory each on
      the card and on the CPU, bit for bit, and one narrow-width round each;
      the recurrent-policy path again through a checkpoint: stopped after
      round 0, resumed by a new trainer for round 1, its record and state
@@ -68,14 +68,14 @@ It
      with ``async_collect=True`` (bound 2, telemetry on: the tags
      [0, 0, 1] and [True, False, False], the JSONL log valid,
      ``gru_forward`` launched by the collect worker on its own stream) and
-     two at bound 0, bit for bit the records of the recurrent-policy
+     one at bound 0, bit for bit the record of the recurrent-policy
      path's serial run; then the
      sharded runtime's fault-tolerance half on the recurrent-policy path
      (``run_fault_path``, two ranks sharing cuda:0, re-invocations of
      this script as ``--fault-worker``): an uninterrupted run with
      distributed checkpoints (every step in the reference's per-slice
-     layout; three rounds), step 2 restored onto one shard and run on
-     (bit for bit the loop driver's flat restore), a host drop at round 2
+     layout; two rounds), step 1 restored onto one shard and run on
+     (bit for bit the loop driver's flat restore), a host drop at round 1
      (the survivor's
      records and its final state bit for bit that one-shard resume, the
      event log through ``tools/telemetry_report.py --check``), a recovery
@@ -88,7 +88,7 @@ It
      kernel path against the plain path on a small input (one round,
      warehouse side=2); then the paper's experiment harness
      (``benchmarks/torch_run.py``): the ``fig3_learning`` cell of
-     warehouse at the ``--fast`` widths, cut to 2 rounds of F=5 (DIALS,
+     warehouse at the ``--fast`` widths, cut to 1 round of F=5 (DIALS,
      untrained-DIALS and GS
      rows, the reference's keys, finite, the GAE forward launched and
      held to its plain version at the cell's shape, T=16 x B=32),
@@ -111,7 +111,7 @@ It
      logits compared, then a greedy decode of 16 tokens at B=4 after a
      32-token prompt; then profiles the prefill and 8 decode steps
      (device busy share, device time by kernel, flash's share), each
-     traced over 5 calls after a warm-up, the last 3 kept, every kept
+     traced over 4 calls after a warm-up, the last 2 kept, every kept
      call's traced flash launches equal to the wrapper's count (42 a
      prefill), or the phase fails; then the registry's other eight
      architectures (granite-moe, zamba2, mamba2 and whisper-tiny at full
@@ -128,10 +128,24 @@ It
      against ``use_kernel=False``, then times both warm (median of 7) and
      profiles the kernel call the same way (the SSD kernel's share of its
      device time; one traced ``ssd_chunk_sm90`` launch a kept call);
-  7. prints the kernel table as one JSON line, the nvidia-smi line, and
+  7. drives LM training on the card (``launch/steps.make_train_step``,
+     bf16, ``remat="full"``, batches from ``data/pipeline.lm_iterator``
+     on the card): tinyllama-1.1b at full width and depth, 3 steps of
+     B=8 x T=4096 in 4 microbatches; one untimed and one timed step of
+     granite-moe, mamba2, zamba2 and whisper-tiny at full width and depth
+     (B=2 x T=1024; whisper 448 over 1,500 frames); two steps of each of
+     llama-3.2-vision, dbrx, qwen1.5, yi and gemma2-9b at their reduced
+     configs; each checked (losses and grad norms finite, grad norms
+     above 0, the step-0 cross-entropy within 1 of ln V, ``opt["step"]``,
+     the fp32 master moved, every leaf finite) with seconds a step,
+     tokens/s and peak memory printed; then reduced tinyllama in float32
+     on the card against the CPU (the gradients leaf by leaf, two steps)
+     and microbatches 2 against 1 on the card, within 1e-4; no kernel
+     launched (the flash kernel is forward-only, as the reference's);
+  8. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Each path (each of 4's, 5's, 6) runs with every launch count set to 0
+Each path (each of 4's, 5's, 6, 7) runs with every launch count set to 0
 just before it and read just after (the kernels line gives each kernel's
 launches by path); each phase prints its seconds, and a line before the
 table all of them. Any failed phase
@@ -185,13 +199,13 @@ SIDE = 10
 AIP_REFRESH = 5
 FNN_ROUNDS = 1
 GRU_POLICY_ROUNDS = 2
-GS_TRAIN_STEPS = 5
-ENV_STEPS = 32
+GS_TRAIN_STEPS = 3
+ENV_STEPS = 16
 # the overlapped collect on the recurrent-policy path: async (bound 2) and
 # async at bound 0 (the serial schedule), against the serial run of
 # run_gru_policy_path
 ASYNC_ROUNDS = 3
-ASYNC_ZERO_ROUNDS = 2
+ASYNC_ZERO_ROUNDS = 1
 # The sharded path: the recurrent-policy warehouse path again through the
 # sharded round, one shard in process and SHARDED_RANKS ranks sharing
 # cuda:0 over gloo, held against the loop run. AIP params 1e-6, held-out CE
@@ -224,9 +238,9 @@ SHARDED_POLICY_REL = 0.5
 # after FAULT_BEAT_TIMEOUT_S; a collective with a stalled peer fails after
 # the group's timeout FAULT_GRACE_S; a worker run is killed at
 # FAULT_TIMEOUT_S.
-FAULT_ROUNDS = 3
-FAULT_KILL_ROUND = 2
-FAULT_ZERO_ROUNDS = 2
+FAULT_ROUNDS = 2
+FAULT_KILL_ROUND = 1
+FAULT_ZERO_ROUNDS = 1
 FAULT_ASYNC_ROUNDS = 3
 FAULT_BEAT_TIMEOUT_S = 15.0
 FAULT_GRACE_S = 120.0
@@ -242,8 +256,8 @@ FAULT_CHAOS = (f"crash@{FAULT_KILL_ROUND}:host=1:phase=prepared,"
 # growing with F. A capture the ring collect or the GS eval refuses is a
 # finding (ROADMAP queue 3), not a failure; every other rule fails the run.
 CONTRACT_PATHS = (("warehouse", "gru"), ("traffic", "fnn"))
-CONTRACT_REPLAYS = {"ring_collect": 1, "aip_round": 2, "ials_train": 2,
-                    "gs_eval": 2}
+CONTRACT_REPLAYS = {"ring_collect": 1, "aip_round": 1, "ials_train": 1,
+                    "gs_eval": 1}
 MAY_REFUSE_CAPTURE = ("ring_collect", "gs_eval")
 SYNC_REFRESH = (1, 2)
 
@@ -288,6 +302,33 @@ LM_PROMPT = (2, 4096)
 WHISPER_TARGET = 448
 LM_DECODE_BATCH, LM_DECODE_PROMPT, LM_DECODE_NEW = 4, 8, 8
 
+# LM training (launch/steps.make_train_step, bf16, remat "full", batches
+# from data/pipeline.lm_iterator on the card): tinyllama-1.1b at full width
+# and depth (src/repro/configs/tinyllama_1_1b.py:16) at train_4k's seq
+# 4,096 with the global batch cut from 256 to 8, in LM_TRAIN_MICROBATCHES
+# slices, LM_TRAIN_STEPS steps (the first untimed); one untimed and one
+# timed step of each of LM_TRAIN_FAMILIES at full width and depth, B=2 x
+# T=1024 (whisper: its 448-token target over 1,500 frames of
+# synthetic.frames); two steps of each of LM_TRAIN_REDUCED at its reduced
+# config (their AdamW state does not fit one card at full width: the LM
+# mesh, ROADMAP queue 1 item 12d); reduced tinyllama in float32, two steps
+# on the card against the CPU and microbatches 2 against 1 on the card,
+# within LM_TRAIN_TOL (relative; of each leaf's largest magnitude). A
+# train step launches none of the six kernels: the reference's flash
+# kernel is forward-only and its SSM blocks run the plain scan.
+LM_TRAIN_ARCH = "tinyllama-1.1b"
+LM_TRAIN_SHAPE = (8, 4096)
+LM_TRAIN_MICROBATCHES = 4
+LM_TRAIN_STEPS = 3
+LM_TRAIN_FAMILIES = ("granite-moe-1b-a400m", "mamba2-780m", "zamba2-1.2b",
+                     "whisper-tiny")
+LM_TRAIN_FAMILY_SHAPE = (2, 1024)
+LM_TRAIN_REDUCED = ("llama-3.2-vision-90b", "dbrx-132b", "qwen1.5-32b",
+                    "yi-34b", "gemma2-9b")
+LM_TRAIN_TOL = 1e-4
+# its name in the kernels line's launches by path, where its zeros show
+LM_TRAIN_PATH = "lm training (forward-only flash, plain SSM scan)"
+
 
 class PhaseError(RuntimeError):
     pass
@@ -326,7 +367,7 @@ def cuda_ms(fn, iters: int) -> float:
 # each traced call, so the device kernels split into calls by their order on
 # the card alone
 MARKER_KERNEL = "spin_kernel"
-PROFILE_ITERS = 3
+PROFILE_ITERS = 2
 
 
 def traced_calls(fn, iters: int, count_key: str, match: str):
@@ -2457,8 +2498,8 @@ def run_contracts_path(device, smi):
 # the paper's experiment harness (benchmarks/torch_run.py)
 # ---------------------------------------------------------------------------
 # torch_run.py's --fast fig3_learning cell (3 rounds of F=10,
-# benchmarks/run.py:78-79) cut in depth to 2 rounds of F=5
-HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 2, 5
+# benchmarks/run.py:78-79) cut in depth to 1 round of F=5
+HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 1, 5
 HARNESS_DIALS_KEYS = {"label", "final_gs_return", "best_gs_return",
                       "aip_ce_final", "wall_s"}
 
@@ -2993,6 +3034,197 @@ def run_ssm_path(device):
     return counts
 
 
+def _train_batch(spec, b, t, step, device):
+    """Batch ``step`` of the synthetic stream (``pipeline.lm_iterator``,
+    seed 0) on the card, with frames or patches drawn from a key of their
+    own for an enc-dec or VLM spec."""
+    from repro_torch import random as R
+    from repro_torch.data import pipeline, synthetic
+    cfg = spec.cfg.decoder if spec.kind == "encdec" else spec.cfg
+    batch = next(pipeline.lm_iterator(0, b, t, cfg.vocab, start_step=step,
+                                      device=device))
+    key = R.fold_in(R.key(1, device=device), step)
+    if spec.kind == "encdec":
+        batch["frames"] = synthetic.frames(key, b, spec.n_frames,
+                                           spec.cfg.d_model)
+    elif spec.kind == "vlm":
+        batch["patches"] = synthetic.patches(key, b, spec.n_patches,
+                                             spec.vision_dim)
+    return batch
+
+
+def _finite(tree) -> bool:
+    import torch
+    from repro_torch.tree import leaves
+    return all(bool(torch.isfinite(x).all()) for x in leaves(tree)
+               if x.is_floating_point())
+
+
+def _moved(master, params) -> int:
+    """Leaves of ``master`` that differ from the initial params."""
+    import torch
+    from repro_torch.tree import leaves
+    return sum(not torch.equal(m, p.float())
+               for m, p in zip(leaves(master), leaves(params)))
+
+
+def train_arch(label, spec, shape, n_steps, device, smi, microbatches=1):
+    """``n_steps`` of ``make_train_step`` (the first untimed) from params
+    drawn on the card: every loss and grad norm finite, grad norms above
+    0, the step-0 cross-entropy within 1 of ln V (the loss itself where
+    there is no MoE aux term), ``opt["step"]`` the number of steps, the
+    fp32 master moved from the initial params (the lr is 0 at step 0) and
+    every leaf of params and AdamW state finite. Returns the record."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    cfg = steps.model_cfg(spec)
+    b, t = shape
+    if spec.kind == "encdec":
+        t = WHISPER_TARGET
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params0 = steps.init_params(spec, seed=0, device=device)
+    opt = adamw.init(params0, per_agent=False)
+    step = steps.make_train_step(spec, microbatches=microbatches)
+    params, metrics, times = params0, [], []
+    for i in range(n_steps):
+        batch = _train_batch(spec, b, t, i, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        del batch
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(m[k]) for m in metrics for k in m),
+          f"{label}: non-finite loss or metrics {metrics}")
+    check(all(m["grad_norm"] > 0 for m in metrics),
+          f"{label}: a zero grad norm {metrics}")
+    xent0, ln_v = metrics[0]["xent"], math.log(cfg.vocab)
+    check(abs(xent0 - ln_v) < 1.0,
+          f"{label}: step-0 cross-entropy {xent0} not within 1 of ln V "
+          f"{ln_v}")
+    check(int(opt["step"]) == n_steps, f"{label}: opt step "
+                                       f"{int(opt['step'])}")
+    moved = _moved(opt["master"], params0)
+    check(moved > 0, f"{label}: master never moved")
+    check(_finite(params) and _finite(opt), f"{label}: a non-finite leaf")
+    timed = times[1:]
+    step_s = sum(timed) / len(timed)
+    rec = {"params": api.param_count(params0), "steps": n_steps,
+           "step_s": timed, "tok_s": b * t / step_s,
+           "peak_bytes": peak, "loss": [m["loss"] for m in metrics],
+           "xent0": xent0, "grad_norm": [m["grad_norm"] for m in metrics],
+           "first_s": times[0], "moved_leaves": moved}
+    print(f"lm training {label} on {smi}: {rec['params']} params, B={b} x "
+          f"T={t}, {microbatches} microbatch(es), {n_steps} steps: "
+          f"first {times[0]:.3f} s, then {[round(x, 4) for x in timed]} s a "
+          f"step ({rec['tok_s']:.1f} tok/s); loss "
+          f"{[round(x, 4) for x in rec['loss']]} (ln V {ln_v:.4f}), grad "
+          f"norm {[round(x, 4) for x in rec['grad_norm']]}; master moved "
+          f"in {moved} leaves; peak memory {peak} bytes", flush=True)
+    del params0, params, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _card_vs_cpu(device, smi):
+    """Reduced tinyllama in float32 on the card against the CPU, from the
+    same params and batches: the gradients of ``make_value_and_grad``
+    leaf by leaf, then two ``make_train_step`` steps at the shipped
+    schedule (loss, grad norm, params and AdamW state), and microbatches 2
+    against 1 on the card, each within LM_TRAIN_TOL of each leaf's largest
+    magnitude. (Not at a large learning rate: Adam's g/(|g| + eps) carries
+    a rounding difference in a gradient that cancels to near eps into the
+    master at the lr's size, 4e-4 relative at peak lr 100 on the card.)"""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, tree_map
+    spec = registry.get(LM_TRAIN_ARCH, reduced=True)
+    f32 = lambda ls: dataclasses.replace(ls, dtype=torch.float32, **{
+        n: dataclasses.replace(getattr(ls, n), dtype=torch.float32)
+        for n in ("attn", "mlp") if getattr(ls, n) is not None})
+    spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, dtype=torch.float32,
+        period=tuple(f32(ls) for ls in spec.cfg.period)))
+    cpu_params = steps.init_params(spec, seed=0, device="cpu")
+    batches = [_train_batch(spec, 4, 128, i, "cpu") for i in range(2)]
+    on = lambda tree, dev: tree_map(lambda x: x.to(dev), tree)
+
+    def grads(dev):
+        (loss, _), g = steps.make_value_and_grad(api.loss_fn(spec))(
+            on(cpu_params, dev), on(batches[0], dev))
+        return {"loss": loss}, g
+
+    def run(dev, microbatches):
+        params = on(cpu_params, dev)
+        opt = adamw.init(params, per_agent=False)
+        step = steps.make_train_step(spec, microbatches=microbatches)
+        for b in batches:
+            params, opt, m = step(params, opt, on(b, dev))
+        return m, (params, opt)
+
+    def err(a, b):
+        (ma, ta), (mb, tb) = a, b
+        worst = max(abs(float(ma[k]) - float(mb[k]))
+                    / max(1.0, abs(float(mb[k]))) for k in mb)
+        for x, y in zip(leaves(ta), leaves(tb)):
+            x, y = x.cpu().double(), y.cpu().double()
+            scale = float(y.abs().max())
+            if scale > 0:
+                worst = max(worst, float((x - y).abs().max()) / scale)
+        return worst
+
+    grad_err = err(grads(device), grads("cpu"))
+    card = run(device, 1)
+    card_err = err(card, run("cpu", 1))
+    mb_err = err(run(device, 2), card)
+    print(f"lm training card vs cpu on {smi}: reduced {LM_TRAIN_ARCH} "
+          f"float32: gradients max relative err {grad_err:.3e}; 2 steps "
+          f"{card_err:.3e} (loss {float(card[0]['loss']):.6f}); microbatches "
+          f"2 vs 1 on the card {mb_err:.3e} (tol {LM_TRAIN_TOL})",
+          flush=True)
+    for name, e in (("gradients", grad_err), ("two steps", card_err),
+                    ("microbatches 2 vs 1", mb_err)):
+        check(e <= LM_TRAIN_TOL, f"lm training: card vs cpu {name} {e}")
+    return {"gradients": grad_err, "card_vs_cpu": card_err,
+            "microbatches_2_vs_1": mb_err}
+
+
+def run_lm_training_path(device, smi):
+    """LM training on the card (see LM_TRAIN_ARCH): tinyllama at full
+    width and depth, one step of each of LM_TRAIN_FAMILIES at full width,
+    two of each of LM_TRAIN_REDUCED reduced, the card against the CPU.
+    Every kernel's launch count must stay 0 over the path. Returns the
+    launch counts."""
+    from repro_torch.configs import registry
+    reset_counts()
+    out = {LM_TRAIN_ARCH: train_arch(
+        f"{LM_TRAIN_ARCH} (full, 22 layers)", registry.get(LM_TRAIN_ARCH),
+        LM_TRAIN_SHAPE, LM_TRAIN_STEPS, device, smi,
+        microbatches=LM_TRAIN_MICROBATCHES)}
+    for arch in LM_TRAIN_FAMILIES:
+        out[arch] = train_arch(f"{arch} (full)", registry.get(arch),
+                               LM_TRAIN_FAMILY_SHAPE, 2, device, smi)
+    for arch in LM_TRAIN_REDUCED:
+        out[arch] = train_arch(f"{arch} (reduced)",
+                               registry.get(arch, reduced=True), (2, 128), 2,
+                               device, smi)
+    out["card_vs_cpu"] = _card_vs_cpu(device, smi)
+    counts = launch_counts()
+    check(all(n == 0 for n in counts.values()),
+          f"lm training launched a kernel: {counts}")
+    print(f"lm training summary on {smi}: " + json.dumps(out), flush=True)
+    return counts
+
+
 def check_small_against_plain(device):
     """One round at side=2 through the kernels and through the plain
     versions, on the card, from the same state."""
@@ -3030,7 +3262,8 @@ PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "dials fault path", "dials small input vs plain",
           "experiment harness", "gae kernel vs plain at the harness shape",
           "contracts path", "gemma2-9b serving path",
-          "lm architectures serving path", "mamba2 ssm layer path")
+          "lm architectures serving path", "mamba2 ssm layer path",
+          "lm training path")
 # phases that read an earlier phase's results
 NEEDS = {"dials sharded path": "dials warehouse gru-policy path",
          "checkpoint resume on the card": "dials warehouse gru-policy path",
@@ -3199,11 +3432,14 @@ def main(argv=None) -> int:
         if "mamba2 ssm layer path" in run:
             paths["mamba2 ssm layer"] = (phase(
                 "mamba2 ssm layer path", run_ssm_path, device), {})
+        if "lm training path" in run:
+            paths[LM_TRAIN_PATH] = (phase(
+                "lm training path", run_lm_training_path, device, smi), {})
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
                 counts[k] = counts.get(k, 0) + n
-                if n:
+                if n or path == LM_TRAIN_PATH:
                     by_path.setdefault(k, {})[path] = n
             for k, tbl in shapes_of.items():
                 merged = by_shape.setdefault(k, {})

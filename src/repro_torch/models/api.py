@@ -2,8 +2,7 @@
 the port of ``repro/models/api.py``.
 
 ``ArchSpec`` is what a config file in ``repro_torch.configs`` produces.
-Left out: ``loss_fn`` (LM training, ROADMAP queue 1 item 12b; it raises)
-and ``logical_specs`` (the LM mesh, item 12d).
+Left out: ``logical_specs`` (the LM mesh, ROADMAP queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -36,10 +35,16 @@ def init(gen, spec: ArchSpec):
     return lm.init_lm(gen, spec.cfg)
 
 
-def loss_fn(spec: ArchSpec, **kw):
-    raise NotImplementedError(
-        "the LM losses are not ported yet (LM training, ROADMAP queue 1 "
-        "item 12b)")
+def loss_fn(spec: ArchSpec, *, act_constraint=None):
+    """``loss(params, batch) -> (loss, metrics)`` for the spec's kind."""
+    if spec.kind == "encdec":
+        return lambda p, b: encdec.encdec_loss(
+            p, b, spec.cfg, act_constraint=act_constraint)
+    if spec.kind == "vlm":
+        return lambda p, b: vlm.vlm_loss(
+            p, b, spec.cfg, act_constraint=act_constraint)
+    return lambda p, b: lm.lm_loss(
+        p, b, spec.cfg, act_constraint=act_constraint)
 
 
 def init_caches(params, spec: ArchSpec, batch: int, max_len: int,

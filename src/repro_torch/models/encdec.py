@@ -9,8 +9,7 @@ self-attention stack (run without the flash kernel, as the reference's
 cross-attention blocks (each whisper layer's self+cross+mlp is a period
 of two blocks: [self/no-ffn, cross/mlp]).
 
-Left out: ``encdec_loss`` (LM training, ROADMAP queue 1 item 12b) and the
-logical-axis specs (item 12d).
+Left out: the logical-axis specs (the LM mesh, ROADMAP queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -58,6 +57,15 @@ def encode(params, frames, cfg: EncDecConfig):
             x, _ = blocks.block_apply(lm._layer(enc["layers"][j], r), x,
                                       spec)
     return layers.rmsnorm(enc["final_norm"], x)
+
+
+def encdec_loss(params, batch, cfg: EncDecConfig, *, act_constraint=None):
+    """batch: dict(frames=(B,Tf,d), tokens=(B,T), labels=(B,T))."""
+    enc_out = encode(params, batch["frames"], cfg)
+    return lm.lm_loss(params["decoder"],
+                      {"tokens": batch["tokens"], "labels": batch["labels"]},
+                      cfg.decoder, cross_kv=enc_out,
+                      act_constraint=act_constraint)
 
 
 def init_decode_caches(params, cfg: EncDecConfig, frames, batch: int,

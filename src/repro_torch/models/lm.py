@@ -1,5 +1,5 @@
 """Decoder-only LM (and the generic backbone of enc-dec / VLM) — the port
-of ``repro/models/lm.py``, forward only.
+of ``repro/models/lm.py``.
 
 * Params for each period position are stacked on a leading repeats axis,
   exactly as the reference's ``init_lm`` (``jax.vmap(block_init)``), so a
@@ -14,17 +14,28 @@ of ``repro/models/lm.py``, forward only.
 * Decode threads stacked per-layer caches, updated in place;
   cross-attention blocks read K/V projected once from the source.
 
-Left out: ``token_xent``/``lm_loss`` (LM training, ROADMAP queue 1 item
-12b), ``act_constraint`` and the logical-axis specs (the LM mesh, item
-12d). ``remat`` and ``scan_unroll`` are accepted and ignored: there is no
-autodiff or XLA scan here.
+* Training: under autograd each repeat of the period is recomputed in
+  backward as ``remat`` says (``"full"``: the whole repeat, through
+  ``torch.utils.checkpoint``; ``"dots"``: the matmul outputs without batch
+  dims are kept, the rest recomputed; ``"none"``: everything kept), as the
+  reference's ``_remat_wrap`` does per scan step. The loss is chunked
+  over the sequence (``loss_chunk``), each chunk recomputed in backward,
+  so the (B, T, vocab) fp32 logits are never kept. Recompute changes no
+  number. ``use_flash`` under autograd raises: the reference's flash
+  kernel is forward-only (``nn.attention.self_attention``).
+
+Left out: ``act_constraint`` and the logical-axis specs (the LM mesh,
+ROADMAP queue 1 item 12d). ``scan_unroll`` is accepted and ignored: there
+is no XLA scan here.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.models import blocks
 from repro_torch.nn import attention as attn_mod
@@ -44,7 +55,7 @@ class ModelConfig:
     final_softcap: Optional[float] = None
     embed_scale: bool = False                   # gemma: x *= sqrt(d_model)
     dtype: object = torch.bfloat16
-    remat: str = "full"                         # accepted, ignored
+    remat: str = "full"                         # none | full | dots
     loss_chunk: int = 2048
     use_flash: bool = False
     scan_unroll: bool = False                   # accepted, ignored
@@ -102,18 +113,42 @@ def _add_aux(total, aux):
             total[name] = total[name] + aux[name]
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The port of ``dots_with_no_batch_dims_saveable``: keep the outputs
+    of matmuls without batch dims, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, mode: str):
+    """``fn`` recomputed in backward as ``mode`` says; ``fn`` itself when
+    no gradient is taken (prefill, inference)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    if mode == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    if mode != "full":
+        raise ValueError(f"remat must be none, full or dots, got {mode!r}")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, cross_kv=None,
             positions=None):
     """tokens: (B, T) integer -> (final hidden states (B, T, d_model),
-    aux), aux holding the MoE losses summed over layers and repeats (zero
-    without MoE layers; the shared block's are dropped, as the
-    reference's)."""
+    aux), aux holding the MoE losses summed over each repeat's layers, then
+    over the repeats (zero without MoE layers; the shared block's are
+    dropped, as the reference's)."""
     x = layers.embedding_lookup(params["embed"], tokens,
                                 scale_by_sqrt_dim=cfg.embed_scale)
-    aux = {name: torch.zeros((), dtype=torch.float32, device=x.device)
-           for name in ("load_balance", "z_loss")}
     shared_p = params.get("shared")
-    for r in range(cfg.repeats):
+
+    def body(x, r):
+        aux = {name: torch.zeros((), dtype=torch.float32, device=x.device)
+               for name in ("load_balance", "z_loss")}
         for j, spec in enumerate(cfg.period):
             x, a = blocks.block_apply(_layer(params["layers"][j], r), x, spec,
                                       cross_kv=cross_kv, positions=positions,
@@ -123,7 +158,16 @@ def forward(params, tokens, cfg: ModelConfig, *, cross_kv=None,
             x, _ = blocks.block_apply(shared_p, x, cfg.shared,
                                       cross_kv=cross_kv, positions=positions,
                                       use_flash=cfg.use_flash)
+        return x, aux["load_balance"], aux["z_loss"]
+
+    step = _remat_wrap(body, cfg.remat)
+    auxs = []
+    for r in range(cfg.repeats):
+        x, lb, z = step(x, r)
+        auxs.append((lb, z))
     x = layers.rmsnorm(params["final_norm"], x)
+    aux = {name: torch.stack([a[i] for a in auxs]).sum()
+           for i, name in enumerate(("load_balance", "z_loss"))}
     return x, aux
 
 
@@ -134,6 +178,45 @@ def logits_fn(params, x, cfg: ModelConfig):
     else:
         logits = layers.linear(params["unembed"], x).float()
     return layers.softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over sequence — never keeps (B, T, V))
+# ---------------------------------------------------------------------------
+def token_xent(params, x, labels, cfg: ModelConfig):
+    """x: (B, T, d), labels: (B, T) -> per-token loss (B, T), fp32. Each
+    ``loss_chunk`` of the sequence is recomputed in backward, as the
+    reference's ``jax.checkpoint(f)`` under ``lax.map``."""
+    t = x.shape[1]
+    chunk = min(cfg.loss_chunk, t)
+    if t % chunk != 0:
+        chunk = t
+
+    def f(xc, lc):
+        logits = logits_fn(params, xc, cfg)            # (B, chunk, V) fp32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return logz - gold
+
+    if torch.is_grad_enabled():
+        f = functools.partial(ckpt.checkpoint, f, use_reentrant=False)
+    return torch.cat([f(x[:, i:i + chunk], labels[:, i:i + chunk])
+                      for i in range(0, t, chunk)], dim=1)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, lb_weight: float = 0.01,
+            z_weight: float = 1e-3, cross_kv=None, act_constraint=None):
+    """batch: dict(tokens=(B,T), labels=(B,T)[, cross_kv]). Returns (loss,
+    metrics {xent, load_balance, z_loss})."""
+    if act_constraint is not None:
+        raise NotImplementedError(
+            "act_constraint (sequence parallelism) needs the LM mesh "
+            "(ROADMAP queue 1 item 12d)")
+    cross = batch.get("cross_kv", cross_kv)
+    x, aux = forward(params, batch["tokens"], cfg, cross_kv=cross)
+    xent = token_xent(params, x, batch["labels"], cfg).mean()
+    loss = xent + lb_weight * aux["load_balance"] + z_weight * aux["z_loss"]
+    return loss, {"xent": xent, **aux}
 
 
 # ---------------------------------------------------------------------------

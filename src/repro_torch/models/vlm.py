@@ -5,12 +5,16 @@ The vision tower is a stub, as in the reference: the caller feeds
 precomputed patch embeddings (B, n_patches, vision_dim), which the
 tanh-gated cross-attention layers of the decoder read (a period of five:
 four self-attention blocks and one gated cross-attention block).
-
-Left out: ``vlm_loss`` (LM training, ROADMAP queue 1 item 12b).
 """
 from __future__ import annotations
 
 from repro_torch.models import lm
+
+
+def vlm_loss(params, batch, cfg: lm.ModelConfig, *, act_constraint=None):
+    """batch: dict(tokens, labels, patches=(B, P, vision_dim))."""
+    return lm.lm_loss(params, batch, cfg, cross_kv=batch["patches"],
+                      act_constraint=act_constraint)
 
 
 def init_decode_caches(params, cfg: lm.ModelConfig, patches, batch: int,

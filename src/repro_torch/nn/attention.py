@@ -12,7 +12,9 @@ All matmuls accumulate in fp32. :func:`attend` is the plain version the
 flash kernel (``repro_torch.kernels.flash_attention``) is held to.
 ``self_attention(use_flash=True)`` launches that kernel on CUDA tensors
 and runs its plain version on CPU tensors, as the reference's flag runs
-the Pallas kernel in interpret mode off the TPU.
+the Pallas kernel in interpret mode off the TPU. The kernel is
+forward-only, as the reference's is: ``use_flash=True`` under autograd
+raises, and nothing falls back to the plain version.
 
 Left out: ``_attend_decode_sharded`` (the mesh-sharded decode softmax;
 ``decode_self_attention`` raises if handed a ``logits_constraint``) and
@@ -218,6 +220,12 @@ def self_attention(params, x, cfg: AttentionConfig, *, positions=None,
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     if use_flash:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "use_flash=True under autograd: the flash kernel is "
+                "forward-only, as the reference's Pallas kernel is (no "
+                "custom_vjp); train with use_flash=False")
         from repro_torch.kernels.flash_attention import ops as flash_ops
         out = flash_ops.flash_attention(
             q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window,

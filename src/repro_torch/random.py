@@ -32,6 +32,8 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY_F32 = torch.finfo(torch.float32).tiny
 # the float32 just above -1: ``normal``'s lower bound for its uniform draw
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+# elements a block of ``categorical(shape=)`` draws at once
+_DRAW_BLOCK = 1 << 24
 
 
 def _rotl(x, r: int):
@@ -105,14 +107,18 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0):
-    """``jax.random.uniform`` in float32: mantissa bits under exponent 0,
-    minus one, scaled into [minval, maxval)."""
-    bits = random_bits(key, shape)
+def _unit(bits, minval, maxval):
+    """32-bit draws -> float32 in [minval, maxval): mantissa bits under
+    exponent 0, minus one, scaled."""
     one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     lo = _f32(minval)
     span = _f32(np.float32(maxval) - np.float32(minval))
     return torch.clamp((one - 1.0) * span + lo, min=lo)
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0):
+    """``jax.random.uniform`` in float32."""
+    return _unit(random_bits(key, shape), minval, maxval)
 
 
 def bernoulli(key, p, shape=None):
@@ -138,14 +144,38 @@ def randint(key, shape, minval: int, maxval: int):
     return minval + offset
 
 
-def categorical(key, logits):
+def _gumbel_argmax(u, logits):
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
+
+
+def categorical(key, logits, shape=None):
     """``jax.random.categorical`` along the last axis (Gumbel argmax,
-    mode "low"). Each key draws Gumbel noise of ``logits``' trailing
-    shape beyond the key's batch dimensions."""
-    shape = logits.shape[key.ndim - 1:]
-    u = uniform(key, shape, minval=_TINY_F32, maxval=1.0)
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(gumbel + logits, dim=-1)
+    mode "low"). With ``shape`` None each key draws Gumbel noise of
+    ``logits``' trailing shape beyond the key's batch dimensions. With
+    ``shape`` one key draws ``shape + (V,)`` noise against ``logits``
+    broadcast to it, as ``jax.random.categorical(key, logits, shape=)``
+    does; the draw runs in blocks of rows (each element's bits depend only
+    on its flat index), so its int64 temporaries stay small at any
+    ``shape``."""
+    if shape is None:
+        u = uniform(key, logits.shape[key.ndim - 1:], minval=_TINY_F32,
+                    maxval=1.0)
+        return _gumbel_argmax(u, logits)
+    assert key.ndim == 1, "categorical(shape=) takes one key"
+    shape = tuple(shape)
+    v = logits.shape[-1]
+    rows = math.prod(shape)
+    flat = torch.broadcast_to(logits, shape + (v,)).reshape(rows, v)
+    block = max(1, _DRAW_BLOCK // v)
+    out = []
+    for r0 in range(0, rows, block):
+        r1 = min(rows, r0 + block)
+        idx = torch.arange(r0 * v, r1 * v, dtype=torch.int64,
+                           device=key.device).reshape(r1 - r0, v)
+        y1, y2 = threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
+        out.append(_gumbel_argmax(_unit(y1 ^ y2, _TINY_F32, 1.0),
+                                  flat[r0:r1]))
+    return torch.cat(out).reshape(shape)
 
 
 def permutation(key, n: int):

@@ -44,19 +44,22 @@ def leaves_with_path(tree, path=()) -> list:
     return [(path, tree)]
 
 
+def _build(t, it):
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, [_build(x, it) for x in t])
+    return next(it)
+
+
 def unflatten_like(tree, flat: list):
-    """Rebuild ``tree``'s structure from leaves in :func:`leaves` order."""
-    it = iter(flat)
-
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, [build(x) for x in t])
-        return next(it)
-
-    return build(tree)
+    """Rebuild ``tree``'s structure from leaves in :func:`leaves` order.
+    (A module-level recursion: a self-referencing closure would form a
+    reference cycle holding ``flat``, so its tensors, device memory
+    included, would outlive the returned tree until the cyclic garbage
+    collector ran.)"""
+    return _build(tree, iter(flat))
 
 
 def take_rows(tree, idx):

@@ -101,3 +101,135 @@ def plain(obj):
     if isinstance(obj, type) or "dtype" in type(obj).__name__.lower():
         return jnp.dtype(obj).name
     return obj
+
+
+# ---------------------------------------------------------------------------
+# LM training parity (tests/test_torch_{lm_train*,train_step,train_cli}.py)
+# ---------------------------------------------------------------------------
+TRAIN_GATE = 0.5
+
+
+def spec_dtype(spec, dt, **kw):
+    """An ArchSpec of either package with every config dtype set to ``dt``
+    (None keeps them) and the model config's fields ``kw`` replaced (an
+    enc-dec's decoder config)."""
+    cfg = spec.cfg
+    if spec.kind == "encdec":
+        dec = cfg.decoder
+        if dt is not None:
+            cfg = dataclasses.replace(
+                cfg, dtype=dt, encoder_period=tuple(
+                    layer_dtype(ls, dt) for ls in cfg.encoder_period))
+            dec = replace_model_dtype(dec, dt)
+        return dataclasses.replace(spec, cfg=dataclasses.replace(
+            cfg, decoder=dataclasses.replace(dec, **kw)))
+    if dt is not None:
+        cfg = replace_model_dtype(cfg, dt)
+    return dataclasses.replace(spec, cfg=dataclasses.replace(cfg, **kw))
+
+
+def train_specs(arch, dtype="float32", **kw):
+    """(reference spec, port spec) of a reduced architecture; ``dtype``
+    "float32" replaces every config dtype, "bfloat16" keeps the shipped
+    ones."""
+    from repro.configs import registry as jregistry
+    from repro_torch.configs import registry as tregistry
+    f32 = dtype == "float32"
+    return (spec_dtype(jregistry.get(arch, reduced=True),
+                       jnp.float32 if f32 else None, **kw),
+            spec_dtype(tregistry.get(arch, reduced=True),
+                       torch.float32 if f32 else None, **kw))
+
+
+_TRAIN_PARAMS = {}
+
+
+def train_params(arch, dtype="float32"):
+    """The reference's ``api.init`` params of the reduced architecture
+    (cached) and their port copy; llama-vision's tanh gates set to
+    TRAIN_GATE, so the cross-attention path carries gradient."""
+    if (arch, dtype) not in _TRAIN_PARAMS:
+        from repro.models import api as japi
+        js, _ = train_specs(arch, dtype)
+        jp = jax.jit(lambda k: japi.init(k, js))(jax.random.PRNGKey(0))
+        if js.kind == "vlm":
+            jp["layers"] = [
+                {**layer, **{n: jnp.full_like(layer[n], TRAIN_GATE)
+                             for n in ("gate_attn", "gate_ffn")
+                             if n in layer}}
+                for layer in jp["layers"]]
+        _TRAIN_PARAMS[arch, dtype] = (jp, to_torch(jp))
+    return _TRAIN_PARAMS[arch, dtype]
+
+
+def train_batch(spec, b: int, t: int, seed: int = 1, dtype=jnp.float32):
+    """A reference batch from ``repro.data.synthetic`` (numpy) and its port
+    copy: tokens and labels, and frames or patches for enc-dec or VLM."""
+    from repro.data import synthetic as jsyn
+    key = jax.random.PRNGKey(seed)
+    cfg = spec.cfg.decoder if spec.kind == "encdec" else spec.cfg
+    batch = jsyn.lm_batch(key, b, t, cfg.vocab)
+    if spec.kind == "encdec":
+        batch["frames"] = jsyn.frames(jax.random.fold_in(key, 1), b,
+                                      spec.n_frames, spec.cfg.d_model, dtype)
+    if spec.kind == "vlm":
+        batch["patches"] = jsyn.patches(jax.random.fold_in(key, 1), b,
+                                        spec.n_patches, spec.vision_dim,
+                                        dtype)
+    batch = {k: np.asarray(v) for k, v in jax.device_get(batch).items()}
+    return batch, to_torch(batch)
+
+
+def assert_leaves_close(got, want, tol: float):
+    """Leaf by leaf: max |got - want| <= tol * max |want| (each leaf held
+    relative to its own largest magnitude; an all-zero leaf exactly)."""
+    gl, wl = np_leaves(got), np_leaves(want)
+    assert len(gl) == len(wl)
+    for i, (g, w) in enumerate(zip(gl, wl)):
+        assert g.shape == w.shape, (i, g.shape, w.shape)
+        g, w = g.astype(np.float64), w.astype(np.float64)
+        err = float(np.abs(g - w).max()) if g.size else 0.0
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        assert err <= tol * scale, \
+            f"leaf {i}: max abs err {err:.3e} > {tol} * {scale:.3g}"
+
+
+TRAIN_F32_TOL = 1e-4      # loss, metrics, every gradient leaf (float32)
+TRAIN_BF16_TOL = 2e-3     # the loss and metrics in bf16, relative
+
+
+def check_loss_and_grads(arch, dtype, b=2, t=32):
+    """The port's ``api.loss_fn`` under ``steps.make_value_and_grad``
+    against ``jax.value_and_grad(api.loss_fn(spec))`` on the reference's
+    weights and batch: float32 loss, metrics and every gradient leaf
+    within TRAIN_F32_TOL of the leaf's largest magnitude; bfloat16 (the
+    shipped configs) loss and xent within TRAIN_BF16_TOL relative, the
+    MoE aux terms likewise, each gradient leaf finite."""
+    from repro.models import api as japi
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import api as tapi
+    js, ts = train_specs(arch, dtype)
+    jp, tp = train_params(arch, dtype)
+    jb, tb = train_batch(js, b, t, dtype=jnp.float32 if dtype == "float32"
+                         else jnp.bfloat16)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(japi.loss_fn(js),
+                                              has_aux=True))(jp, jb)
+    (tl, tm), tg = tsteps.make_value_and_grad(tapi.loss_fn(ts))(tp, tb)
+    assert sorted(tm) == sorted(jm) == ["load_balance", "xent", "z_loss"]
+    assert tl.dtype == torch.float32 and tl.shape == ()
+    for i, (a, g) in enumerate(zip(np_leaves(jg), np_leaves(tg))):
+        assert a.shape == g.shape, (i, a.shape, g.shape)
+    for p, g in zip(jax.tree.leaves(tp), jax.tree.leaves(tg)):
+        assert g.dtype == p.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(float(tl), float(jl), rtol=TRAIN_F32_TOL)
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=TRAIN_F32_TOL, atol=1e-6)
+        assert_leaves_close(tg, jg, TRAIN_F32_TOL)
+    else:
+        for got, want in [(tl, jl)] + [(tm[k], jm[k]) for k in jm]:
+            np.testing.assert_allclose(float(got), float(want),
+                                       rtol=TRAIN_BF16_TOL, atol=1e-6)
+        assert all(np.isfinite(g).all() for g in np_leaves(tg))
+    return float(tl)
