@@ -13,8 +13,10 @@ reference's sizes, widths, labels and row keys.
                      float64 on the CPU whatever ``--device`` says.
   table_memory       GS vs per-agent LS state bytes (paper Table 3).
 
-The reference's ``roofline`` table reads the LM dry-run records and
-waits for the LM mesh (ROADMAP queue 1 item 12d); it is not registered.
+  roofline           the three roofline terms of every dry-run record
+                     on disk (``experiments/dryrun_torch``, written by
+                     ``python -m repro_torch.launch.dryrun``), with the
+                     H100's constants (``benchmarks/torch_roofline.py``).
 
 The port runs one shard per process, so ``--shards N`` with N > 1 and
 ``--sharded-gs on`` are refused: the sharded rows come from
@@ -340,15 +342,34 @@ def table_memory(fast: bool = False, device="cuda"):
     return rows
 
 
+def roofline_table(fast: bool = False):
+    """§Roofline: three terms per dry-run cell on disk
+    (experiments/dryrun_torch), the H100's constants."""
+    import glob
+    from benchmarks import torch_roofline
+    rows = []
+    for fn in sorted(glob.glob("experiments/dryrun_torch/*.json")):
+        with open(fn) as f:
+            rec = json.load(f)
+        if rec.get("status") != "ok":
+            continue
+        t = torch_roofline.terms(**torch_roofline.per_device(rec))
+        rows.append({"label": os.path.basename(fn)[:-5],
+                     "arch": rec["arch"], "shape": rec["shape"],
+                     "mesh": rec["mesh"], "variant": rec.get("variant"),
+                     **{k: v for k, v in t.items()}})
+    _emit(rows, "roofline")
+    return rows
+
+
 BENCHES = {
     "fig3_learning": fig3_learning,
     "fig3_scalability": fig3_scalability,
     "fig4_f_sweep": fig4_f_sweep,
     "table_lemma2": table_lemma2,
     "table_memory": table_memory,
+    "roofline": roofline_table,
 }
-NOT_PORTED = {"roofline": "it reads the LM dry-run records of the LM "
-                          "mesh, ROADMAP queue 1 item 12d"}
 
 
 def main(argv=None) -> int:
@@ -383,8 +404,6 @@ def main(argv=None) -> int:
                     help="cuda (the default; raises without a card) or "
                          "cpu, a rehearsal on the host")
     args = ap.parse_args(argv)
-    if args.only in NOT_PORTED:
-        ap.error(f"{args.only} is not ported: {NOT_PORTED[args.only]}")
     if args.only is not None and args.only not in BENCHES:
         ap.error(f"unknown bench {args.only!r}, of {sorted(BENCHES)}")
     try:

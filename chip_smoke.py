@@ -130,8 +130,8 @@ It
      device time; one traced ``ssd_chunk_sm90`` launch a kept call);
   7. drives LM training on the card (``launch/steps.make_train_step``,
      bf16, ``remat="full"``, batches from ``data/pipeline.lm_iterator``
-     on the card): tinyllama-1.1b at full width and depth, 3 steps of
-     B=8 x T=4096 in 4 microbatches; one untimed and one timed step of
+     on the card): tinyllama-1.1b at full width and depth, 2 steps of
+     B=4 x T=4096 in 2 microbatches; one untimed and one timed step of
      granite-moe, mamba2, zamba2 and whisper-tiny at full width and depth
      (B=2 x T=1024; whisper 448 over 1,500 frames); two steps of each of
      llama-3.2-vision, dbrx, qwen1.5, yi and gemma2-9b at their reduced
@@ -142,10 +142,27 @@ It
      on the card against the CPU (the gradients leaf by leaf, two steps)
      and microbatches 2 against 1 on the card, within 1e-4; no kernel
      launched (the flash kernel is forward-only, as the reference's);
-  8. prints the kernel table as one JSON line, the nvidia-smi line, and
+  8. drives the LM mesh (``launch/steps``' mesh forms over
+     ``distributed/mesh``'s rules): four gloo ranks share the card as a
+     (data=2, model=2) DeviceMesh, tinyllama-1.1b at full width in bf16
+     (depth cut to MESH_TRAIN_LAYERS and MESH_SERVE_LAYERS), their DTensor
+     collectives staged through the host (``mesh.host_staged_collectives``):
+     two train steps (TRAIN_RULES, FSDP over data, sequence parallel;
+     the step-0 loss and grad norm against the single-device port's), a
+     flash prefill (one ``flash_fwd_sm90`` launch a layer on every rank;
+     logits against the single-device plain prefill), 8 decode steps
+     with the distributed softmax and with ``decode_gathered`` (logits
+     against the single device; each one step's collectives by kind,
+     the softmax moving fewer bytes), the DIALS-outer sync over (pod=2,
+     data=1, model=2) in fp32 and int8 (against the pod mean on one
+     process) and a reduced float32 train step (1e-5), with each run's
+     seconds and each rank's peak bytes; beside the ranks, one dry-run
+     cell (``python -m repro_torch.launch.dryrun``) on a fake 256-rank
+     group, its record's memory and collective totals printed;
+  9. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Each path (each of 4's, 5's, 6, 7) runs with every launch count set to 0
+Each path (each of 4's, 5's, 6, 7, 8) runs with every launch count set to 0
 just before it and read just after (the kernels line gives each kernel's
 launches by path); each phase prints its seconds, and a line before the
 table all of them. Any failed phase
@@ -305,21 +322,23 @@ LM_DECODE_BATCH, LM_DECODE_PROMPT, LM_DECODE_NEW = 4, 8, 8
 # LM training (launch/steps.make_train_step, bf16, remat "full", batches
 # from data/pipeline.lm_iterator on the card): tinyllama-1.1b at full width
 # and depth (src/repro/configs/tinyllama_1_1b.py:16) at train_4k's seq
-# 4,096 with the global batch cut from 256 to 8, in LM_TRAIN_MICROBATCHES
-# slices, LM_TRAIN_STEPS steps (the first untimed); one untimed and one
+# 4,096 with the global batch cut from 256 to 4 (8 before PR 24), in
+# LM_TRAIN_MICROBATCHES slices, LM_TRAIN_STEPS steps (the first untimed);
+# one untimed and one
 # timed step of each of LM_TRAIN_FAMILIES at full width and depth, B=2 x
 # T=1024 (whisper: its 448-token target over 1,500 frames of
 # synthetic.frames); two steps of each of LM_TRAIN_REDUCED at its reduced
-# config (their AdamW state does not fit one card at full width: the LM
-# mesh, ROADMAP queue 1 item 12d); reduced tinyllama in float32, two steps
+# config (their AdamW state does not fit one card at full width; their
+# mesh layouts are dry-run: launch/dryrun.py); reduced tinyllama in
+# float32, two steps
 # on the card against the CPU and microbatches 2 against 1 on the card,
 # within LM_TRAIN_TOL (relative; of each leaf's largest magnitude). A
 # train step launches none of the six kernels: the reference's flash
 # kernel is forward-only and its SSM blocks run the plain scan.
 LM_TRAIN_ARCH = "tinyllama-1.1b"
-LM_TRAIN_SHAPE = (8, 4096)
-LM_TRAIN_MICROBATCHES = 4
-LM_TRAIN_STEPS = 3
+LM_TRAIN_SHAPE = (4, 4096)
+LM_TRAIN_MICROBATCHES = 2
+LM_TRAIN_STEPS = 2
 LM_TRAIN_FAMILIES = ("granite-moe-1b-a400m", "mamba2-780m", "zamba2-1.2b",
                      "whisper-tiny")
 LM_TRAIN_FAMILY_SHAPE = (2, 1024)
@@ -328,6 +347,39 @@ LM_TRAIN_REDUCED = ("llama-3.2-vision-90b", "dbrx-132b", "qwen1.5-32b",
 LM_TRAIN_TOL = 1e-4
 # its name in the kernels line's launches by path, where its zeros show
 LM_TRAIN_PATH = "lm training (forward-only flash, plain SSM scan)"
+
+# The LM mesh (launch/steps' mesh forms over distributed/mesh's rules):
+# MESH_RANKS gloo ranks sharing cuda:0 as a (data=2, model=2) DeviceMesh,
+# tinyllama-1.1b at full width in bf16, random weights from one seed on
+# every rank, the depth cut to fit the phase's 90 s (MESH_TRAIN_LAYERS,
+# MESH_SERVE_LAYERS of 22). Train: TRAIN_RULES, FSDP over data, sequence
+# parallel, MESH_TRAIN_STEPS steps at MESH_TRAIN_SHAPE (the step-0 loss
+# and grad norm against the single-device port's at the same weights and
+# batch, within MESH_TOL); prefill at MESH_PREFILL with use_flash=True
+# (flash_fwd_sm90 launched once a self-attention layer on every rank;
+# last logits against the single-device plain prefill);
+# decode of MESH_DECODE_STEPS tokens (teacher-forced, the same tokens on
+# both sides) against a MESH_DECODE_SLOTS-slot cache whose sequence axis
+# is over model, with the distributed softmax and with decode_gathered;
+# one DIALS-outer sync over (pod=2, data=1, model=2), fp32 and int8,
+# against the pod mean on one process; reduced tinyllama in float32,
+# one mesh train step against the single device within MESH_F32_TOL; and
+# one dry-run cell as a subprocess on a fake 256-rank group.
+MESH_RANKS = 4
+MESH_SHAPE = (2, 2)
+MESH_TRAIN_SHAPE = (4, 1024)
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_LAYERS = 2
+MESH_SERVE_LAYERS = 4
+MESH_PREFILL = (4, 4096)
+MESH_DECODE_SLOTS, MESH_DECODE_STEPS = 4096, 8
+# bf16 mesh against one device, relative to max(1, |single-device value|):
+# the split products sum bf16 partials across ranks in another order
+MESH_TOL = {"loss": 1e-2, "grad_norm": 5e-2, "logits": LOGIT_TOL}
+MESH_F32_TOL = 1e-5
+MESH_OUTER_TOL = 1e-6
+MESH_TIMEOUT_S = 600
+MESH_DRYRUN = ("tinyllama-1.1b", "train_4k", "single")
 
 
 class PhaseError(RuntimeError):
@@ -3253,6 +3305,406 @@ def check_small_against_plain(device):
               ("gs_return", "ials_reward", "aip_ce_after")),
           "small input: non-finite record")
 
+def _mesh_spec(layers=None, f32=False, **cfg_kw):
+    """tinyllama-1.1b (full width; ``layers`` cuts the depth), or its
+    reduced config in float32."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    if f32:
+        spec = registry.get(LM_TRAIN_ARCH, reduced=True)
+        f = lambda ls: dataclasses.replace(ls, dtype=torch.float32, **{
+            n: dataclasses.replace(getattr(ls, n), dtype=torch.float32)
+            for n in ("attn", "mlp") if getattr(ls, n) is not None})
+        return dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, dtype=torch.float32,
+            period=tuple(f(ls) for ls in spec.cfg.period), **cfg_kw))
+    spec = registry.get(LM_TRAIN_ARCH)
+    if layers is not None:
+        cfg_kw["n_layers"] = layers
+    return with_model_cfg(spec, **cfg_kw)
+
+
+def _mesh_opt_at(opt, step: int):
+    """AdamW state whose step counter reads ``step`` (a non-zero lr)."""
+    import torch
+    return {**opt, "step": torch.full_like(opt["step"], step)}
+
+
+def _pods(anchor_params, n_pods):
+    """Each pod's local params after its inner steps: the anchor moved by
+    a seeded perturbation of its own."""
+    import torch
+    from repro_torch.tree import tree_map
+    out = []
+    for p in range(n_pods):
+        gen = torch.Generator(device="cpu").manual_seed(100 + p)
+        out.append(tree_map(lambda x: x - 0.01 * (p + 1) * torch.randn(
+            x.shape, generator=gen).to(x.device, x.dtype), anchor_params))
+    return out
+
+
+def _outer_expected(anchor_params, pods, cfg):
+    """The DIALS-outer step on one process from every pod's params: the
+    pod mean of the deltas (int8: of each pod's dequantized delta), the
+    Nesterov update from zero velocity."""
+    import torch
+    from repro_torch.optim import compress as comp
+    from repro_torch.tree import leaves, unflatten_like
+    flat_a = leaves(anchor_params)
+    means = []
+    for i, a in enumerate(flat_a):
+        ds = [a.float() - leaves(p)[i].float() for p in pods]
+        if cfg.compress_int8:
+            ds = [comp.decompress(*comp.compress(d, torch.zeros_like(d))[:2],
+                                  d.shape) for d in ds]
+        means.append(torch.stack(ds).mean(0))
+    out = []
+    for a, d in zip(flat_a, means):
+        vel = d
+        step_dir = cfg.momentum * vel + d if cfg.nesterov else vel
+        out.append((a.float() - cfg.outer_lr * step_dir).to(a.dtype))
+    return unflatten_like(anchor_params, out)
+
+
+def _mesh_references(device):
+    """The single-device values the mesh ranks are held to, on the card:
+    tinyllama's step-0 loss and grad norm, its plain prefill's last
+    logits, its decode logits; the reduced float32 step; the outer
+    steps' expected params."""
+    import torch
+    from repro_torch.configs import shapes
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw, outer
+    from repro_torch.tree import leaves, tree_map
+    refs = {}
+    spec = _mesh_spec(MESH_TRAIN_LAYERS)
+    params = steps.init_params(spec, seed=0, device=device)
+    opt = _mesh_opt_at(adamw.init(params, per_agent=False), 100)
+    batch = _train_batch(spec, *MESH_TRAIN_SHAPE, 0, device)
+    _, _, m = steps.make_train_step(spec)(params, opt, batch)
+    refs["train"] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del params, opt, m
+    torch.cuda.empty_cache()
+    spec = _mesh_spec(MESH_SERVE_LAYERS)
+    params = steps.init_params(spec, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    tokens = torch.randint(0, spec.cfg.vocab, MESH_PREFILL, generator=gen,
+                           device=device, dtype=torch.int32)
+    refs["prefill"] = steps.make_prefill_step(spec)(
+        params, {"tokens": tokens}).float().cpu()
+    dshape = shapes.Shape("decode_mesh", MESH_DECODE_SLOTS, MESH_PREFILL[0],
+                          "decode")
+    caches = steps.build_caches(params, spec, dshape)
+    serve = steps.make_serve_step(spec)
+    logs = []
+    for i in range(MESH_DECODE_STEPS):
+        lg, caches = serve(params, tokens[:, i:i + 1], caches, i)
+        logs.append(lg.float().cpu())
+    refs["decode"] = torch.stack(logs)
+    refs["tokens"] = tokens.cpu()
+    del params, caches
+    torch.cuda.empty_cache()
+    spec = _mesh_spec(f32=True)
+    params = steps.init_params(spec, seed=0, device=device)
+    opt = _mesh_opt_at(adamw.init(params, per_agent=False), 100)
+    batch = _train_batch(spec, 4, 128, 0, device)
+    p2, _, m = steps.make_train_step(spec)(params, opt, batch)
+    refs["f32"] = {"loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "params": [x.cpu() for x in leaves(p2)]}
+    anchor = tree_map(lambda x: x.cpu(), params)
+    pods = _pods(anchor, 2)
+    refs["outer"] = {
+        kind: [x for x in leaves(_outer_expected(anchor, pods, outer.OuterConfig(
+            compress_int8=kind == "int8")))]
+        for kind in ("fp32", "int8")}
+    return refs
+
+
+def _rel(a, b) -> float:
+    import torch
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _mesh_rank(root, refs_path):
+    """One rank of the LM mesh phase on cuda:0 (``bootstrap.spawn_local``):
+    the train, prefill, decode, outer and float32 runs of
+    ``run_lm_mesh_path``, each timed, with the errors against ``refs``,
+    the flash launches of the prefill, the collectives of one decode step
+    by kind and the peak bytes of the rank. Returns plain values."""
+    import faulthandler
+    sys.path.insert(0, os.path.join(root, "src"))
+    import torch
+    from repro_torch.distributed import mesh as mesh_lib
+    # a native fault's Python stacks, and the runs reached, in a file a
+    # rank (the parent prints its tail when a rank dies)
+    log = open(_mesh_rank_log(os.environ["DIALS_PROCESS_ID"]), "w")
+    faulthandler.enable(file=log, all_threads=True)
+    # one host thread a rank: four ranks and the dry-run share the cores
+    torch.set_num_threads(1)
+    refs = torch.load(refs_path)
+    with mesh_lib.host_staged_collectives():
+        out = _mesh_rank_runs(refs, log)
+    out["staged"] = dict(mesh_lib.STAGE_STATS)
+    return out
+
+
+def _mesh_rank_log(rank) -> str:
+    return os.path.join(ROOT, "build", f"chip_smoke_mesh_rank{rank}.log")
+
+
+def _mesh_rank_runs(refs, log):
+    """The runs of :func:`_mesh_rank` (inside its staging mode); each
+    run's name goes to ``log`` as it starts."""
+    import torch
+    from repro_torch.configs import shapes
+    from repro_torch.distributed import bootstrap
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.launch import dryrun, mesh as launch_mesh, steps
+    from repro_torch.optim import adamw, outer
+    from repro_torch.tree import leaves
+    ctx = bootstrap.bootstrap()
+    device = dispatch.resolve_device("cuda:0")
+    build.extension()                      # built by the parent: a load
+    torch.cuda.reset_peak_memory_stats()
+    mesh = launch_mesh.make_group_mesh(MESH_SHAPE, ("data", "model"),
+                                       device_type="cuda")
+    out = {"rank": ctx.process_id, "world": ctx.num_processes, "s": {}}
+
+    def timed(name, fn):
+        log.write(f"{name}\n")
+        log.flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out["s"].setdefault(name, []).append(time.perf_counter() - t0)
+        return r
+
+    # train: TRAIN_RULES, FSDP over data, sequence parallel
+    spec = _mesh_spec(MESH_TRAIN_LAYERS)
+    shape = shapes.Shape("train_mesh", MESH_TRAIN_SHAPE[1],
+                         MESH_TRAIN_SHAPE[0], "train")
+    bundle = steps.make_train_step(spec, shape, mesh)
+    # each rank keeps its blocks of the params, and builds the AdamW
+    # state on them: the full fp32 state would not fit four times
+    p = bundle.place(steps.init_params(spec, seed=0, device=device), None,
+                     None)[0]
+    torch.cuda.empty_cache()
+    o = bundle.place(None, _mesh_opt_at(adamw.init(p, per_agent=False),
+                                        100), None)[1]
+    metrics = []
+    for i in range(MESH_TRAIN_STEPS):
+        batch = _train_batch(spec, *MESH_TRAIN_SHAPE, i, device)
+        b = bundle.place(None, None, batch)[2]
+        p, o, m = timed("train", lambda: bundle.fn(p, o, b))
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["train"] = metrics
+    out["train_err"] = {k: _rel(metrics[0][k], refs["train"][k])
+                        for k in ("loss", "grad_norm")}
+    out["train_local_bytes"] = sum(x.to_local().numel()
+                                   * x.to_local().element_size()
+                                   for x in leaves((p, o))
+                                   if hasattr(x, "to_local"))
+    del p, o, bundle
+    torch.cuda.empty_cache()
+    # prefill with the flash kernel on each rank's heads
+    spec = _mesh_spec(MESH_SERVE_LAYERS, use_flash=True)
+    pshape = shapes.Shape("prefill_mesh", MESH_PREFILL[1], MESH_PREFILL[0],
+                          "prefill")
+    bundle = steps.make_prefill_step(spec, pshape, mesh)
+    params = steps.init_params(spec, seed=0, device=device)
+    tokens = refs["tokens"].to(device)
+    p, b = bundle.place(params, {"tokens": tokens})
+    reset_counts()
+    logits = timed("prefill", lambda: bundle.fn(p, b))
+    out["prefill_launches"] = launch_counts()
+    logits = logits.full_tensor().float().cpu()
+    out["prefill_err"] = _rel(logits, refs["prefill"])
+    out["prefill_finite"] = bool(torch.isfinite(logits).all())
+    del p, b, bundle
+    # decode against a cache split along its sequence over model
+    spec = _mesh_spec(MESH_SERVE_LAYERS)
+    dshape = shapes.Shape("decode_mesh", MESH_DECODE_SLOTS, MESH_PREFILL[0],
+                          "decode")
+    for variant, sharded in (("sharded", True), ("decode_gathered", False)):
+        sb = steps.make_serve_step(spec, dshape, mesh,
+                                   sharded_softmax=sharded)
+        caches = steps.build_caches(params, spec, dshape)
+        p, _, c, _ = sb.place(params, None, caches, 0)
+        del caches
+        logs, coll = [], None
+        for i in range(MESH_DECODE_STEPS):
+            tok = sb.place(None, tokens[:, i:i + 1], None, 0)[1]
+            if i == MESH_DECODE_STEPS - 1:
+                counter = dryrun.LocalCounter()
+                with counter:
+                    lg, c = timed(variant, lambda: sb.fn(p, tok, c, i))
+                coll = counter.collectives()
+            else:
+                lg, c = timed(variant, lambda: sb.fn(p, tok, c, i))
+            logs.append(lg.full_tensor().float().cpu())
+        out[variant] = {"err": _rel(torch.stack(logs), refs["decode"]),
+                        "collectives": coll,
+                        "cache_local_bytes": sum(
+                            x.to_local().numel() * x.to_local().element_size()
+                            for x in leaves(c) if x is not None)}
+        del p, c, sb
+    del params
+    torch.cuda.empty_cache()
+    # the DIALS-outer sync over (pod=2, data=1, model=2)
+    pod_mesh = launch_mesh.make_group_mesh((2, 1, 2), ("pod", "data",
+                                                       "model"),
+                                           device_type="cuda")
+    pod = pod_mesh.get_coordinate()[0]
+    spec = _mesh_spec(f32=True)
+    anchor = steps.init_params(spec, seed=0, device=device)
+    local = [tree for tree in _pods(anchor, 2)][pod]
+    out["outer_err"] = {}
+    for kind in ("fp32", "int8"):
+        cfg = outer.OuterConfig(compress_int8=kind == "int8")
+        new, _, _ = timed(f"outer {kind}", lambda: outer.outer_step(
+            local, outer.init(anchor), cfg, pod_axis="pod", mesh=pod_mesh))
+        out["outer_err"][kind] = max(_rel(x.cpu(), y) for x, y in zip(
+            leaves(new), refs["outer"][kind]))
+    # reduced tinyllama in float32: one mesh train step
+    shape = shapes.Shape("train_f32", 128, 4, "train")
+    bundle = steps.make_train_step(spec, shape, mesh)
+    opt = _mesh_opt_at(adamw.init(anchor, per_agent=False), 100)
+    p, o, b = bundle.place(anchor, opt,
+                           _train_batch(spec, 4, 128, 0, device))
+    p, o, m = timed("train f32", lambda: bundle.fn(p, o, b))
+    out["f32_err"] = {k: _rel(m[k], refs["f32"][k])
+                      for k in ("loss", "grad_norm")}
+    out["f32_err"]["params"] = max(
+        _rel(x.full_tensor().cpu(), y)
+        for x, y in zip(leaves(p), refs["f32"]["params"]))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def run_lm_mesh_path(device, smi):
+    """The LM mesh (see MESH_RANKS): the single-device references on the
+    card, then MESH_RANKS ranks spawned on cuda:0 over gloo, each held to
+    them, and beside them the dry-run cell MESH_DRYRUN as a subprocess.
+    Returns the ranks' launch counts, summed."""
+    # the dry-run cell runs beside the ranks (it needs no card)
+    arch, shape, mesh_kind = MESH_DRYRUN
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh_kind, "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    try:
+        return _run_lm_mesh(device, smi, dry, t_dry, out_dir)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def _run_lm_mesh(device, smi, dry, t_dry, out_dir):
+    """:func:`run_lm_mesh_path` with the dry-run subprocess started."""
+    import torch
+    from repro_torch.distributed import bootstrap
+    t0 = time.perf_counter()
+    refs = _mesh_references(device)
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    refs_path = os.path.join(ROOT, "build", "chip_smoke_mesh_refs.pt")
+    os.makedirs(os.path.dirname(refs_path), exist_ok=True)
+    torch.save(refs, refs_path)
+    del refs
+    t0 = time.perf_counter()
+    try:
+        ranks = bootstrap.spawn_local(MESH_RANKS, _mesh_rank, ROOT,
+                                      refs_path, timeout_s=MESH_TIMEOUT_S)
+    except RuntimeError:
+        for r in range(MESH_RANKS):
+            if os.path.exists(_mesh_rank_log(r)):
+                with open(_mesh_rank_log(r)) as f:
+                    print(f"--- {_mesh_rank_log(r)} ---\n"
+                          f"{f.read()[-3000:]}", file=sys.stderr, flush=True)
+        raise
+    spawn_s = time.perf_counter() - t0
+    label = f"lm mesh ({MESH_RANKS} ranks, data x model {MESH_SHAPE})"
+    counts = {}
+    for out in ranks:
+        r = out["rank"]
+        launches = out["prefill_launches"]
+        for k, n in launches.items():
+            counts[k] = counts.get(k, 0) + n
+        secs = {k: [round(x, 3) for x in v] for k, v in out["s"].items()}
+        print(f"{label} rank {r} on {smi}: seconds {secs}; train "
+              f"{out['train']}; err train {out['train_err']}, prefill "
+              f"{out['prefill_err']:.3e}, decode sharded "
+              f"{out['sharded']['err']:.3e}, gathered "
+              f"{out['decode_gathered']['err']:.3e}, outer "
+              f"{out['outer_err']}, float32 {out['f32_err']}; flash "
+              f"launches {launches.get('flash_fwd_sm90')}; peak "
+              f"{out['peak_bytes']} bytes; train state "
+              f"{out['train_local_bytes']} bytes, decode cache "
+              f"{out['sharded']['cache_local_bytes']} bytes a rank; "
+              f"staged collectives {out['staged']}", flush=True)
+        for v in ("sharded", "decode_gathered"):
+            print(f"{label} rank {r}: one decode step ({v}) collectives "
+                  f"{json.dumps(out[v]['collectives'])}", flush=True)
+        check(out["world"] == MESH_RANKS, f"{label}: world {out['world']}")
+        for k, tol in (("loss", MESH_TOL["loss"]),
+                       ("grad_norm", MESH_TOL["grad_norm"])):
+            check(out["train_err"][k] <= tol,
+                  f"{label} rank {r}: step-0 {k} off the single device by "
+                  f"{out['train_err'][k]} (tol {tol})")
+        check(all(math.isfinite(v) for m in out["train"] for v in m.values()),
+              f"{label} rank {r}: a non-finite train metric")
+        check(out["prefill_finite"] and out["prefill_err"]
+              <= MESH_TOL["logits"],
+              f"{label} rank {r}: prefill logits {out['prefill_err']}")
+        check(launches.get("flash_fwd_sm90") == MESH_SERVE_LAYERS
+              and launches.get("flash_attention") == MESH_SERVE_LAYERS,
+              f"{label} rank {r}: flash launches {launches}, want "
+              f"{MESH_SERVE_LAYERS} (one a self-attention layer)")
+        for v in ("sharded", "decode_gathered"):
+            check(out[v]["err"] <= MESH_TOL["logits"],
+                  f"{label} rank {r}: decode ({v}) {out[v]['err']}")
+        coll = out["sharded"]["collectives"]
+        check(coll["counts"]["all-reduce"] > 0,
+              f"{label} rank {r}: the sharded decode reduced nothing")
+        check(out["sharded"]["collectives"]["total_bytes"]
+              < out["decode_gathered"]["collectives"]["total_bytes"],
+              f"{label} rank {r}: the distributed softmax moved no fewer "
+              f"bytes than the gathered cache")
+        for kind, e in out["outer_err"].items():
+            check(e <= MESH_OUTER_TOL, f"{label} rank {r}: outer {kind} {e}")
+        check(max(out["f32_err"].values()) <= MESH_F32_TOL,
+              f"{label} rank {r}: float32 step {out['f32_err']}")
+    arch, shape, mesh_kind = MESH_DRYRUN
+    _, err = dry.communicate(timeout=600)
+    dry_s = time.perf_counter() - t_dry
+    path = os.path.join(out_dir, f"{arch}__{shape}__{mesh_kind}__baseline"
+                                 f".json")
+    check(dry.returncode == 0 and os.path.exists(path),
+          f"dry-run cell {MESH_DRYRUN} failed: {err[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    check(rec["status"] == "ok" and rec["n_devices"] == 256
+          and rec["memory"]["argument_bytes"] > 0
+          and rec["cost"]["flops"] > 0,
+          f"dry-run cell {MESH_DRYRUN}: {rec}")
+    print(f"dry-run {MESH_DRYRUN} (fake 256-rank group, fake CUDA tensors) "
+          f"done {dry_s:.2f} s after its start, beside the ranks: memory "
+          f"{json.dumps(rec['memory'])}; collectives "
+          f"{json.dumps(rec['collectives'])}; flops/dev "
+          f"{rec['cost']['flops']:.4e}; model flops "
+          f"{rec['model_flops_global']:.4e}", flush=True)
+    print(f"{label}: references {ref_s:.2f} s, spawn to finish "
+          f"{spawn_s:.2f} s", flush=True)
+    return counts
+
 
 PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "ssd kernel vs plain", "dials main path",
@@ -3263,7 +3715,7 @@ PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "experiment harness", "gae kernel vs plain at the harness shape",
           "contracts path", "gemma2-9b serving path",
           "lm architectures serving path", "mamba2 ssm layer path",
-          "lm training path")
+          "lm training path", "lm mesh path")
 # phases that read an earlier phase's results
 NEEDS = {"dials sharded path": "dials warehouse gru-policy path",
          "checkpoint resume on the card": "dials warehouse gru-policy path",
@@ -3435,6 +3887,10 @@ def main(argv=None) -> int:
         if "lm training path" in run:
             paths[LM_TRAIN_PATH] = (phase(
                 "lm training path", run_lm_training_path, device, smi), {})
+        if "lm mesh path" in run:
+            paths[f"lm mesh ({MESH_RANKS} ranks on cuda:0, flash "
+                  f"prefill)"] = (phase("lm mesh path", run_lm_mesh_path,
+                                        device, smi), {})
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():

@@ -242,6 +242,7 @@ def bootstrap(cfg: Optional[BootstrapConfig] = None, *,
         return DistContext(process_id=0, num_processes=1, coordinator=None,
                            initialized=False)
     import torch.distributed as dist
+    release_solo_group()
     store = _store_rendezvous(cfg, environ, init_timeout_s)
     kwargs = (grace_kwargs(peer_death_grace_s)
               if peer_death_grace_s is not None else {})
@@ -254,6 +255,36 @@ def bootstrap(cfg: Optional[BootstrapConfig] = None, *,
     return DistContext(process_id=dist.get_rank(),
                        num_processes=dist.get_world_size(),
                        coordinator=cfg.coordinator, initialized=True)
+
+
+# the one-rank group solo_group() started (None: it started none)
+_SOLO = None
+
+
+def solo_group():
+    """A process group of this rank alone: the default group when it has
+    one rank; a one-rank subgroup of a larger default group; and without
+    a default group, a one-rank gloo group on an in-memory store, which
+    :func:`release_solo_group` (and a later :func:`bootstrap`) ends.
+    What ``launch.mesh.make_host_mesh`` builds on."""
+    global _SOLO
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(),
+                                world_size=1, rank=0)
+        _SOLO = dist.group.WORLD
+    if dist.get_world_size() == 1:
+        return dist.group.WORLD
+    return dist.new_group([dist.get_rank()], use_local_synchronization=True)
+
+
+def release_solo_group() -> None:
+    """End the one-rank group :func:`solo_group` started, if it did."""
+    global _SOLO
+    import torch.distributed as dist
+    if _SOLO is not None and dist.is_initialized():
+        dist.destroy_process_group()
+    _SOLO = None
 
 
 # how long shutdown's barrier waits for the other ranks to arrive

@@ -21,9 +21,10 @@ everyone else on slightly stale influence.
   a port monitor see each other's beats), with a timeout-gated wait that
   turns a silent host into a ``dead`` verdict every survivor agrees on.
 
-The reference's ``reshard`` (a pytree onto an LM mesh under its logical
-rules) needs the LM mesh rules (``distributed/mesh.py``), which belong to
-the LM stack (ROADMAP queue 1 item 12).
+* :func:`reshard` — a tree placed onto a (new) ``DeviceMesh`` under the
+  shardings its logical specs resolve to: elastic scale-up/down and
+  restart-on-different-topology both reduce to this plus a checkpoint
+  restore. :data:`AGENT_RULES` is the rule of agent-stacked state.
 """
 from __future__ import annotations
 
@@ -169,6 +170,31 @@ def elastic_plan(n_agents: int, n_shards: int, dead: Sequence[int],
             # str keys: JSON objects cannot carry int keys
             moved={str(b): plan.owner(b) for b in plan.dead})
     return plan
+
+
+# Logical rule for per-agent stacked state: leading axis "agents" maps to
+# the 1-D ("shards",) mesh axis.
+AGENT_RULES = (("agents", "shards"),)
+
+
+def reshard(tree, spec_tree, new_mesh, *, rules=None, fsdp_axes=()):
+    """Place ``tree`` onto ``new_mesh`` under the shardings ``spec_tree``
+    (its logical specs) resolves to on it (``mesh.TRAIN_RULES`` unless
+    ``rules`` says otherwise). A plain leaf is the full tensor every rank
+    holds; a DTensor leaf (laid out on another mesh of the same ranks, or
+    this one) is gathered whole and laid out again."""
+    from repro_torch.distributed import mesh as mesh_lib
+    rules = mesh_lib.TRAIN_RULES if rules is None else rules
+    shardings = mesh_lib.logical_to_sharding(spec_tree, tree, new_mesh,
+                                             rules=rules,
+                                             fsdp_axes=fsdp_axes)
+
+    def place(x, sh):
+        if mesh_lib.is_dtensor(x):
+            x = x.full_tensor()
+        return mesh_lib.distribute(x, sh)
+    return mesh_lib.map_specs(lambda _, x, sh: place(x, sh), spec_tree,
+                              tree, shardings)
 
 
 def reshard_agents(tree, new_mesh):

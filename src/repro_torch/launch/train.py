@@ -1,11 +1,12 @@
-"""Production training driver — the port of ``repro/launch/train.py`` on
-one device.
+"""Production training driver — the port of ``repro/launch/train.py``.
 
 Builds the architecture's train step and runs it over the synthetic data
 pipeline with gradient clipping, the warmup-cosine schedule,
 checkpoint/restart and the DIALS-outer reconciliation every
-``--sync-every`` steps (one pod: ``pod_axis`` waits for the LM mesh,
-ROADMAP queue 1 item 12d). Runs on the card unless ``--device cpu``.
+``--sync-every`` steps (one pod). As the reference does, it builds the
+host mesh (``launch.mesh.make_host_mesh``: data=1, model=1) and the
+params' shardings on it, prints the mesh, and runs the step on the one
+device. Runs on the card unless ``--device cpu``.
 
 Restart: with ``--ckpt`` every reconciliation saves ``{"params", "opt"}``
 and, since the outer state and the compression error carry across syncs,
@@ -29,6 +30,9 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.data import pipeline
+from repro_torch.distributed import bootstrap
+from repro_torch.distributed import mesh as mesh_lib
+from repro_torch.launch import mesh as prod_mesh
 from repro_torch.launch import steps
 from repro_torch.models import api
 from repro_torch.optim import adamw, clip, compress, outer, schedule
@@ -88,8 +92,15 @@ def main(argv=None):
     params = steps.init_params(spec, seed=0, device=args.device)
     device = leaves(params)[0].device
     n_params = api.param_count(params)
+    try:
+        mesh = prod_mesh.make_host_mesh(device_type=device.type)
+        steps.param_shardings(spec, mesh)
+        shape = dict(mesh_lib.mesh_shape(mesh))
+    finally:
+        bootstrap.release_solo_group()
     print(f"{args.arch}{' (reduced)' if args.reduced else ''}: "
-          f"{n_params/1e6:.2f}M params on {device}", flush=True)
+          f"{n_params/1e6:.2f}M params on {device}, mesh {shape}",
+          flush=True)
     opt = adamw.init(params, per_agent=False)
     out_state = outer.init(params) if args.sync_every else None
     err = None

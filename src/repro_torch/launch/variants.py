@@ -1,13 +1,146 @@
-"""The DIALS half of ``repro/launch/variants.py``: named MARL scenarios,
-the ``DIALS_*`` process-group launcher and the runtime knobs behind the
-``--shards`` / ``--async-collect`` / ``--sharded-gs`` / ``--streams``
-flags of the port's benchmarks and examples.
+"""Named sharding/step variants — the port of ``repro/launch/variants.py``.
 
-The reference's LM half (``VARIANTS``, the sharding rule tables such as
-``DECODE_TP2D_RULES``, built on ``repro/distributed/mesh.py``) waits for
-the LM mesh, ROADMAP queue 1 item 12d; nothing here refers to it.
+The LM half: each variant maps (spec, shape) -> kwargs for
+``launch.steps.make_step``; the dry-run's ``--variant`` flag selects one,
+so every hypothesis in the hillclimb log is a reproducible command line.
+The DIALS half: named MARL scenarios, the ``DIALS_*`` process-group
+launcher and the runtime knobs behind the ``--shards`` /
+``--async-collect`` / ``--sharded-gs`` / ``--streams`` flags of the
+port's benchmarks and examples.
 """
 from __future__ import annotations
+
+import dataclasses as dc
+
+from repro_torch.distributed import mesh as mesh_lib
+
+# 2D tensor-parallel decode: weights split over BOTH mesh axes (model
+# major; no per-step weight all-gather), batch replicated, cache
+# sequence-split.
+DECODE_TP2D_RULES: mesh_lib.Rules = (
+    ("batch", None),
+    ("cache_batch", ("pod", "data")),
+    ("cache_seq", "model"),
+    ("vocab", ("model", "data")),
+    ("heads", ("model", "data")),
+    ("kv_heads", ("model", "data")),
+    ("mlp", ("model", "data")),
+    ("expert", "model"),
+    ("embed", None),
+    ("layers", None),
+    ("seq", None),
+)
+
+
+def _decode_tp2d(spec, shape):
+    return {"rules": DECODE_TP2D_RULES, "fsdp_axes": ()}
+
+
+def _train_no_fsdp(spec, shape):
+    # pure TP+DP: params replicated over data (baseline ablation)
+    return {"fsdp_axes": ()}
+
+
+def _decode_gathered(spec, shape):
+    # pre-optimization decode baseline: each rank reads its rows' whole
+    # K/V cache instead of running the distributed softmax.
+    return {"sharded_softmax": False}
+
+
+def _decode_fsdp(spec, shape):
+    # weight-gathered decode (capacity-first): ZeRO-split weights,
+    # all-gathered per step — the baseline for big-model serving memory
+    return {"fsdp_axes": ("pod", "data")}
+
+
+def _replace_moe(spec, **moe_kw):
+    """Rebuild an ArchSpec with every MoE block's config modified."""
+    def fix_cfg(cfg):
+        period = tuple(
+            dc.replace(b, moe=dc.replace(b.moe, **moe_kw))
+            if b.moe is not None else b for b in cfg.period)
+        return dc.replace(cfg, period=period)
+
+    if spec.kind == "encdec":
+        cfg = dc.replace(spec.cfg, decoder=fix_cfg(spec.cfg.decoder))
+    else:
+        cfg = fix_cfg(spec.cfg)
+    return dc.replace(spec, cfg=cfg)
+
+
+def _moe_dense(spec, shape):
+    # the one-hot dispatch of the reference (the port computes it as a
+    # row scatter and gather: same result)
+    return {"spec": _replace_moe(spec, dispatch="dense")}
+
+
+def _moe_gather(spec, shape):
+    # scatter/gather MoE dispatch
+    return {"spec": _replace_moe(spec, dispatch="gather")}
+
+
+def _moe_gather_sharded(spec, shape):
+    # group-local routing/capacity (16 groups = the data axis)
+    return {"spec": _replace_moe(spec, dispatch="gather", token_shards=16)}
+
+
+def _train_pod_local_fsdp(spec, shape):
+    # FSDP only WITHIN a pod; across pods, parameters are replicated and
+    # reconciled every F steps by the DIALS-outer optimizer — the per-step
+    # train program carries no cross-pod collective.
+    return {"fsdp_axes": ("data",)}
+
+
+def _remat_dots(spec, shape):
+    # keep only matmul outputs instead of full-repeat recompute
+    if spec.kind == "encdec":
+        cfg = dc.replace(spec.cfg,
+                         decoder=dc.replace(spec.cfg.decoder, remat="dots"))
+    else:
+        cfg = dc.replace(spec.cfg, remat="dots")
+    return {"spec": dc.replace(spec, cfg=cfg)}
+
+
+# Pure ZeRO-3 data parallelism: batch over every mesh axis, no tensor
+# parallelism at all. Weights/optimizer fully split over all ranks and
+# all-gathered layer by layer.
+ZERO3_RULES: mesh_lib.Rules = (
+    ("batch", ("pod", "data", "model")),
+    ("vocab", None),
+    ("heads", None),
+    ("kv_heads", None),
+    ("mlp", None),
+    ("expert", None),
+    ("embed", None),
+    ("layers", None),
+    ("seq", None),
+    ("cache_batch", ("pod", "data", "model")),
+    ("cache_seq", None),
+)
+
+
+def _train_zero3(spec, shape):
+    return {"rules": ZERO3_RULES,
+            "fsdp_axes": ("pod", "data", "model"),
+            "seq_parallel": False,
+            "batch_axes": ("pod", "data", "model")}
+
+
+def _train_zero3_mb8(spec, shape):
+    # zero3 + 8-way gradient accumulation: activation memory /8
+    return {**_train_zero3(spec, shape), "microbatches": 8}
+
+
+def _train_zero3_dots(spec, shape):
+    # zero3 + dots-remat
+    cfg = dc.replace(spec.cfg, remat="dots")
+    return {**_train_zero3(spec, shape), "spec": dc.replace(spec, cfg=cfg)}
+
+
+def _train_no_seqpar(spec, shape):
+    # ablation: drop the sequence-parallel residual constraint
+    return {"seq_parallel": False}
+
 
 # ---------------------------------------------------------------------------
 # §DIALS MARL scenarios: named (env, side) cells resolved through
@@ -84,3 +217,20 @@ def dials_variant_for(shards, async_collect=False, sharded_gs="auto",
     if streams is not None:
         out["collect_streams"] = int(streams)
     return out
+
+
+VARIANTS = {
+    "train_no_seqpar": _train_no_seqpar,
+    "train_zero3": _train_zero3,
+    "train_zero3_dots": _train_zero3_dots,
+    "train_zero3_mb8": _train_zero3_mb8,
+    "decode_tp2d": _decode_tp2d,
+    "decode_gathered": _decode_gathered,
+    "train_no_fsdp": _train_no_fsdp,
+    "decode_fsdp": _decode_fsdp,
+    "moe_dense": _moe_dense,
+    "moe_gather": _moe_gather,
+    "moe_gather_sharded": _moe_gather_sharded,
+    "train_pod_local_fsdp": _train_pod_local_fsdp,
+    "remat_dots": _remat_dots,
+}

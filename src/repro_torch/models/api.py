@@ -2,7 +2,6 @@
 the port of ``repro/models/api.py``.
 
 ``ArchSpec`` is what a config file in ``repro_torch.configs`` produces.
-Left out: ``logical_specs`` (the LM mesh, ROADMAP queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -35,6 +34,12 @@ def init(gen, spec: ArchSpec):
     return lm.init_lm(gen, spec.cfg)
 
 
+def logical_specs(spec: ArchSpec):
+    if spec.kind == "encdec":
+        return encdec.encdec_logical_specs(spec.cfg)
+    return lm.lm_logical_specs(spec.cfg)
+
+
 def loss_fn(spec: ArchSpec, *, act_constraint=None):
     """``loss(params, batch) -> (loss, metrics)`` for the spec's kind."""
     if spec.kind == "encdec":
@@ -59,10 +64,13 @@ def init_caches(params, spec: ArchSpec, batch: int, max_len: int,
     return lm.init_caches(params, spec.cfg, batch, max_len)
 
 
-def decode_step(params, token, caches, index: int, spec: ArchSpec):
+def decode_step(params, token, caches, index: int, spec: ArchSpec, *,
+                logits_constraint=None):
     if spec.kind == "encdec":
-        return encdec.decode_step(params, token, caches, index, spec.cfg)
-    return lm.decode_step(params, token, caches, index, spec.cfg)
+        return encdec.decode_step(params, token, caches, index, spec.cfg,
+                                  logits_constraint=logits_constraint)
+    return lm.decode_step(params, token, caches, index, spec.cfg,
+                          logits_constraint=logits_constraint)
 
 
 def param_count(params) -> int:

@@ -11,8 +11,8 @@ reference, so a JAX params tree carries across leaf for leaf.
 Mixers: self-attention (``attn``), the Mamba-2 SSM layer (``ssm``, run
 without the SSD kernel, as the reference's block runs it) and
 cross-attention (``cross_attn``, with llama-vision's tanh gates); ffns: the
-MLP, MoE (``moe``, which returns the aux terms) or none. Left out: the
-logical-axis specs (ROADMAP queue 1 item 12d).
+MLP, MoE (``moe``, which returns the aux terms) or none. Each block has
+its logical-axis specs (params and decode cache) for the mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import layers, moe as moe_mod, ssm as ssm_mod
 
@@ -69,6 +70,49 @@ def block_init(gen, spec: LayerSpec):
     return p
 
 
+def block_logical_specs(spec: LayerSpec):
+    s = {"norm1": {"scale": ("embed",)}}
+    if spec.mixer in ("attn", "cross_attn"):
+        s["mixer"] = attn_mod.attention_logical_specs(spec.attn)
+        if spec.mixer == "cross_attn":
+            s["mixer"] = {"q": {"w": ("embed", "heads")},
+                          "k": {"w": (None, "kv_heads")},
+                          "v": {"w": (None, "kv_heads")},
+                          "o": {"w": ("heads", "embed")}}
+            if spec.gated_cross:
+                s["gate_attn"] = ()
+                s["gate_ffn"] = ()
+    else:
+        s["mixer"] = ssm_mod.ssm_logical_specs(spec.ssm)
+    if spec.post_norm:
+        s["norm1_post"] = {"scale": ("embed",)}
+    if spec.ffn != "none":
+        s["norm2"] = {"scale": ("embed",)}
+        s["ffn"] = (layers.mlp_logical_specs(spec.mlp) if spec.ffn == "mlp"
+                    else moe_mod.moe_logical_specs(spec.moe))
+        if spec.post_norm:
+            s["norm2_post"] = {"scale": ("embed",)}
+    return s
+
+
+def block_cache_logical_specs(spec: LayerSpec):
+    """Logical axes for one block's decode cache (parallel tree)."""
+    if spec.mixer == "attn":
+        return {"k": ("cache_batch", "cache_seq", "kv_heads", None),
+                "v": ("cache_batch", "cache_seq", "kv_heads", None),
+                "pos": ("cache_seq",)}
+    if spec.mixer == "ssm":
+        return {"conv": ("cache_batch", None, "mlp"),
+                "state": ("cache_batch", "heads", None, None)}
+    # cross_attn: precomputed K/V over the (short) modality sequence
+    return {"k": ("cache_batch", None, "kv_heads", None),
+            "v": ("cache_batch", None, "kv_heads", None)}
+
+
+def _gathered(h):
+    return mesh_lib.gather_rows(h) if mesh_lib.is_dtensor(h) else h
+
+
 def _gate(p, name: str, spec: LayerSpec, h):
     """llama-vision's tanh gate on a cross block's branch."""
     if spec.gated_cross:
@@ -80,7 +124,7 @@ def _ffn(p, spec: LayerSpec, x):
     """The residual ffn half of a block: (x, moe aux or None)."""
     if spec.ffn == "none":
         return x, None
-    h = layers.rmsnorm(p["norm2"], x)
+    h = _gathered(layers.rmsnorm(p["norm2"], x))
     aux = None
     if spec.ffn == "mlp":
         h = layers.mlp(p["ffn"], h, activation=spec.mlp.activation)
@@ -102,7 +146,10 @@ def _mixer_out(p, spec: LayerSpec, x, h):
 def block_apply(p, x, spec: LayerSpec, *, cross_kv=None, positions=None,
                 use_flash: bool = False):
     """Returns (x, moe_aux_or_None). x: (B, T, d_model)."""
-    h = layers.rmsnorm(p["norm1"], x)
+    p = mesh_lib.unshard(p, x)
+    # on the mesh the normed input is gathered along the sequence once
+    # for all the mixer's products (a no-op off the mesh)
+    h = _gathered(layers.rmsnorm(p["norm1"], x))
     if spec.mixer == "attn":
         h = attn_mod.self_attention(p["mixer"], h, spec.attn,
                                     positions=positions, use_flash=use_flash)
@@ -132,17 +179,20 @@ def init_block_cache(spec: LayerSpec, batch: int, max_len: int,
                      f"lm.init_caches(cross_src=...)")
 
 
-def block_decode(p, x, cache, index: int, spec: LayerSpec):
+def block_decode(p, x, cache, index: int, spec: LayerSpec, *,
+                 logits_constraint=None):
     """One-token decode of a self-attention or SSM block. x: (B, 1, d).
     Returns (x, cache); the cache is updated in place."""
+    p = mesh_lib.unshard(p, x)
     h = layers.rmsnorm(p["norm1"], x)
     if spec.mixer == "attn":
-        h, cache = attn_mod.decode_self_attention(p["mixer"], h, cache,
-                                                  index, spec.attn)
+        h, cache = attn_mod.decode_self_attention(
+            p["mixer"], h, cache, index, spec.attn,
+            logits_constraint=logits_constraint)
     elif spec.mixer == "ssm":
         h, new = ssm_mod.ssm_decode_step(p["mixer"], h, cache, spec.ssm)
         for name in ("conv", "state"):
-            cache[name].copy_(new[name])
+            mesh_lib.assign(cache[name], new[name])
     else:
         raise ValueError(f"{spec.mixer} blocks decode through "
                          f"lm._decode_cross")

@@ -9,7 +9,6 @@ self-attention stack (run without the flash kernel, as the reference's
 cross-attention blocks (each whisper layer's self+cross+mlp is a period
 of two blocks: [self/no-ffn, cross/mlp]).
 
-Left out: the logical-axis specs (the LM mesh, ROADMAP queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.mesh import stack_specs
 from repro_torch.models import blocks, lm
 from repro_torch.nn import layers
 
@@ -48,6 +48,15 @@ def init_encdec(gen, cfg: EncDecConfig):
     }
 
 
+def encdec_logical_specs(cfg: EncDecConfig):
+    return {
+        "encoder": {"layers": [stack_specs(blocks.block_logical_specs(spec))
+                               for spec in cfg.encoder_period],
+                    "final_norm": {"scale": ("embed",)}},
+        "decoder": lm.lm_logical_specs(cfg.decoder),
+    }
+
+
 def encode(params, frames, cfg: EncDecConfig):
     """frames: (B, T_frames, d_model) stub embeddings -> encoder output."""
     x = frames.to(cfg.dtype)
@@ -75,6 +84,7 @@ def init_decode_caches(params, cfg: EncDecConfig, frames, batch: int,
                           cross_src=enc_out)
 
 
-def decode_step(params, token, caches, index: int, cfg: EncDecConfig):
+def decode_step(params, token, caches, index: int, cfg: EncDecConfig, *,
+                logits_constraint=None):
     return lm.decode_step(params["decoder"], token, caches, index,
-                          cfg.decoder)
+                          cfg.decoder, logits_constraint=logits_constraint)

@@ -24,9 +24,15 @@ of ``repro/models/lm.py``.
   number. ``use_flash`` under autograd raises: the reference's flash
   kernel is forward-only (``nn.attention.self_attention``).
 
-Left out: ``act_constraint`` and the logical-axis specs (the LM mesh,
-ROADMAP queue 1 item 12d). ``scan_unroll`` is accepted and ignored: there
-is no XLA scan here.
+* The mesh: :func:`lm_logical_specs` and :func:`cache_logical_specs`
+  name each leaf's logical axes (``repro_torch.distributed.mesh``
+  resolves them); ``act_constraint`` redistributes the residual stream at
+  the repeat boundaries (sequence parallelism) and ``logits_constraint``
+  the decode attention logits (the distributed softmax), as the
+  reference's sharding constraints.
+
+``scan_unroll`` is accepted and ignored: there is no XLA scan here, and a
+loop over repeats costs every repeat in full.
 """
 from __future__ import annotations
 
@@ -37,6 +43,9 @@ from typing import Optional, Tuple
 import torch
 import torch.utils.checkpoint as ckpt
 
+from repro_torch.distributed.mesh import (is_dtensor, local_rows,
+                                          reduce_partial, replicated_scalar,
+                                          stack_specs, take_last, unshard)
 from repro_torch.models import blocks
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import layers
@@ -100,6 +109,21 @@ def init_lm(gen, cfg: ModelConfig):
     return params
 
 
+def lm_logical_specs(cfg: ModelConfig):
+    specs = {
+        "embed": {"table": ("vocab", "embed")},
+        "final_norm": {"scale": ("embed",)},
+        # the stacked repeats axis leads every per-layer leaf
+        "layers": [stack_specs(blocks.block_logical_specs(spec))
+                   for spec in cfg.period],
+    }
+    if cfg.shared is not None:
+        specs["shared"] = blocks.block_logical_specs(cfg.shared)
+    if not cfg.tie_embeddings:
+        specs["unembed"] = {"w": ("embed", "vocab")}
+    return specs
+
+
 def _layer(stacked, r: int):
     return tree_map(lambda x: x[r], stacked)
 
@@ -137,18 +161,28 @@ def _remat_wrap(fn, mode: str):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, cross_kv=None,
-            positions=None):
+            positions=None, act_constraint=None):
     """tokens: (B, T) integer -> (final hidden states (B, T, d_model),
     aux), aux holding the MoE losses summed over each repeat's layers, then
     over the repeats (zero without MoE layers; the shared block's are
-    dropped, as the reference's)."""
+    dropped, as the reference's).
+
+    ``act_constraint``: optional sharding constraint applied to the
+    residual stream after the embedding and after every repeat (sequence
+    parallelism: the carry between repeats, the only activation kept
+    across the depth under ``remat="full"``, is stored sequence-sharded
+    over the model axis)."""
     x = layers.embedding_lookup(params["embed"], tokens,
                                 scale_by_sqrt_dim=cfg.embed_scale)
+    if act_constraint is not None:
+        x = act_constraint(x)
     shared_p = params.get("shared")
 
     def body(x, r):
         aux = {name: torch.zeros((), dtype=torch.float32, device=x.device)
                for name in ("load_balance", "z_loss")}
+        if is_dtensor(x):
+            aux = {k: replicated_scalar(v, x) for k, v in aux.items()}
         for j, spec in enumerate(cfg.period):
             x, a = blocks.block_apply(_layer(params["layers"][j], r), x, spec,
                                       cross_kv=cross_kv, positions=positions,
@@ -158,6 +192,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cross_kv=None,
             x, _ = blocks.block_apply(shared_p, x, cfg.shared,
                                       cross_kv=cross_kv, positions=positions,
                                       use_flash=cfg.use_flash)
+        if act_constraint is not None:
+            x = act_constraint(x)
         return x, aux["load_balance"], aux["z_loss"]
 
     step = _remat_wrap(body, cfg.remat)
@@ -194,8 +230,22 @@ def token_xent(params, x, labels, cfg: ModelConfig):
 
     def f(xc, lc):
         logits = logits_fn(params, xc, cfg)            # (B, chunk, V) fp32
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        if is_dtensor(logits):
+            # vocab-parallel: a max and a sum reduced across the vocab
+            # split (explicitly: the log's backward divides by its input,
+            # which must not be a partial sum), never the (B, chunk, V)
+            # logits gathered
+            m = reduce_partial(torch.amax(logits, dim=-1,
+                                          keepdim=True)).detach()
+            s = reduce_partial(torch.sum(torch.exp(logits - m), dim=-1,
+                                         keepdim=True))
+            logz = (m + torch.log(s))[..., 0]
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+        if is_dtensor(logits):
+            gold = take_last(logits, lc)
+        else:
+            gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
         return logz - gold
 
     if torch.is_grad_enabled():
@@ -208,12 +258,9 @@ def lm_loss(params, batch, cfg: ModelConfig, *, lb_weight: float = 0.01,
             z_weight: float = 1e-3, cross_kv=None, act_constraint=None):
     """batch: dict(tokens=(B,T), labels=(B,T)[, cross_kv]). Returns (loss,
     metrics {xent, load_balance, z_loss})."""
-    if act_constraint is not None:
-        raise NotImplementedError(
-            "act_constraint (sequence parallelism) needs the LM mesh "
-            "(ROADMAP queue 1 item 12d)")
     cross = batch.get("cross_kv", cross_kv)
-    x, aux = forward(params, batch["tokens"], cfg, cross_kv=cross)
+    x, aux = forward(params, batch["tokens"], cfg, cross_kv=cross,
+                     act_constraint=act_constraint)
     xent = token_xent(params, x, batch["labels"], cfg).mean()
     loss = xent + lb_weight * aux["load_balance"] + z_weight * aux["z_loss"]
     return loss, {"xent": xent, **aux}
@@ -256,24 +303,44 @@ def init_caches(params, cfg: ModelConfig, batch: int, max_len: int,
     return {"layers": caches, "shared": shared}
 
 
+def cache_logical_specs(cfg: ModelConfig):
+    """Logical-axis tree parallel to :func:`init_caches`'s output (stacked
+    caches get a leading "layers" axis)."""
+    layers_specs = [stack_specs(blocks.block_cache_logical_specs(s))
+                    for s in cfg.period]
+    shared = (stack_specs(blocks.block_cache_logical_specs(cfg.shared))
+              if cfg.shared is not None else None)
+    return {"layers": layers_specs, "shared": shared}
+
+
 def _decode_cross(p, x, cache, spec):
     """Cross-attn decode against precomputed K/V."""
+    p = unshard(p, x)
     h = layers.rmsnorm(p["norm1"], x)
-    b = x.shape[0]
     dh = spec.attn.dh
-    q = layers.linear(p["mixer"]["q"], h).reshape(b, 1, spec.attn.num_heads,
-                                                  dh)
-    out = attn_mod.attend(q, cache["k"], cache["v"], causal=False,
-                          softcap=spec.attn.attn_softcap)
-    h = layers.linear(p["mixer"]["o"], out.reshape(b, 1, -1))
+
+    def attend(qf, k, v):
+        q = qf.reshape(qf.shape[0], 1, spec.attn.num_heads, dh)
+        return attn_mod.attend(q, k, v, causal=False,
+                               softcap=spec.attn.attn_softcap) \
+            .reshape(qf.shape[0], 1, -1)
+
+    qf = layers.linear(p["mixer"]["q"], h)
+    if is_dtensor(qf):
+        out = local_rows(attend, qf, cache["k"], cache["v"])
+    else:
+        out = attend(qf, cache["k"], cache["v"])
+    h = layers.linear(p["mixer"]["o"], out)
     h = blocks._gate(p, "gate_attn", spec, h)
     return blocks._ffn(p, spec, x + h)[0]
 
 
-def decode_step(params, token, caches, index: int, cfg: ModelConfig):
+def decode_step(params, token, caches, index: int, cfg: ModelConfig, *,
+                logits_constraint=None):
     """token: (B, 1) integer, index: the absolute position (a Python int).
     Returns (logits (B, 1, V) fp32, caches); the caches are updated in
-    place (the reference's serve step donates them)."""
+    place (the reference's serve step donates them).
+    ``logits_constraint``: see ``nn.attention.decode_self_attention``."""
     x = layers.embedding_lookup(params["embed"], token,
                                 scale_by_sqrt_dim=cfg.embed_scale)
     shared_p = params.get("shared")
@@ -284,10 +351,13 @@ def decode_step(params, token, caches, index: int, cfg: ModelConfig):
             if spec.mixer == "cross_attn":
                 x = _decode_cross(p, x, cache, spec)
             else:
-                x, _ = blocks.block_decode(p, x, cache, index, spec)
+                x, _ = blocks.block_decode(
+                    p, x, cache, index, spec,
+                    logits_constraint=logits_constraint)
         if shared_p is not None:
             x, _ = blocks.block_decode(shared_p, x,
                                        _layer(caches["shared"], r), index,
-                                       cfg.shared)
+                                       cfg.shared,
+                                       logits_constraint=logits_constraint)
     x = layers.rmsnorm(params["final_norm"], x)
     return logits_fn(params, x, cfg), caches

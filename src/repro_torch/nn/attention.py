@@ -16,10 +16,14 @@ the Pallas kernel in interpret mode off the TPU. The kernel is
 forward-only, as the reference's is: ``use_flash=True`` under autograd
 raises, and nothing falls back to the plain version.
 
-Left out: ``_attend_decode_sharded`` (the mesh-sharded decode softmax;
-``decode_self_attention`` raises if handed a ``logits_constraint``) and
-the logical-axis specs, both with the LM mesh (ROADMAP queue 1 item
-12d).
+On the mesh (DTensor activations, ``repro_torch.distributed.mesh``) the
+projections run as DTensor matmuls and the attention core of each layer
+runs per rank on its batch rows and heads (``mesh.head_parallel``): the
+flash kernel on the local heads of a CUDA rank. Decode writes the new
+K/V into the rank whose block of the cache holds the slot, and with a
+``logits_constraint`` reduces over a cache whose sequence axis is split
+(:func:`_attend_decode_sharded`, the distributed softmax); without one
+each rank reads its batch rows' whole cache.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.nn import layers
 
 NEG_INF = -1e30
@@ -92,13 +97,27 @@ def attention_init(gen, cfg: AttentionConfig):
     }
 
 
+def attention_logical_specs(cfg: AttentionConfig):
+    qspec = {"w": ("embed", "heads")}
+    kvspec = {"w": ("embed", "kv_heads")}
+    if cfg.use_qkv_bias:
+        qspec = {"w": ("embed", "heads"), "b": ("heads",)}
+        kvspec = {"w": ("embed", "kv_heads"), "b": ("kv_heads",)}
+    return {"q": qspec, "k": dict(kvspec), "v": dict(kvspec),
+            "o": {"w": ("heads", "embed")}}
+
+
 # ---------------------------------------------------------------------------
 # Core attend (the plain version; the flash kernel mirrors it)
 # ---------------------------------------------------------------------------
 def _repeat_kv(k, groups: int):
+    """Each kv head repeated ``groups`` times in place (head h reads kv
+    head h // groups)."""
     if groups == 1:
         return k
-    return torch.repeat_interleave(k, groups, dim=2)
+    b, t, hkv, dh = k.shape
+    return k[:, :, :, None, :].expand(b, t, hkv, groups, dh) \
+        .reshape(b, t, hkv * groups, dh)
 
 
 def make_mask(q_len: int, kv_len: int, *, causal: bool,
@@ -207,16 +226,47 @@ def _split_heads(x, n, dh):
     return x.reshape(x.shape[0], x.shape[1], n, dh)
 
 
+def _local_heads(qf, kf, vf, kv_lo: int, cfg: AttentionConfig):
+    """Flat projections (B, T, h·dh) -> heads (B, T, h, dh); where this
+    rank holds all the kv heads but only some query heads, the kv heads of
+    those queries' groups (from ``kv_lo``)."""
+    dh = cfg.dh
+    q = _split_heads(qf, qf.shape[-1] // dh, dh)
+    k = _split_heads(kf, kf.shape[-1] // dh, dh)
+    v = _split_heads(vf, vf.shape[-1] // dh, dh)
+    kvl = max(1, q.shape[2] * cfg.num_kv_heads // cfg.num_heads)
+    if k.shape[2] != kvl:
+        k, v = k[:, :, kv_lo:kv_lo + kvl], v[:, :, kv_lo:kv_lo + kvl]
+    return q, k, v
+
+
+def _per_rank(fn, qf, kf, vf, cfg: AttentionConfig):
+    """``fn(qf, kf, vf, kv_lo)``: on the mesh, per rank on its rows and
+    heads (``mesh.head_parallel``)."""
+    if mesh_lib.is_dtensor(qf):
+        return mesh_lib.head_parallel(fn, qf, kf, vf, heads=cfg.num_heads,
+                                      kv_heads=cfg.num_kv_heads)
+    return fn(qf, kf, vf, 0)
+
+
 def self_attention(params, x, cfg: AttentionConfig, *, positions=None,
                    use_flash: bool = False):
     """Prefill / training self-attention. x: (B, T, d_model)."""
-    b, t, _ = x.shape
-    dh = cfg.dh
-    q = _split_heads(layers.linear(params["q"], x), cfg.num_heads, dh)
-    k = _split_heads(layers.linear(params["k"], x), cfg.num_kv_heads, dh)
-    v = _split_heads(layers.linear(params["v"], x), cfg.num_kv_heads, dh)
+    def core(qf, kf, vf, kv_lo):
+        return _self_attend(qf, kf, vf, kv_lo, cfg, positions, use_flash)
+
+    out = _per_rank(core, layers.linear(params["q"], x),
+                    layers.linear(params["k"], x),
+                    layers.linear(params["v"], x), cfg)
+    return layers.linear(params["o"], out)
+
+
+def _self_attend(qf, kf, vf, kv_lo, cfg: AttentionConfig, positions,
+                 use_flash: bool):
+    b, t, _ = qf.shape
+    q, k, v = _local_heads(qf, kf, vf, kv_lo, cfg)
     if positions is None:
-        positions = torch.arange(t, device=x.device)
+        positions = torch.arange(t, device=qf.device)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     if use_flash:
@@ -239,7 +289,7 @@ def self_attention(params, x, cfg: AttentionConfig, *, positions=None,
         out = attend(q, k, v, causal=cfg.causal,
                      sliding_window=cfg.sliding_window,
                      softcap=cfg.attn_softcap)
-    return layers.linear(params["o"], out.reshape(b, t, cfg.num_heads * dh))
+    return out.reshape(b, t, -1)
 
 
 def init_kv_cache(cfg: AttentionConfig, batch: int, max_len: int,
@@ -268,29 +318,88 @@ def decode_self_attention(params, x, cache, cache_index: int,
     RoPE is applied to K at write time, so cached keys are
     position-final. The cache is updated IN PLACE and returned (the
     reference's serve step donates it; the same memory is reused).
+
+    ``logits_constraint``: a sharding constraint applied to the (B, H, 1,
+    slots) attention logits and probabilities. When the cache sequence
+    axis is split over the mesh, constraining them to the same split makes
+    the max, the sum and the PV partials small all-reduces over that axis
+    (:func:`_attend_decode_sharded`) where the plain path would gather
+    each batch row's whole K/V cache on its rank.
     """
-    if logits_constraint is not None:
-        raise NotImplementedError(
-            "the mesh-sharded decode softmax is not ported (it comes with "
-            "the LM mesh, ROADMAP queue 1 item 12d)")
     b = x.shape[0]
     dh = cfg.dh
     slots = cache["k"].shape[1]
-    q = _split_heads(layers.linear(params["q"], x), cfg.num_heads, dh)
-    k = _split_heads(layers.linear(params["k"], x), cfg.num_kv_heads, dh)
-    v = _split_heads(layers.linear(params["v"], x), cfg.num_kv_heads, dh)
-    pos = torch.full((1,), cache_index, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, theta=cfg.rope_theta)
-    k = apply_rope(k, pos, theta=cfg.rope_theta)
+
+    def rope_heads(qf, kf, vf):
+        pos = torch.full((1,), cache_index, dtype=torch.int32,
+                         device=qf.device)
+        q = apply_rope(_split_heads(qf, cfg.num_heads, dh), pos,
+                       theta=cfg.rope_theta)
+        k = apply_rope(_split_heads(kf, cfg.num_kv_heads, dh), pos,
+                       theta=cfg.rope_theta)
+        return q, k, _split_heads(vf, cfg.num_kv_heads, dh)
+
+    proj = [layers.linear(params[n], x) for n in ("q", "k", "v")]
+    if mesh_lib.is_dtensor(proj[0]):
+        q, k, v = mesh_lib.local_rows(rope_heads, *proj)
+    else:
+        q, k, v = rope_heads(*proj)
     slot = cache_index % slots
-    cache["k"][:, slot:slot + 1] = k
-    cache["v"][:, slot:slot + 1] = v
-    cache["pos"][slot] = cache_index
-    out = attend(q, cache["k"], cache["v"], causal=True,
-                 sliding_window=cfg.sliding_window, softcap=cfg.attn_softcap,
-                 q_offset=cache_index, kv_positions=cache["pos"])
+    mesh_lib.write_slot(cache["k"], slot, k)
+    mesh_lib.write_slot(cache["v"], slot, v)
+    mesh_lib.write_slot(cache["pos"], slot, torch.full(
+        (1,), cache_index, dtype=torch.int32, device=x.device), dim=0)
+    if logits_constraint is not None:
+        out = _attend_decode_sharded(q, cache["k"], cache["v"], cfg,
+                                     cache_index, cache["pos"],
+                                     logits_constraint)
+    else:
+        def gathered(q, k, v, kv_pos):
+            return attend(q, k, v, causal=True,
+                          sliding_window=cfg.sliding_window,
+                          softcap=cfg.attn_softcap, q_offset=cache_index,
+                          kv_positions=kv_pos)
+        if mesh_lib.is_dtensor(q):
+            out = mesh_lib.local_rows(gathered, q, cache["k"], cache["v"],
+                                      mesh_lib.whole(cache["pos"]))
+        else:
+            out = gathered(q, cache["k"], cache["v"], cache["pos"])
     out = layers.linear(params["o"], out.reshape(b, 1, cfg.num_heads * dh))
     return out, cache
+
+
+def _reduced(x):
+    """A partial max or sum reduced now, before a nonlinear op reads it."""
+    return mesh_lib.reduce_partial(x) if mesh_lib.is_dtensor(x) else x
+
+
+def _attend_decode_sharded(q, k, v, cfg: AttentionConfig, cache_index: int,
+                           kv_positions, logits_constraint):
+    """:func:`attend` of one query position with an explicit distributed
+    softmax over the (split) cache sequence axis: the same math, with the
+    logits and probabilities constrained so the max, the sum and the PV
+    contraction reduce across the split. Works on plain tensors too (an
+    identity constraint)."""
+    b, tq, h, dh = q.shape
+    hkv = k.shape[2]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(dh))
+    if cfg.attn_softcap is not None:
+        logits = cfg.attn_softcap * torch.tanh(logits / cfg.attn_softcap)
+    k_pos = kv_positions[None, :].long()                       # (1, S)
+    mask = (k_pos >= 0) & (k_pos <= cache_index)
+    if cfg.sliding_window is not None:
+        mask = mask & (k_pos > cache_index - cfg.sliding_window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    logits = logits_constraint(logits)
+    m = _reduced(torch.amax(logits, dim=-1, keepdim=True))  # all-reduce max
+    p = logits_constraint(torch.exp(logits - m))
+    s = _reduced(torch.sum(p, dim=-1, keepdim=True))        # all-reduce sum
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
+                      v.float())                           # psum partials
+    return (pv / s.transpose(1, 2)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +423,12 @@ def cross_attention_init(gen, cfg: AttentionConfig,
 
 def cross_attention(params, x, kv_src, cfg: AttentionConfig):
     """x: (B, Tq, d_model); kv_src: (B, Tk, kv_dim). No RoPE, no mask."""
-    b, tq, _ = x.shape
-    dh = cfg.dh
-    q = _split_heads(layers.linear(params["q"], x), cfg.num_heads, dh)
-    k = _split_heads(layers.linear(params["k"], kv_src), cfg.num_kv_heads,
-                     dh)
-    v = _split_heads(layers.linear(params["v"], kv_src), cfg.num_kv_heads,
-                     dh)
-    out = attend(q, k, v, causal=False, softcap=cfg.attn_softcap)
-    return layers.linear(params["o"], out.reshape(b, tq, cfg.num_heads * dh))
+    def core(qf, kf, vf, kv_lo):
+        q, k, v = _local_heads(qf, kf, vf, kv_lo, cfg)
+        out = attend(q, k, v, causal=False, softcap=cfg.attn_softcap)
+        return out.reshape(qf.shape[0], qf.shape[1], -1)
+
+    out = _per_rank(core, layers.linear(params["q"], x),
+                    layers.linear(params["k"], kv_src),
+                    layers.linear(params["v"], kv_src), cfg)
+    return layers.linear(params["o"], out)

@@ -34,6 +34,11 @@ def gru_init(key, cfg: GRUConfig):
             "bi": zeros, "bh": zeros.clone()}
 
 
+def gru_logical_specs(cfg: GRUConfig):
+    return {"wi": ("embed", "mlp"), "wh": ("mlp", "mlp"),
+            "bi": ("mlp",), "bh": ("mlp",)}
+
+
 def agent_matmul(x, w):
     """Per-agent x.w: x (A, ..., din), w (A, din, dout)."""
     a = x.shape[0]

@@ -16,6 +16,11 @@ Two families:
 
 Neither gives the reference's bits: parity tests carry the reference's
 parameters across with ``repro_torch.convert`` instead.
+
+:data:`SHAPES_ONLY` stands in for a generator where only the shapes and
+dtypes are wanted (the reference's ``jax.eval_shape`` of an init): the
+generator-based initializers then return meta tensors, which allocate
+nothing.
 """
 from __future__ import annotations
 
@@ -26,13 +31,21 @@ import torch
 from repro_torch import random as R
 
 
+class _ShapesOnly:
+    """A generator stand-in on the meta device: draws nothing."""
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
+_GENERATORS = (torch.Generator, _ShapesOnly)
+
 def fan_in_normal(axis: int = 0):
     """stddev = 1/sqrt(fan_in), truncated at two standard deviations.
     ``f(key, shape)`` draws from batched keys; ``f(gen, shape, dtype)``
     from a ``torch.Generator`` (see :func:`truncated_normal`)."""
     def f(key, shape, dtype=torch.float32):
         std = 1.0 / math.sqrt(max(shape[axis], 1))
-        if isinstance(key, torch.Generator):
+        if isinstance(key, _GENERATORS):
             return truncated_normal(std)(key, shape, dtype)
         return std * R.truncated_normal(key, -2.0, 2.0, shape)
     return f
@@ -56,6 +69,8 @@ def orthogonal(scale: float = 1.0):
 # ---------------------------------------------------------------------------
 def normal(stddev: float = 1.0):
     def f(gen, shape, dtype=torch.float32):
+        if gen is SHAPES_ONLY:
+            return torch.empty(tuple(shape), dtype=dtype, device="meta")
         x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                         dtype=torch.float32)
         return (stddev * x).to(dtype)
@@ -66,6 +81,8 @@ def truncated_normal(stddev: float = 1.0):
     """stddev * N(0, 1) truncated to [-2, 2], as ``jax.random.
     truncated_normal(key, -2, 2)``."""
     def f(gen, shape, dtype=torch.float32):
+        if gen is SHAPES_ONLY:
+            return torch.empty(tuple(shape), dtype=dtype, device="meta")
         x = torch.empty(tuple(shape), device=gen.device, dtype=torch.float32)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return (stddev * x).to(dtype)

@@ -13,8 +13,9 @@ matching bf16 operands accumulates in fp32 (on the card,
 ``allow_bf16_reduced_precision_reduction`` off), and fp32 operands run in
 full fp32 (no TF32).
 
-Left out: the logical-axis specs (mesh sharding, ROADMAP queue 1 item
-12d).
+Alongside params, model code builds a parallel *logical-spec tree* (same
+structure, leaves are tuples of logical axis names or None) consumed by
+``repro_torch.distributed.mesh.logical_to_sharding``.
 """
 from __future__ import annotations
 
@@ -24,12 +25,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.nn import init as initializers
 
 
 def dot(x, w):
     """Matmul over x's last axis and w's first, fp32 accumulation, output
-    in x.dtype."""
+    in x.dtype. On the mesh, an activation split along any dim but the
+    batch (the sequence-parallel carry) is gathered along it first, as
+    Megatron's sequence parallelism gathers before a column-parallel
+    product."""
+    if mesh_lib.is_dtensor(x):
+        return mesh_lib.rows_grad(torch.matmul(mesh_lib.gather_rows(x),
+                                               w.to(x.dtype)))
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -46,6 +54,7 @@ def linear_init(gen, in_dim: int, out_dim: int, *, use_bias: bool = False,
 
 
 def linear(params, x):
+    params = mesh_lib.unshard(params, x)
     y = dot(x, params["w"])
     if "b" in params:
         y = y + params["b"].to(y.dtype)
@@ -61,6 +70,10 @@ def rmsnorm_init(dim: int, device="cpu"):
 
 
 def rmsnorm(params, x, *, eps: float = 1e-6):
+    if mesh_lib.is_dtensor(x):
+        # a product's partial sum is reduced before the nonlinear norm
+        x = mesh_lib.reduce_partial(x)
+    params = mesh_lib.unshard(params, x)
     dtype = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
@@ -74,6 +87,9 @@ def layernorm_init(dim: int, dtype=torch.float32, device="cpu"):
 
 
 def layernorm(params, x, *, eps: float = 1e-5):
+    if mesh_lib.is_dtensor(x):
+        x = mesh_lib.reduce_partial(x)
+    params = mesh_lib.unshard(params, x)
     dtype = x.dtype
     x = x.float()
     mu = torch.mean(x, dim=-1, keepdim=True)
@@ -91,8 +107,16 @@ def embedding_init(gen, vocab: int, dim: int, dtype=torch.bfloat16,
 
 
 def embedding_lookup(params, ids, *, scale_by_sqrt_dim: bool = False):
-    table = params["table"]
-    y = table[ids.long()]
+    table = mesh_lib.unshard(params, ids)["table"]
+    if mesh_lib.is_dtensor(table) and all(
+            p.is_replicate() or p.is_shard(0) for p in table.placements):
+        # rows looked up in a vocab-split table: each rank reads its own
+        # rows' entries, summed across the split
+        y = mesh_lib.lookup_rows(table, ids)
+    else:
+        y = F.embedding(ids.long(), table)
+        if mesh_lib.is_dtensor(y):
+            y = mesh_lib.reduce_partial(y)
     if scale_by_sqrt_dim:
         # the reference casts sqrt(d) to the activation dtype BEFORE the
         # multiply (bf16 sqrt(3584) = 60.0, not 59.866...)
@@ -104,7 +128,10 @@ def embedding_lookup(params, ids, *, scale_by_sqrt_dim: bool = False):
 
 def embedding_logits(params, x):
     """Tied unembedding: x @ table.T with fp32 accumulation, fp32 output."""
-    table = params["table"]
+    table = mesh_lib.unshard(params, x)["table"]
+    if mesh_lib.is_dtensor(x):
+        return mesh_lib.rows_grad(torch.matmul(
+            mesh_lib.gather_rows(x).float(), table.float().t()))
     return torch.matmul(x.float(), table.float().t())
 
 
@@ -143,6 +170,18 @@ def mlp_init(gen, cfg: MLPConfig):
                 "down": linear_init(gen, cfg.d_ff, cfg.d_model, **kw)}
     return {"up": linear_init(gen, cfg.d_model, cfg.d_ff, **kw),
             "down": linear_init(gen, cfg.d_ff, cfg.d_model, **kw)}
+
+
+def mlp_logical_specs(cfg: MLPConfig):
+    """Logical axes for mlp params (parallel tree)."""
+    two = {"w": ("embed", "mlp")}
+    down = {"w": ("mlp", "embed")}
+    if cfg.use_bias:
+        two = {"w": ("embed", "mlp"), "b": ("mlp",)}
+        down = {"w": ("mlp", "embed"), "b": ("embed",)}
+    if cfg.activation == "swiglu":
+        return {"gate": dict(two), "up": dict(two), "down": dict(down)}
+    return {"up": dict(two), "down": dict(down)}
 
 
 def mlp(params, x, *, activation: str = "swiglu"):

@@ -19,8 +19,6 @@ groups on its own (one group when the token count does not divide), the
 aux terms then means over the groups. The expert products are batched
 matmuls, float32 accumulation cast back to the activation dtype, as the
 reference's ``preferred_element_type=float32`` einsums.
-
-Left out: the logical-axis specs (ROADMAP queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -29,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.nn import init as initializers
 from repro_torch.nn import layers
 
@@ -65,6 +64,17 @@ def moe_init(gen, cfg: MoEConfig):
     if cfg.activation == "swiglu":
         params["gate"] = w_in(gen, (e, dm, df), cfg.dtype)
     return params
+
+
+def moe_logical_specs(cfg: MoEConfig):
+    specs = {
+        "router": ("embed", None),
+        "up": ("expert", "embed", "mlp"),
+        "down": ("expert", "mlp", "embed"),
+    }
+    if cfg.activation == "swiglu":
+        specs["gate"] = ("expert", "embed", "mlp")
+    return specs
 
 
 def router_probs(params, x, cfg: MoEConfig):
@@ -137,17 +147,31 @@ def moe_layer(params, x, cfg: MoEConfig):
     """x: (B, T, d_model) -> (y, aux) with aux = {load_balance, z_loss}.
 
     Token-choice top-k with capacity; dropped tokens pass through (their
-    combine weights are zero, so the residual carries them)."""
+    combine weights are zero, so the residual carries them). On the mesh
+    see :func:`_moe_layer_mesh`."""
+    if mesh_lib.is_dtensor(x):
+        return _moe_layer_mesh(params, x, cfg)
+    return _moe_apply(params, x, cfg, 0)
+
+
+def _moe_apply(params, x, cfg: MoEConfig, e_lo: int):
+    """The layer with the experts [e_lo, e_lo + E_local) that ``params``'
+    expert weights hold (all of them off the mesh): routing over every
+    token of x, the pairs routed elsewhere left out of the combine."""
     b, t, dm = x.shape
-    e, k = cfg.num_experts, cfg.top_k
+    k = cfg.top_k
+    e = params["up"].shape[0]
     top_w, top_e, pos, keep, cap, aux = route_groups(params, x, cfg)
     s, n = top_e.shape[:2]
+    if e != cfg.num_experts:
+        keep = keep & (top_e >= e_lo) & (top_e < e_lo + e)
     # every group's buffers in one (S*E*C + 1, dm) table: the row of
     # (group g, token, k) is g*E*C + e*C + c; a dropped pair goes to the
     # spare last row, which no expert reads and which reads back as 0
     spare = s * e * cap
     group = torch.arange(s, device=x.device)[:, None, None] * (e * cap)
-    row = torch.where(keep, group + top_e * cap + pos, spare).reshape(-1)
+    row = torch.where(keep, group + (top_e - e_lo) * cap + pos,
+                      spare).reshape(-1)
     buf = torch.zeros((spare + 1, dm), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, row, x.reshape(s * n, dm).repeat_interleave(k, 0))
     # the experts take every group's buffer at once: (E, S*C, dm)
@@ -160,3 +184,41 @@ def moe_layer(params, x, cfg: MoEConfig):
     y = torch.einsum("snk,snkd->snd", w.float(),
                      ye[row].reshape(s, n, k, dm).float())
     return y.to(x.dtype).reshape(b, t, dm), aux
+
+
+def _moe_layer_mesh(params, x, cfg: MoEConfig):
+    """The layer on DTensors, expert-parallel: every rank routes every
+    token (an all-gather of x over its splits: the routing's capacity and
+    slot counts run over all the tokens of a group, as on one device),
+    runs the experts its block of the expert axis holds (the expert
+    weights gathered along their other splits) and combines their
+    outputs; the result is summed over the mesh dims that split the
+    experts and laid out as x. The aux terms are the same on
+    every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    whole = [Replicate()] * mesh.ndim
+
+    def experts_only(w):
+        return w.redistribute(mesh, [
+            p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in w.placements])
+
+    local, ref = {}, None
+    for name in ("up", "gate", "down"):
+        if name in params:
+            w = experts_only(params[name])
+            local[name], ref = w.to_local(), w
+    split = [isinstance(p, Shard) and p.dim == 0 for p in ref.placements]
+    # the tokens and the router reach every rank's experts: their
+    # gradients are partial over the mesh dims that split the experts
+    grads = tuple(Partial() if s_ else Replicate() for s_ in split)
+    local["router"] = params["router"].redistribute(mesh, whole).to_local(
+        grad_placements=grads)
+    y, aux = _moe_apply(local, x.redistribute(mesh, whole).to_local(
+        grad_placements=grads), cfg, mesh_lib.block_offset(ref, 0))
+    y = mesh_lib.partial_sum(y, x, tuple(Partial() if s_ else Replicate()
+                                         for s_ in split))
+    aux = {k: mesh_lib.shape_like(v, x, tuple(whole))
+           for k, v in aux.items()}
+    return y.redistribute(mesh, x.placements), aux

@@ -11,8 +11,6 @@ mode off the TPU. As in the reference, no model block passes
 
 Shapes: x (B, T, d_model); inner activations (B, T, H, P) with
 H = d_inner // head_dim heads, P = head_dim, N = ssm state size.
-
-Left out: the logical-axis specs (mesh sharding, not ported).
 """
 from __future__ import annotations
 
@@ -21,6 +19,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh as mesh_lib
 from repro_torch.nn import init as initializers
 from repro_torch.nn import layers
 
@@ -63,6 +62,20 @@ def ssm_init(gen, cfg: SSMConfig):
         "norm": layers.rmsnorm_init(di, dev),
         "out_proj": fan_in(gen, (di, cfg.d_model), cfg.dtype),
         "dt_w": fan_in(gen, (1,), torch.float32),  # placeholder, as the reference
+    }
+
+
+def ssm_logical_specs(cfg: SSMConfig):
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "a_log": (None,),
+        "dt_bias": (None,),
+        "d_skip": (None,),
+        "norm": {"scale": ("mlp",)},
+        "out_proj": ("mlp", "embed"),
+        "dt_w": (None,),
     }
 
 
@@ -193,6 +206,12 @@ def ssm_layer(params, x, cfg: SSMConfig, *, use_kernel: bool = False):
     """Train/prefill. x: (B, T, d_model) -> (B, T, d_model).
     ``use_kernel`` routes the scan through ``kernels.ssd.ops.ssd``: the
     CUDA kernel on CUDA tensors, its plain version on CPU tensors."""
+    if mesh_lib.is_dtensor(x):
+        # on the mesh each rank runs the layer on its batch rows, the
+        # layer's weights gathered whole (an all-gather of each split)
+        local = mesh_lib.replicate_tree(params, x)
+        return mesh_lib.local_rows(
+            lambda xl: ssm_layer(local, xl, cfg, use_kernel=use_kernel), x)
     bsz, t, _ = x.shape
     h, p = cfg.num_heads, cfg.head_dim
     z, xin, bb, cc, dt = _project(params, x, cfg)
@@ -223,7 +242,18 @@ def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=None, device="cpu"):
 
 
 def ssm_decode_step(params, x, cache, cfg: SSMConfig):
-    """One-token decode. x: (B, 1, d_model). Returns (y, new_cache)."""
+    """One-token decode. x: (B, 1, d_model). Returns (y, new_cache); on
+    the mesh per rank on its batch rows, as :func:`ssm_layer`."""
+    if mesh_lib.is_dtensor(x):
+        local = mesh_lib.replicate_tree(params, x)
+
+        def step(xl, conv, state):
+            y, new = ssm_decode_step(local, xl, {"conv": conv,
+                                                 "state": state}, cfg)
+            return y, new["conv"], new["state"]
+        y, conv, state = mesh_lib.local_rows(step, x, cache["conv"],
+                                             cache["state"])
+        return y, {"conv": conv, "state": state}
     bsz = x.shape[0]
     h, p = cfg.num_heads, cfg.head_dim
     z, xin, bb, cc, dt = _project(params, x, cfg)

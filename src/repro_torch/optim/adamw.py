@@ -33,11 +33,16 @@ class AdamWConfig:
     decay_min_ndim: int = 2
 
 
+def state_logical_specs(param_specs):
+    """Optimizer-state logical specs mirror the params."""
+    return {"mu": param_specs, "nu": param_specs, "master": param_specs,
+            "step": ()}
+
+
 def init(params, *, per_agent: bool = True):
     """Optimizer state: for per-agent params (leaves (A, ...)) by default,
     for an LM's params with ``per_agent=False``."""
-    f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
+    f32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
     first = leaves(params)[0]
     return {"mu": tree_map(f32, params), "nu": tree_map(f32, params),
             "master": tree_map(lambda p: p.detach().float().clone(), params),

@@ -16,3 +16,13 @@ def test_tables_cover_the_functional_collectives():
         runtime.NON_COMMUNICATING
     assert "_c10d_functional._wrap_tensor_autograd" not in \
         runtime.live_collective_prims()
+
+
+def test_tables_cover_dtensor_and_the_fake_group():
+    """The LM mesh imports DTensor and the dry-run PyTorch's fake process
+    group; neither registers a c10d op the tables do not classify."""
+    importlib.import_module("torch.distributed.tensor")
+    importlib.import_module("torch.distributed.tensor.experimental")
+    importlib.import_module(
+        "torch.testing._internal.distributed.fake_pg")
+    runtime.validate_collective_tables()

@@ -99,8 +99,20 @@ def test_with_extras_and_shard_batch():
         pipeline.lm_iterator(0, 2, 8, 64, device="cpu"),
         lambda step: {"step": torch.tensor(step)}, start_step=3)
     assert [int(next(it)["step"]) for _ in range(2)] == [3, 4]
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        pipeline.shard_batch({}, None)
+    # shard_batch lays each leaf out over the batch axes of the mesh: on
+    # the host mesh (data=1, model=1) the one rank holds the whole batch
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed import bootstrap
+    from repro_torch.launch import mesh as launch_mesh
+    batch = next(pipeline.lm_iterator(0, 2, 8, 64, device="cpu"))
+    try:
+        placed = pipeline.shard_batch(batch, launch_mesh.make_host_mesh(
+            device_type="cpu"))
+        for name, x in placed.items():
+            assert x.placements == (Shard(0), Replicate())
+            assert torch.equal(x.full_tensor(), batch[name])
+    finally:
+        bootstrap.release_solo_group()
 
 
 @pytest.mark.parametrize("name,shape", [("frames", (2, 12, 8)),

@@ -43,13 +43,10 @@ from repro.models import api as japi
 from repro.models import lm as jlm
 from repro_torch import convert
 from repro_torch.configs import registry as tregistry
-from repro_torch.data import pipeline
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import api as tapi
 from repro_torch.models import lm as tlm
-from repro_torch.nn import attention as tattn
 from repro_torch.nn import moe as tmoe
-from repro_torch.optim import outer
 from repro_torch.tree import leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -292,33 +289,6 @@ def test_registry_lists_every_architecture():
 def test_full_config_matches_reference(arch):
     """The shipped (full) config, field for field: no weights built."""
     assert plain(tregistry.get(arch)) == plain(jregistry.get(arch))
-
-
-def test_unported_paths_raise_with_their_queue_item():
-    """What stays unported names its ROADMAP queue item: the mesh-sharded
-    decode softmax, the cross-pod outer step, placing a batch on the mesh
-    and the loss's sequence-parallel constraint (all 12d, the LM
-    mesh)."""
-    _, ts = specs("tinyllama-1.1b", "float32")
-    _, tp = params_for("tinyllama-1.1b", "float32")
-    caches = tapi.init_caches(tp, ts, 2, 4)
-    spec = ts.cfg.period[0]
-    x = torch.zeros((2, 1, spec.d_model))
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        tattn.decode_self_attention(
-            tlm._layer(tp["layers"][0], 0)["mixer"], x,
-            tlm._layer(caches["layers"][0], 0), 0, spec.attn,
-            logits_constraint=lambda t: t)
-    params = {"w": torch.zeros(3, 2)}
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        outer.outer_step(params, outer.init(params), outer.OuterConfig(),
-                         pod_axis="pod")
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        pipeline.shard_batch({"tokens": torch.zeros(2, 4)}, None)
-    toks = torch.zeros((2, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        tlm.lm_loss(tp, {"tokens": toks, "labels": toks}, ts.cfg,
-                    act_constraint=lambda t: t)
 
 
 def test_serve_example_runs_on_cpu():

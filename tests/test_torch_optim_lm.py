@@ -193,10 +193,3 @@ def test_outer_step_matches_reference(int8, nesterov):
         if int8:
             close(terr, jerr)
         params = to_np(tp)
-
-
-def test_outer_step_on_pods_waits_for_the_mesh():
-    params = to_torch(lm_tree(7))
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        outer.outer_step(params, outer.init(params), outer.OuterConfig(),
-                         pod_axis="pod")

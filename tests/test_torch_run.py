@@ -157,7 +157,6 @@ def test_cli_writes_json_and_the_reference_lines(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--shards", "2"], "benchmarks/torch_scaling.py --shards"),
     (["--sharded-gs", "on"], "benchmarks/torch_scaling.py --shards"),
-    (["--only", "roofline"], "item 12d"),
     (["--only", "fig5"], "unknown bench"),
 ])
 def test_cli_refusals(argv, match, capsys):

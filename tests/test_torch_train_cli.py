@@ -87,7 +87,8 @@ def test_train_module_runs_every_kind(capsys):
     for arch, text in logs.items():
         lines = text.splitlines()
         assert lines[0].startswith(f"{arch} (reduced): ") and \
-            lines[0].endswith("M params on cpu")
+            lines[0].endswith(
+                "M params on cpu, mesh {'data': 1, 'model': 1}")
         assert [ln.split()[:2] for ln in lines[1:]] == [
             ["step", "0"], ["step", "1"]]
         assert all(np.isfinite(float(ln.split()[3])) for ln in lines[1:])
