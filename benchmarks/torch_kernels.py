@@ -15,6 +15,14 @@ outside the tensor cores, 3.35 TB/s HBM; ``chip_smoke.py``'s constants)
 on the reference's analytic FLOP and byte counts; ``kernel_share`` is
 the bound over the kernel's time.
 
+``--fast`` is the reference's CI smoke (``benchmarks/kernels.py
+--fast``): the same reduced shapes (collect_steps 16, rollout_steps 8, a
+headline batch of 32; one AIP and two policy shapes and the headline),
+2 timed calls a micro cell, the end-to-end cells at (S, T) = (8, 16) and
+(n_envs, roll) = (2, 8) with one call each; the record's ``fast`` field
+says which mode wrote it. ``benchmarks/torch_check_bench.py --which
+kernels --subset`` reads it.
+
 End-to-end rows (``KERNELS_E2E_SCHEMA``): one ``train_aip`` (GRU AIP,
 gradients through the scan) and one IALS inner step (``ials_train``:
 rollout + GAE + PPO with the GRU policy), ``use_kernels`` off against
@@ -24,7 +32,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (it
 exits non-zero without one: the plain versions on the host are no
 measure of the card):
 
-    python3 benchmarks/torch_kernels.py [--iters 10]
+    python3 benchmarks/torch_kernels.py [--iters 10] [--fast]
 
 Writes ``experiments/bench/BENCH_torch_kernels.json`` and
 ``name,metric,value`` lines on stdout.
@@ -46,7 +54,7 @@ OUT_PATH = os.path.join(ROOT, "experiments", "bench",
                         "BENCH_torch_kernels.json")
 
 
-def swept_shapes():
+def swept_shapes(fast: bool = False):
     """(label, B, T, in, H), as ``benchmarks/kernels.py`` sweeps them."""
     from repro_torch.core import dials, influence
     from repro_torch.envs import registry
@@ -54,15 +62,19 @@ def swept_shapes():
     dcfg = dials.DIALSConfig()
     acfg = influence.AIPConfig(in_dim=1, n_sources=1)
     pcfg = policy.PolicyConfig(obs_dim=1, n_actions=1)
+    t_collect = 16 if fast else dcfg.collect_steps
+    t_roll = 8 if fast else dcfg.rollout_steps
     shapes = []
     for name in registry.names():
         n = registry.make(name, side=2)[1].info().n_agents
-        shapes.append((f"{name}-aip", dcfg.collect_envs * n,
-                       dcfg.collect_steps, acfg.hidden[-1], acfg.gru_hidden))
-        shapes.append((f"{name}-policy", dcfg.n_envs * n,
-                       dcfg.rollout_steps, pcfg.hidden[-1], pcfg.gru_hidden))
-    shapes.append(("headline", 256, dcfg.collect_steps, pcfg.hidden[-1],
-                   pcfg.gru_hidden))
+        shapes.append((f"{name}-aip", dcfg.collect_envs * n, t_collect,
+                       acfg.hidden[-1], acfg.gru_hidden))
+        shapes.append((f"{name}-policy", dcfg.n_envs * n, t_roll,
+                       pcfg.hidden[-1], pcfg.gru_hidden))
+    shapes.append(("headline", 32 if fast else 256, t_collect,
+                   pcfg.hidden[-1], pcfg.gru_hidden))
+    if fast:            # one aip + two policy shapes + the headline
+        shapes = shapes[:2] + shapes[3:4] + shapes[-1:]
     return shapes
 
 
@@ -115,12 +127,12 @@ def micro_row(kernel, label, b, t, fns, iters, footprint, extra):
     return row
 
 
-def bench_gru(device, iters):
+def bench_gru(device, iters, fast=False):
     import torch
     from repro_torch import random as R
     from repro_torch.nn import gru as gru_mod
     rows = []
-    for label, b, t, din, h in swept_shapes():
+    for label, b, t, din, h in swept_shapes(fast):
         params = gru_mod.gru_init(R.split(R.key(0, device=device), 1),
                                   gru_mod.GRUConfig(in_dim=din, hidden=h))
         gen = torch.Generator(device=device).manual_seed(0)
@@ -148,12 +160,12 @@ def bench_gru(device, iters):
     return rows
 
 
-def bench_gae(device, iters):
+def bench_gae(device, iters, fast=False):
     import torch
     from repro_torch.marl import gae as gae_mod
     rows = []
     # GAE runs on the PPO batch only: the -policy shapes and the headline
-    shapes = [(lbl, b, t) for lbl, b, t, _, _ in swept_shapes()
+    shapes = [(lbl, b, t) for lbl, b, t, _, _ in swept_shapes(fast)
               if not lbl.endswith("-aip")]
     for label, b, t in shapes:
         gen = torch.Generator(device=device).manual_seed(1)
@@ -192,7 +204,7 @@ def host_seconds(fn, iters):
     return (time.perf_counter() - t0) / iters
 
 
-def bench_end_to_end(device, iters):
+def bench_end_to_end(device, iters, fast=False):
     import torch
     from repro_torch import random as R
     from repro_torch.core import ials as ials_mod
@@ -204,10 +216,10 @@ def bench_end_to_end(device, iters):
     rows = []
 
     # train_aip: one GRU AIP, gradients through the scan
-    s, t = 32, 64
+    s, t = (8, 16) if fast else (32, 64)
     base_ac = influence.AIPConfig(
         in_dim=info.alsh_dim, n_sources=info.n_influence, kind="gru",
-        hidden=(32,), gru_hidden=32, epochs=10, batch=8)
+        hidden=(32,), gru_hidden=32, epochs=2 if fast else 10, batch=8)
     gen = torch.Generator(device=device).manual_seed(2)
     data = {"feats": torch.randn(1, s, t, info.alsh_dim, generator=gen,
                                  device=device),
@@ -229,7 +241,7 @@ def bench_end_to_end(device, iters):
     pc_base = policy.PolicyConfig(obs_dim=info.obs_dim,
                                   n_actions=info.n_actions, kind="gru",
                                   hidden=(32,), gru_hidden=16)
-    n_envs, roll = 8, 16
+    n_envs, roll = (2, 8) if fast else (8, 16)
     times = {}
     for mode in ("off", "on"):
         pc = dataclasses.replace(pc_base, use_kernels=mode)
@@ -249,12 +261,17 @@ def bench_end_to_end(device, iters):
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=10,
                     help="timed calls a micro cell (end to end: a third)")
+    ap.add_argument("--fast", action="store_true",
+                    help="the reference's reduced shapes, 2 timed calls a "
+                         "micro cell and 1 an end-to-end cell (CI smoke)")
     ap.add_argument("--out", default=OUT_PATH)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    iters, e2e_iters = ((2, 1) if args.fast else
+                        (args.iters, max(1, args.iters // 3)))
     import torch
     if not torch.cuda.is_available():
         print("torch_kernels: CUDA is not available (the plain versions on "
@@ -270,11 +287,10 @@ def main() -> int:
     record = {"device": {"platform": "gpu",
                          "kind": torch.cuda.get_device_name(0),
                          "count": torch.cuda.device_count()},
-              "card": card, "iters": args.iters,
-              "micro": bench_gru(device, args.iters)
-              + bench_gae(device, args.iters),
-              "end_to_end": bench_end_to_end(device,
-                                             max(1, args.iters // 3))}
+              "card": card, "iters": iters, "fast": args.fast,
+              "micro": bench_gru(device, iters, args.fast)
+              + bench_gae(device, iters, args.fast),
+              "end_to_end": bench_end_to_end(device, e2e_iters, args.fast)}
     problems = [p for r in record["micro"]
                 for p in obs_metrics.validate_bench_row(
                     r, obs_metrics.KERNELS_MICRO_SCHEMA)]

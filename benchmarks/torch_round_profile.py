@@ -1,7 +1,7 @@
 """Where one DIALS round of the PyTorch/CUDA port spends its time on a GPU.
 
-Runs the loop driver at ``chip_smoke.py``'s DIALS configuration (side=10,
-default widths, GRU AIP, ``use_kernels="on"``, F=5; ``--env`` and
+Runs the loop driver at ``chip_smoke.py``'s DIALS widths (side=10,
+default widths, GRU AIP, ``use_kernels="on"``) at F=REFRESH; ``--env`` and
 ``--policy`` pick the scenario and the policy kind, warehouse and fnn by
 default) for one round untraced, then the same round again under
 ``torch.profiler``, and prints:
@@ -38,6 +38,9 @@ import json
 import os
 import sys
 import time
+
+# inner steps a round: the F of the profiles that PERF.md records
+REFRESH = 5
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -126,7 +129,7 @@ def main() -> int:
                 if args.async_collect else {})
     trainer = chip_smoke.make_trainer(
         args.env, chip_smoke.SIDE, device=device, use_kernels="on",
-        rounds=rounds, refresh=chip_smoke.AIP_REFRESH,
+        rounds=rounds, refresh=REFRESH,
         policy_kind=args.policy, **async_kw)
     _, history = trainer.run(R.key(0, device=device))
     untraced = history[-1 if rounds == 1 else 1]

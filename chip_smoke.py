@@ -78,7 +78,7 @@ It
      (bit for bit the loop driver's flat restore), a host drop at round 1
      (the survivor's
      records and its final state bit for bit that one-shard resume, the
-     event log through ``tools/telemetry_report.py --check``), a recovery
+     event log through ``tools/telemetry_report_torch.py --check``), a recovery
      around the external coordinator under a chaos spec (the survivor
      re-executed as generation 1, bit for bit the same, within the
      two-rank tolerances of the uninterrupted run, ``--check
@@ -159,10 +159,18 @@ It
      seconds and each rank's peak bytes; beside the ranks, one dry-run
      cell (``python -m repro_torch.launch.dryrun``) on a fake 256-rank
      group, its record's memory and collective totals printed;
-  9. prints the kernel table as one JSON line, the nvidia-smi line, and
+  9. runs the port's bench gate and reports, no JAX
+     (``run_bench_gate_path``): ``benchmarks/torch_kernels.py --fast``
+     twice in process, ``benchmarks/torch_check_bench.py`` on the second
+     record against the first (no structural finding; the time ratios
+     printed, not gated) and on a copy with three planted defects (each
+     found, nothing else), and ``benchmarks/torch_report.py``'s dry-run
+     and roofline tables over 8's dry-run record, its roofline terms
+     equal to ``benchmarks/torch_run.py --only roofline``'s;
+ 10. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Each path (each of 4's, 5's, 6, 7, 8) runs with every launch count set to 0
+Each path (each of 4's, 5's, 6, 7, 8, 9) runs with every launch count set to 0
 just before it and read just after (the kernels line gives each kernel's
 launches by path); each phase prints its seconds, and a line before the
 table all of them. Any failed phase
@@ -207,13 +215,14 @@ LOGIT_TOL = 5e-2
 SSM_LAYER_TOL = 2e-2
 
 # The DIALS paths: side=10 (100 agents), the library's default widths,
-# DIALSConfig() cut to a few rounds and F=5. The first slice's path
+# DIALSConfig() cut to a few rounds and F=3 (depth the run's time limit
+# cannot pay for on a slow host). The first slice's path
 # (warehouse, FNN policy) runs one round; the recurrent policy's path two,
 # the second of which the checkpoint resume repeats; traffic one round and
 # the GS baseline GS_TRAIN_STEPS steps; powergrid and supplychain an
 # ENV_STEPS-step GS trajectory each, card against CPU.
 SIDE = 10
-AIP_REFRESH = 5
+AIP_REFRESH = 3
 FNN_ROUNDS = 1
 GRU_POLICY_ROUNDS = 2
 GS_TRAIN_STEPS = 3
@@ -648,7 +657,11 @@ def check_gru(gen, device, shapes):
     ]
 
 
-def check_gae(gen, device, t, b, gamma, lam):
+def gae_case(gen, device, t, b, gamma, lam):
+    """Both GAE kernels against the plain version at (T, B): the forward
+    bit for bit, the gradients at GAE_TOL. Returns (forward error,
+    gradient error, inputs, cotangent, the plain advantages and leaves
+    kept for a timed backward)."""
     import torch
     from repro_torch.kernels.gae import kernel as ak, ref as aref
     r, v, nv = (torch.randn(t, b, generator=gen, device=device)
@@ -658,8 +671,8 @@ def check_gae(gen, device, t, b, gamma, lam):
     kw = dict(gamma=gamma, lam=lam)
     adv_k = ak.forward(r, v, nv, d, gamma, lam)
     adv_p = aref.gae_reverse_scan(r, v, nv, d, **kw)
-    check(torch.equal(adv_k, adv_p), "gae_forward: not bit for bit equal to "
-                                     "the plain version")
+    check(torch.equal(adv_k, adv_p), f"gae_forward {t}x{b}: not bit for bit "
+                                     f"equal to the plain version")
     fwd_err = max_err(adv_k, adv_p)
     leaves = [x.clone().requires_grad_() for x in (r, v, nv)]
     grads_k = torch.autograd.grad(
@@ -668,9 +681,18 @@ def check_gae(gen, device, t, b, gamma, lam):
     adv_p = aref.gae_reverse_scan(*ref_leaves, d, **kw)
     grads_p = torch.autograd.grad(adv_p, ref_leaves, g, retain_graph=True)
     bwd_err = allclose_err(
-        [(f"d{n}", k, p) for n, k, p in
+        [(f"gae_backward {t}x{b} d{n}", k, p) for n, k, p in
          zip(("rewards", "values", "next_values"), grads_k, grads_p)],
         GAE_TOL)
+    return fwd_err, bwd_err, (r, v, nv, d), g, adv_p, ref_leaves
+
+
+def check_gae(gen, device, t, b, gamma, lam):
+    import torch
+    from repro_torch.kernels.gae import kernel as ak, ref as aref
+    fwd_err, bwd_err, (r, v, nv, d), g, adv_p, ref_leaves = gae_case(
+        gen, device, t, b, gamma, lam)
+    kw = dict(gamma=gamma, lam=lam)
     iters = 200
     n = t * b
     fwd = lambda: ak.forward(r, v, nv, d, gamma, lam)
@@ -1250,20 +1272,24 @@ def launch_counts():
 
 
 def reset_counts():
+    from repro_torch.kernels.gae import kernel as ak
     from repro_torch.kernels.gru import kernel as gk
     for table in _count_tables():
         for k in table:
             table[k] = 0
-    for tables in (gk.SHAPE_LAUNCHES, gk.STREAM_LAUNCHES):
+    for tables in (gk.SHAPE_LAUNCHES, gk.STREAM_LAUNCHES, ak.SHAPE_LAUNCHES):
         for by_key in tables.values():
             by_key.clear()
 
 
 def shape_counts():
-    """The GRU wrappers' launches by (A, T, B, H) since the last reset."""
+    """The GRU wrappers' launches by (A, T, B, H) and the GAE wrappers'
+    by (T, B) since the last reset."""
+    from repro_torch.kernels.gae import kernel as ak
     from repro_torch.kernels.gru import kernel as gk
     return {name: {"x".join(map(str, k)): n for k, n in sorted(tbl.items())}
-            for name, tbl in gk.SHAPE_LAUNCHES.items()}
+            for name, tbl in {**gk.SHAPE_LAUNCHES,
+                              **ak.SHAPE_LAUNCHES}.items()}
 
 
 def round_log(label):
@@ -1743,7 +1769,8 @@ def run_async_path(device, smi, serial, serial_streams):
     launches by stream). Checks the tags (``data_round`` [0, 0, 1],
     ``forced_sync`` [True, False, False]), the telemetry log (every round
     record valid, rounds monotone, the run_start/collect_obtain/round/
-    run_end events), ``gru_forward`` launched by the collect worker on a
+    run_end events; ``tools/telemetry_report_torch.py --check``),
+    ``gru_forward`` launched by the collect worker on a
     stream other than the driver's and by the serial run on the driver's
     alone, and the staleness-0 records bit for bit the serial run's."""
     import shutil
@@ -1810,6 +1837,7 @@ def run_async_path(device, smi, serial, serial_streams):
     check([e["data_round"] for e in events
            if e["event"] == "collect_obtain"] == [0, 0, 1],
           "async telemetry: collect_obtain tags")
+    _telemetry_report(tel_dir)
     shutil.rmtree(tel_dir, ignore_errors=True)
     return counts, {}
 
@@ -2098,18 +2126,20 @@ def _fault_kernels(label, counts):
 
 
 def _telemetry_report(directory, *flags):
-    """``tools/telemetry_report.py`` (the repo's own check of an event
-    log) on ``directory``, in a process of its own."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "tools.telemetry_report", directory,
-         "--check", *flags], cwd=ROOT, capture_output=True, text=True,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
-        timeout=120)
-    print(f"telemetry_report {os.path.basename(directory)} "
-          f"{' '.join(flags)}: {proc.stdout.strip()[-300:]}", flush=True)
-    check(proc.returncode == 0, f"telemetry_report --check {flags} failed "
-                                f"on {directory}:\n{proc.stdout[-2000:]}"
-                                f"{proc.stderr[-2000:]}")
+    """``tools/telemetry_report_torch.py --check`` (the port's check of an
+    event log) on ``directory``, in process."""
+    import contextlib
+    import io
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from tools import telemetry_report_torch
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = telemetry_report_torch.main([directory, "--check", *flags])
+    print(f"telemetry_report_torch {os.path.basename(directory)} "
+          f"{' '.join(flags)}: {out.getvalue().strip()[-300:]}", flush=True)
+    check(rc == 0, f"telemetry_report_torch --check {flags} failed on "
+                   f"{directory}:\n{out.getvalue()[-2000:]}")
 
 
 def _fault_events(directory):
@@ -2139,8 +2169,8 @@ def run_fault_path(device, smi):
        reassigned (records n_shards 2 before round K and 1 from it,
        dead_hosts [1] and reassigned 1 at round K alone) and bit for bit
        (2)'s final state; the merged event log passing
-       ``tools/telemetry_report.py --check`` with its ``host_death`` and
-       ``elastic_reassign``;
+       ``tools/telemetry_report_torch.py --check`` with its
+       ``host_death`` and ``elastic_reassign``;
     4. a recovery around the external coordinator under the chaos spec
        FAULT_CHAOS: rank 1 SIGKILLed (-9), the survivor re-executed as
        generation 1, resuming rounds K.. solo, bit for bit (2)'s final
@@ -3706,6 +3736,217 @@ def _run_lm_mesh(device, smi, dry, t_dry, out_dir):
     return counts
 
 
+# the bench gate: torch_kernels --fast twice in process (A, then B), the
+# gate on B against A and on a copy of B with BENCH_DEFECTS planted
+BENCH_KERNELS = ("gru_forward", "gru_backward", "gae_forward", "gae_backward")
+BENCH_DEFECTS = {"removed": 0, "null": ("gae", "speedup_fwd"),
+                 "doubled": ("gru", "fwdbwd_kernel_s")}
+BENCH_PATH = "bench gate and reports (torch_kernels --fast, twice)"
+
+
+def _bench_gate(check_bench, fresh, baseline, max_regression):
+    """``torch_check_bench.check("kernels", ...)`` with its summary line
+    captured: (problems, the line)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        problems = check_bench.check("kernels", fresh, baseline,
+                                     max_regression=max_regression,
+                                     subset=False)
+    return problems, buf.getvalue().strip()
+
+
+def check_planted_defects(check_bench, b_path, directory):
+    """The gate (``torch_check_bench``) on a copy of the kernels record
+    at ``b_path`` with BENCH_DEFECTS planted, against that record: micro
+    row BENCH_DEFECTS["removed"] taken out, a cell of the first row of
+    one kernel set to null and a time of the first remaining row of the
+    other doubled. The gate's schema stage stops it at the null cell, so
+    the copy must give exactly that finding; with the null cell put back,
+    exactly the missing row and the doubled cell as a regression of 50 %.
+    Returns the two runs' findings."""
+    import copy
+    with open(b_path) as f:
+        b = json.load(f)
+    spec = check_bench.SPECS["kernels"]
+    broken = copy.deepcopy(b)
+    gone = spec["key"](broken["micro"].pop(BENCH_DEFECTS["removed"]))
+    (k_null, c_null), (k_dbl, c_dbl) = (BENCH_DEFECTS["null"],
+                                        BENCH_DEFECTS["doubled"])
+    nulled = next(r for r in broken["micro"] if r["kernel"] == k_null)
+    doubled = next(r for r in broken["micro"] if r["kernel"] == k_dbl)
+    was = nulled[c_null]
+    check(was is not None and doubled[c_dbl] > 0,
+          "bench gate: the cells to break are already broken")
+    fresh = os.path.join(directory, "B_broken.json")
+
+    def gate():
+        with open(fresh, "w") as f:
+            json.dump(broken, f)
+        return _bench_gate(check_bench, fresh, b_path, 0.25)[0]
+
+    nulled[c_null] = None
+    doubled[c_dbl] *= 2
+    found = [gate()]
+    nulled[c_null] = was
+    found.append(gate())
+    key_null, key_dbl = spec["key"](nulled), spec["key"](doubled)
+    want = [f"{key_null}: [kernels.micro] column {c_null!r} is null"]
+    check(found[0] == want, f"bench gate on the broken copy: {found[0]}, "
+                            f"want {want}")
+    regressed = [p for p in found[1]
+                 if p.startswith(f"{key_dbl}: {c_dbl} regressed 50% ")]
+    check(len(found[1]) == 2 and len(regressed) == 1
+          and f"{gone}: row missing from fresh artifact" in found[1],
+          f"bench gate on the broken copy, its null cell put back: "
+          f"{found[1]}")
+    return found
+
+
+def run_bench_gate_path(device, smi):
+    """The port's bench gate and reports on the card, no JAX:
+    ``benchmarks/torch_kernels.main(["--fast", ...])`` in process twice
+    (A, then B; the wrappers count their launches), then
+    ``benchmarks/torch_check_bench.check("kernels", B, A)``, which must
+    find no structural problem (schema, row, column, null). B's timing
+    cells against A's are printed as ratios, the spread within one call,
+    and not gated: no bound is set before a benchmark of the port sets
+    one. Every GRU and GAE kernel is held to its plain version at each
+    shape the two runs launched it (``check_at_launched_shapes``). Then a
+    copy of B with three planted defects (BENCH_DEFECTS: a
+    row removed, a cell set to null, a ``*_kernel_s`` cell doubled)
+    against B: the gate's schema stage stops it at the null cell, so the
+    copy must give exactly that finding, and with the null cell put back
+    exactly the missing row and the doubled cell as a regression of
+    50 %. Last, ``benchmarks/torch_report``'s dry-run and roofline tables
+    over the ``lm mesh path`` phase's dry-run record, whose roofline terms
+    must equal ``torch_run.roofline_table``'s for that record. Returns
+    the launch counts of the two bench runs (all, by shape) and the
+    kernels' errors at those shapes."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from benchmarks import (torch_check_bench, torch_kernels, torch_report,
+                            torch_run)
+    d = os.path.join(ROOT, "build", "chip_smoke_bench")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    runs = {}
+    reset_counts()
+    for name in ("A", "B"):
+        runs[name] = os.path.join(d, f"{name}.json")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = torch_kernels.main(["--fast", "--out", runs[name]])
+        torch.cuda.synchronize()
+        print(f"torch_kernels --fast ({name}) on {smi}: exit {rc}, "
+              f"{time.perf_counter() - t0:.2f} s; "
+              f"{buf.getvalue().strip().splitlines()[-1]}", flush=True)
+        check(rc == 0, f"torch_kernels --fast ({name}) exited {rc}:\n"
+                       f"{buf.getvalue()[-2000:]}")
+    counts, by_shape = launch_counts(), shape_counts()
+    print(f"bench gate: launches of the two runs {counts}", flush=True)
+    for name in BENCH_KERNELS:
+        check(counts[name] > 0, f"torch_kernels --fast never launched "
+                                f"{name}")
+    errs = check_at_launched_shapes(device, by_shape)
+
+    problems, line = _bench_gate(torch_check_bench, runs["B"], runs["A"],
+                                 math.inf)
+    print(f"bench gate B against A: {line}; findings {problems}",
+          flush=True)
+    check(not problems, f"bench gate: structural findings in B against A "
+                        f"{problems}")
+    with open(runs["A"]) as f:
+        a = json.load(f)
+    with open(runs["B"]) as f:
+        b = json.load(f)
+    check(a["fast"] is True and b["fast"] is True,
+          "torch_kernels --fast: the record's fast field is not true")
+    spec = torch_check_bench.SPECS["kernels"]
+    base = {spec["key"](r): r for r in spec["rows"](a)}
+    ratios = {}
+    for r in spec["rows"](b):
+        k = spec["key"](r)
+        ratios["/".join(k)] = {c: round(r[c] / base[k][c], 4)
+                               for c in spec["times"] if c in r}
+    flat = [v for cells in ratios.values() for v in cells.values()]
+    print(f"bench gate: B/A time ratios (not gated), min {min(flat)}, max "
+          f"{max(flat)}: {json.dumps(ratios)}", flush=True)
+
+    found = check_planted_defects(torch_check_bench, runs["B"], d)
+    print(f"bench gate on a copy of B with {len(BENCH_DEFECTS)} defects: "
+          f"{found[0]}; with its null cell put back: {found[1]}",
+          flush=True)
+
+    arch, shape, mesh_kind = MESH_DRYRUN
+    rec_name = f"{arch}__{shape}__{mesh_kind}__baseline.json"
+    report_dir = os.path.join(d, "report")
+    os.makedirs(os.path.join(report_dir, torch_report.RECORDS))
+    shutil.copy(os.path.join(ROOT, "build", "chip_smoke_dryrun", rec_name),
+                os.path.join(report_dir, torch_report.RECORDS, rec_name))
+    tables = io.StringIO()
+    with contextlib.chdir(report_dir):
+        with contextlib.redirect_stdout(tables):
+            torch_report.main(["--mesh", mesh_kind])
+        recs = torch_report.load(mesh_kind)
+        with contextlib.redirect_stdout(io.StringIO()):
+            bench_rows = torch_run.roofline_table()
+    print(tables.getvalue().strip(), flush=True)
+    check(set(recs) == {(arch, shape)} and len(bench_rows) == 1,
+          f"torch_report: records {sorted(recs)}, roofline rows "
+          f"{len(bench_rows)}")
+    terms, ratio = torch_report.roofline_row(recs[(arch, shape)])
+    check(all(terms[k] == bench_rows[0][k] for k in terms),
+          f"torch_report's roofline terms {terms} differ from torch_run's "
+          f"{bench_rows[0]}")
+    print(f"torch_report roofline terms of {MESH_DRYRUN} equal torch_run "
+          f"--only roofline's: {json.dumps(terms)}; MODEL/HLO flops "
+          f"{ratio}", flush=True)
+    return counts, by_shape, errs
+
+
+def check_at_launched_shapes(device, by_shape):
+    """Every GRU and GAE kernel against its plain version at each shape
+    the bench runs launched it (``by_shape``, read before this call, so
+    these launches are not counted): ``gru_case`` (forward, gradients at
+    GRU_TOL, the backward twice for its bits) and ``gae_case`` (forward
+    bit for bit, gradients at GAE_TOL). Returns {kernel: {"shapes": [...],
+    "max_abs_err": worst}}."""
+    import torch
+    from repro_torch.marl.ppo import PPOConfig
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    ppo_cfg = PPOConfig()
+    parse = lambda k: tuple(int(x) for x in k.split("x"))
+    errs = {}
+
+    def held(names, case):
+        shapes = sorted({parse(k) for n in names for k in by_shape[n]})
+        worst = [0.0, 0.0]
+        for shape in shapes:
+            fe, be = case(*shape)[:2]
+            worst = [max(worst[0], fe), max(worst[1], be)]
+        for name, e in zip(names, worst):
+            errs[name] = {"shapes": ["x".join(map(str, x)) for x in shapes],
+                          "max_abs_err": e}
+
+    held(("gru_forward", "gru_backward"),
+         lambda a, t, b, h: gru_case(gen, device, a, t, b, h))
+    held(("gae_forward", "gae_backward"),
+         lambda t, b: gae_case(gen, device, t, b, ppo_cfg.gamma,
+                               ppo_cfg.lam))
+    print(f"bench gate: GRU and GAE kernels held to their plain versions at "
+          f"every shape the two runs launched: {json.dumps(errs)}",
+          flush=True)
+    return errs
+
+
 PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "ssd kernel vs plain", "dials main path",
           "dials warehouse gru-policy path", "dials sharded path",
@@ -3715,9 +3956,10 @@ PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "experiment harness", "gae kernel vs plain at the harness shape",
           "contracts path", "gemma2-9b serving path",
           "lm architectures serving path", "mamba2 ssm layer path",
-          "lm training path", "lm mesh path")
+          "lm training path", "lm mesh path", "bench gate and reports")
 # phases that read an earlier phase's results
 NEEDS = {"dials sharded path": "dials warehouse gru-policy path",
+         "bench gate and reports": "lm mesh path",
          "checkpoint resume on the card": "dials warehouse gru-policy path",
          "dials async collect path": "dials warehouse gru-policy path",
          "gae kernel vs plain at the harness shape":
@@ -3891,6 +4133,16 @@ def main(argv=None) -> int:
             paths[f"lm mesh ({MESH_RANKS} ranks on cuda:0, flash "
                   f"prefill)"] = (phase("lm mesh path", run_lm_mesh_path,
                                         device, smi), {})
+        if "bench gate and reports" in run:
+            *bench, bench_errs = phase("bench gate and reports",
+                                       run_bench_gate_path, device, smi)
+            paths[BENCH_PATH] = tuple(bench)
+            for r in rows:
+                if r["name"] in bench_errs:
+                    r["at_bench_shapes"] = bench_errs[r["name"]]
+                    r["max_abs_err"] = max(
+                        r["max_abs_err"],
+                        bench_errs[r["name"]]["max_abs_err"])
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
@@ -3922,7 +4174,8 @@ def main(argv=None) -> int:
               **{k: r[k] for k in ("library", "shape", "ms_by_shape",
                                    "bound_ms_by_shape", "call_ms",
                                    "device_ms", "ms_by_route", "zamba2",
-                                   "at_harness_shape", "at_lm_shapes")
+                                   "at_harness_shape", "at_lm_shapes",
+                                   "at_bench_shapes")
                  if k in r},
               "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}

@@ -5,7 +5,8 @@ Replaces ``repro/kernels/gae/kernel.py``: ``forward`` launches ``gae_fwd``
 ``_gae_backward``), and :class:`GAEScan` pairs them as one
 ``torch.autograd.Function``. The recursion is linear in (r, v, nv), so
 the backward needs only the dones: dr = ā, dv = -ā, dnv = γ(1-d)ā, and
-dones get no gradient. ``LAUNCHES`` counts the launches of each wrapper.
+dones get no gradient. ``LAUNCHES`` counts the launches of each wrapper,
+``SHAPE_LAUNCHES`` the same launches by (T, B).
 """
 from __future__ import annotations
 
@@ -16,6 +17,12 @@ from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.gae import ref
 
 LAUNCHES = {"gae_forward": 0, "gae_backward": 0}
+SHAPE_LAUNCHES = {"gae_forward": {}, "gae_backward": {}}
+
+
+def _count(name: str, shape) -> None:
+    LAUNCHES[name] += 1
+    SHAPE_LAUNCHES[name][shape] = SHAPE_LAUNCHES[name].get(shape, 0) + 1
 
 
 def forward(rewards, values, next_values, dones, gamma: float, lam: float):
@@ -28,7 +35,7 @@ def forward(rewards, values, next_values, dones, gamma: float, lam: float):
     adv = torch.empty(shape, dtype=torch.float32, device=rewards.device)
     ext.gae_forward(rewards, values, next_values, dones, adv, gamma,
                     gamma * lam)
-    LAUNCHES["gae_forward"] += 1
+    _count("gae_forward", tuple(shape))
     return adv
 
 
@@ -40,7 +47,7 @@ def backward(g, dones, gamma: float, lam: float):
     dr = torch.empty_like(g)
     dnv = torch.empty_like(g)
     ext.gae_backward(g, dones, dr, dnv, gamma, gamma * lam)
-    LAUNCHES["gae_backward"] += 1
+    _count("gae_backward", tuple(dones.shape))
     return dr, dnv
 
 

@@ -168,7 +168,8 @@ def train_batch(spec, b: int, t: int, seed: int = 1, dtype=jnp.float32):
     from repro.data import synthetic as jsyn
     key = jax.random.PRNGKey(seed)
     cfg = spec.cfg.decoder if spec.kind == "encdec" else spec.cfg
-    batch = jsyn.lm_batch(key, b, t, cfg.vocab)
+    # one compile, not one an op (the same bits as op by op)
+    batch = jax.jit(lambda k: jsyn.lm_batch(k, b, t, cfg.vocab))(key)
     if spec.kind == "encdec":
         batch["frames"] = jsyn.frames(jax.random.fold_in(key, 1), b,
                                       spec.n_frames, spec.cfg.d_model, dtype)

@@ -223,7 +223,10 @@ def test_reference_reads_port_checkpoint(tmp_path):
         jppo.PPOConfig(use_kernels="off", **PPO),
         jdials.DIALSConfig(shards=1, use_kernels="off", outer_rounds=1,
                            **DIALS))
-    target = jtr._state_struct(jtr.init(jax.random.PRNGKey(0)))
+    # init's structure, shapes and dtypes without running it (its eager
+    # ops compile one by one); ``round`` stays the Python int init returns
+    target = jtr._state_struct({**jax.eval_shape(
+        jtr.init, jax.random.PRNGKey(0)), "round": 0})
     back, step = jckpt.restore(os.path.join(d, "step_1"), target)
     assert step == 1 and back["round"] == 1
     assert jax.tree.structure(back) == jax.tree.structure(target)

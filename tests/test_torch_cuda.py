@@ -32,7 +32,11 @@ bit, ``ReshardCollectives`` on the card's re-shard transfers, and the
 peer-failure markers on the errors a broken group raises while it
 reduces CUDA tensors. LM training: reduced tinyllama in float32, every
 gradient leaf and two train steps on the card against the CPU within
-1e-4 of each leaf's largest magnitude, no kernel launched.
+1e-4 of each leaf's largest magnitude, no kernel launched. The bench
+tools: ``benchmarks/torch_kernels.py --fast`` in process, its record
+through ``benchmarks/torch_check_bench.py`` against itself (no finding),
+and a short telemetry run's log through ``tools/telemetry_report_torch.py
+--check``.
 """
 import dataclasses
 
@@ -979,3 +983,68 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device):
     for a, b in zip(leaves(tg), leaves(tc)):
         a, b = a.cpu().double(), b.double()
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_kernel_bench_fast_passes_the_gate_against_itself(cuda_device,
+                                                          tmp_path):
+    """``benchmarks/torch_kernels.py --fast`` in process on the card (the
+    GRU and GAE wrappers launched, ``gae_backward`` among them), then
+    ``benchmarks/torch_check_bench.py`` on its record against itself:
+    no finding, exit 0."""
+    import json
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmarks import torch_check_bench, torch_kernels
+    before = {**gru_kernel.LAUNCHES, **gae_kernel.LAUNCHES}
+    out = str(tmp_path / "BENCH_torch_kernels.json")
+    assert torch_kernels.main(["--fast", "--out", out]) == 0
+    after = {**gru_kernel.LAUNCHES, **gae_kernel.LAUNCHES}
+    for name in ("gru_forward", "gru_backward", "gae_forward",
+                 "gae_backward"):
+        assert after[name] > before[name], name
+    with open(out) as f:
+        record = json.load(f)
+    assert record["fast"] is True and len(record["micro"]) == 7
+    assert torch_check_bench.check("kernels", out, out, max_regression=0.25,
+                                   subset=False) == []
+    assert torch_check_bench.main(["--which", "kernels", "--fresh", out,
+                                   "--baseline", out]) == 0
+
+
+@pytest.mark.cuda
+def test_telemetry_report_torch_checks_a_card_run(cuda_device, tmp_path):
+    """A two-round DIALS run on the card with telemetry on (warehouse side
+    2, kernels on), its event log through ``python -m
+    tools.telemetry_report_torch --check`` in a process of its own."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch import random as R
+    from repro_torch.core import dials, influence
+    from repro_torch.envs import registry
+    from repro_torch.marl import policy, ppo
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tel = str(tmp_path / "tel")
+    mod, cfg = registry.make("warehouse", side=2, horizon=16)
+    info = cfg.info()
+    dials.DIALSTrainer(
+        mod, cfg, policy.PolicyConfig(info.obs_dim, info.n_actions),
+        influence.AIPConfig(info.alsh_dim, info.n_influence, kind="gru",
+                            hidden=(16,), gru_hidden=8, epochs=2, batch=4),
+        ppo.PPOConfig(epochs=1, minibatches=2),
+        dials.DIALSConfig(outer_rounds=2, aip_refresh=2, collect_envs=4,
+                          collect_steps=16, n_envs=4, rollout_steps=8,
+                          eval_episodes=2, use_kernels="on",
+                          telemetry_dir=tel),
+        device=cuda_device).run(R.key(0, cuda_device))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tools.telemetry_report_torch", tel,
+         "--check"], cwd=root, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": os.path.join(root, "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "# telemetry OK:" in proc.stdout and "2 round records" in \
+        proc.stdout

@@ -49,7 +49,10 @@ def states():
         jppo.PPOConfig(use_kernels="off", epochs=1, minibatches=2),
         jdials.DIALSConfig(shards=1, use_kernels="off", outer_rounds=1,
                            **DIALS))
-    jstate = jax.tree.map(np.asarray, jtr.init(jax.random.PRNGKey(3)))
+    # init compiled as one program (called as is, each op compiles on
+    # its own); ``round`` is set below
+    jstate = jax.tree.map(np.asarray,
+                          jax.jit(jtr.init)(jax.random.PRNGKey(3)))
     jstate["round"] = 2
     rng = np.random.RandomState(0)
     jstate["aips"] = jax.tree.map(

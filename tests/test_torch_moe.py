@@ -41,6 +41,12 @@ def params_for(jc, seed=0):
     return jp, to_torch(jp)
 
 
+def jroute(jp, xj, jc):
+    """The reference's ``_route``, compiled as one program (called op by
+    op, each op compiles on its own: seconds a call)."""
+    return jax.jit(lambda p, x: jmoe._route(p, x, jc))(jp, xj)
+
+
 def inputs(shape, dtype="float32", seed=0):
     x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
     xj = jnp.asarray(x)
@@ -71,7 +77,7 @@ def test_route_matches_reference_bit_for_bit(tokens, factor):
     jc, tc = configs(capacity_factor=factor)
     jp, tp = params_for(jc, seed=tokens)
     xj, xt = inputs((tokens, D), seed=tokens)
-    jw, je, jpos, jkeep, jcap, jaux = jmoe._route(jp, xj, jc)
+    jw, je, jpos, jkeep, jcap, jaux = jroute(jp, xj, jc)
     tw, te, tpos, tkeep, tcap, taux = tmoe._route(tp, xt, tc)
     assert tcap == jcap
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
@@ -91,7 +97,7 @@ def test_route_matches_reference_at_granite_expert_counts():
     jc, tc = jmoe.MoEConfig(**kw), tmoe.MoEConfig(**kw)
     jp, tp = params_for(jc, seed=5)
     xj, xt = inputs((512, 128), seed=5)
-    jw, je, jpos, jkeep, jcap, _ = jmoe._route(jp, xj, jc)
+    jw, je, jpos, jkeep, jcap, _ = jroute(jp, xj, jc)
     tw, te, tpos, tkeep, tcap, _ = tmoe._route(tp, xt, tc)
     assert tcap == jcap
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
@@ -111,7 +117,7 @@ def test_route_ties_keep_the_lower_expert():
     jp = dict(jp, router=jnp.asarray(router))
     tp = dict(tp, router=torch.from_numpy(router))
     xj, xt = inputs((40, D), seed=3)
-    _, je, jpos, jkeep, _, _ = jmoe._route(jp, xj, jc)
+    _, je, jpos, jkeep, _, _ = jroute(jp, xj, jc)
     _, te, tpos, tkeep, _, _ = tmoe._route(tp, xt, tc)
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))

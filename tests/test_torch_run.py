@@ -264,27 +264,38 @@ def _port_files():
                                           "*.py"), recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     for pattern in ("benchmarks/torch_*.py", "examples/torch_*.py",
-                    "tools/check_programs_torch.py"):
+                    "tools/*_torch.py"):
         files += sorted(glob.glob(os.path.join(ROOT, pattern)))
     return [os.path.relpath(f, ROOT) for f in files]
 
 
+# the reference's scripts outside src/repro that import the JAX package
+REFERENCE_SCRIPTS = frozenset(
+    ["tools.telemetry_report", "tools.check_programs"]
+    + [f"benchmarks.{m}" for m in ("run", "scaling", "kernels", "roofline",
+                                   "report", "check_bench")])
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib") or top == "repro"
+    return (top in ("jax", "jaxlib") or top == "repro"
+            or module in REFERENCE_SCRIPTS)
 
 
-@pytest.mark.parametrize("path", _port_files())
-def test_port_file_imports_no_jax(path):
-    with open(os.path.join(ROOT, path)) as f:
-        tree = ast.parse(f.read(), filename=path)
+def _bad_imports(source: str, filename: str = "<source>") -> list:
+    """The forbidden modules a source imports (``import``, ``from ...
+    import``, ``import_module``/``__import__`` of a constant) or runs as
+    ``"-m", "<module>"`` in a list, tuple or call's arguments."""
     bad = []
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(source, filename=filename)):
         if isinstance(node, ast.Import):
             bad += [a.name for a in node.names if _forbidden(a.name)]
         elif isinstance(node, ast.ImportFrom):
-            if node.level == 0 and node.module and _forbidden(node.module):
-                bad.append(node.module)
+            if node.level == 0 and node.module:
+                if _forbidden(node.module):
+                    bad.append(node.module)
+                bad += [f"{node.module}.{a.name}" for a in node.names
+                        if f"{node.module}.{a.name}" in REFERENCE_SCRIPTS]
         elif (isinstance(node, ast.Call) and node.args
               and isinstance(node.args[0], ast.Constant)
               and isinstance(node.args[0].value, str)
@@ -292,7 +303,43 @@ def test_port_file_imports_no_jax(path):
               in ("import_module", "__import__")
               and _forbidden(node.args[0].value)):
             bad.append(node.args[0].value)
+        seq = (node.elts if isinstance(node, (ast.List, ast.Tuple))
+               else node.args if isinstance(node, ast.Call) else [])
+        for flag, arg in zip(seq, seq[1:]):
+            if (isinstance(flag, ast.Constant) and flag.value == "-m"
+                    and isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str) and _forbidden(arg.value)):
+                bad.append(f"-m {arg.value}")
+    return bad
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_port_file_imports_no_jax(path):
+    with open(os.path.join(ROOT, path)) as f:
+        bad = _bad_imports(f.read(), path)
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("source,want", [
+    ("import jax.numpy as jnp", ["jax.numpy"]),
+    ("from repro.obs import metrics", ["repro.obs"]),
+    ("from benchmarks import roofline", ["benchmarks.roofline"]),
+    ("from tools import telemetry_report", ["tools.telemetry_report"]),
+    ("importlib.import_module('benchmarks.check_bench')",
+     ["benchmarks.check_bench"]),
+    ("subprocess.run([sys.executable, '-m', 'tools.telemetry_report', d,"
+     " '--check'])", ["-m tools.telemetry_report"]),
+    ("cmd = (sys.executable, '-m', 'benchmarks.kernels', '--fast')",
+     ["-m benchmarks.kernels"]),
+    ("launch(sys.executable, '-m', 'tools.check_programs')",
+     ["-m tools.check_programs"]),
+    ("subprocess.run([sys.executable, '-m', 'tools.telemetry_report_torch',"
+     " '-m', 'repro_torch.launch.dryrun'])", []),
+    ("from benchmarks import torch_roofline, torch_kernels", []),
+    ("from tools import check_programs_torch", []),
+])
+def test_import_guard_reads_every_form(source, want):
+    assert _bad_imports(source) == want
 
 
 def test_import_guard_covers_the_port():
@@ -301,5 +348,8 @@ def test_import_guard_covers_the_port():
     for must in ("chip_smoke.py", "benchmarks/torch_run.py",
                  "src/repro_torch/core/ialm.py",
                  "src/repro_torch/launch/variants.py",
-                 "tools/check_programs_torch.py"):
+                 "tools/check_programs_torch.py",
+                 "tools/telemetry_report_torch.py",
+                 "benchmarks/torch_check_bench.py",
+                 "benchmarks/torch_report.py"):
         assert must in files

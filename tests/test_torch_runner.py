@@ -85,7 +85,9 @@ def test_gs_trainer_matches_reference():
         mod, cfg, pc, ppo_cfg, runner.RunConfig(**run_cfg), device="cpu")
 
     key = jax.random.PRNGKey(3)
-    jstate = jax.device_get(jinit(key))
+    # the reference's init compiled as one program (called as is, each op
+    # compiles on its own)
+    jstate = jax.device_get(jax.jit(jinit)(key))
     state = init(jkey_to_torch(key))
     for k in ("env", "obs", "h", "key", "iter"):
         assert_tree_equal(jstate[k], state[k])

@@ -252,7 +252,9 @@ def test_one_shard_round_matches_reference():
         jmod, jcfg, *_configs(info, True), jdc, n_shards=1)
     jtr = jdials.DIALSTrainer(jmod, jcfg, *_configs(info, True), jdc)
     key = jax.random.PRNGKey(0)
-    state0 = jax.device_get(jtr.init(key))
+    # init compiled as one program (called as is, each op compiles on its
+    # own); both rounds start from this state
+    state0 = jax.device_get(jax.jit(jtr.init)(key))
     n = info.n_agents
     reports = np.full((n,), -1, np.int32)
     jcarry = jrun.shard_carry({"aips": state0["aips"],
@@ -295,7 +297,7 @@ def test_one_shard_collect_is_the_reference_dataset(env):
     info = cfg.info()
     jpc, _, _ = _configs(info, True)
     pc, _, _ = _configs(info, False)
-    params = jax.vmap(lambda k: jpol.policy_init(k, jpc))(
+    params = jax.jit(jax.vmap(lambda k: jpol.policy_init(k, jpc)))(
         jax.random.split(jax.random.PRNGKey(3), info.n_agents))
     kc = jax.random.PRNGKey(4)
     want = jgs.make_collector(jmod, jcfg, jpc, n_envs=3, steps=16)(params,

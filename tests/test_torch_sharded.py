@@ -126,6 +126,13 @@ def _spawned(env, n):
     return bootstrap.spawn_local(n, _rank_job, env, n, timeout_s=TIMEOUT_S)
 
 
+@functools.lru_cache(maxsize=None)
+def _loop_run(env):
+    """The loop driver's run of ``env`` in this process (the scenarios of
+    one env share it)."""
+    return programs.tiny_trainer(env, device="cpu", shards=1).run(R.key(0))
+
+
 def _assert_matches_loop(out, loop_state, loop_history):
     got, want = out["state"], _state_leaves(loop_state)
     for part, tol in (("aips", TOL["aips"]), ("params", TOL["policy"])):
@@ -164,9 +171,7 @@ def _assert_collectives(got, xs, rank):
 def test_ranks_match_loop_driver(env, n, sharded_gs):
     outs = _spawned(env, n)
     assert [o["rank"] for o in outs] == list(range(n))
-    loop_state, loop_history = programs.tiny_trainer(
-        env, device="cpu", shards=1).run(R.key(0))
-    _assert_matches_loop(outs[0], loop_state, loop_history)
+    _assert_matches_loop(outs[0], *_loop_run(env))
     for o in outs:
         assert o["world"] == n and o["n_shards"] == [n, n]
         assert o["use_sharded_gs"] is sharded_gs

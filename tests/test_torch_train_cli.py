@@ -122,13 +122,19 @@ def _states():
     """The reference example's state tree of reduced tinyllama after an
     outer step moved it, and the port's of the same values."""
     spec = jregistry.get("tinyllama-1.1b", reduced=True)
-    params = japi.init(jax.random.PRNGKey(0), spec)
-    opt = jadamw.init(params)
-    opt = dict(opt, step=jnp.asarray(5, jnp.int32))
-    moved = jax.tree.map(lambda p: p + jnp.asarray(0.01, p.dtype), params)
-    out_state = jouter.outer_step(moved, jouter.init(params),
-                                  jouter.OuterConfig())[1]
-    jstate = {"params": params, "opt": opt, "outer": out_state}
+
+    @jax.jit        # one program (called as is, each op compiles alone)
+    def jstates(key):
+        params = japi.init(key, spec)
+        opt = jadamw.init(params)
+        opt = dict(opt, step=jnp.asarray(5, jnp.int32))
+        moved = jax.tree.map(lambda p: p + jnp.asarray(0.01, p.dtype),
+                             params)
+        out_state = jouter.outer_step(moved, jouter.init(params),
+                                      jouter.OuterConfig())[1]
+        return {"params": params, "opt": opt, "outer": out_state}
+
+    jstate = jstates(jax.random.PRNGKey(0))
     tspec = registry.get("tinyllama-1.1b", reduced=True)
     tp = steps.init_params(tspec, seed=1, device="cpu")
     tstate = {"params": tp, "opt": adamw.init(tp, per_agent=False),
