@@ -1,63 +1,82 @@
-"""DIALS round benchmark of the PyTorch/CUDA port: the loop driver with
-the GS collect on the critical path against the overlapped collect — the
-port of the loop-path rows of ``benchmarks/scaling.py``.
+"""DIALS scaling benchmark of the PyTorch/CUDA port — shard count ×
+scenario sweep, the port of ``benchmarks/scaling.py`` over the port's
+modules, importing nothing of the JAX package.
 
-For each scenario and each collect stream width S (``--streams``) it runs
-the loop driver twice from the same seed, serial and with
-``async_collect=True`` (``max_aip_staleness=2``), and writes one row of
-the reference's scaling schema
-(``repro_torch.obs.metrics.SCALING_ROW_SCHEMA``; ``shards=1``,
-``processes=1``, ``fused=false``, null sharded-GS columns):
+For every (scenario, shard count) cell it runs the DIALS driver twice
+from the same seed, serial and with ``async_collect=True``
+(``max_aip_staleness=2``), and writes one row of the reference's scaling
+schema (``repro_torch.obs.metrics.SCALING_ROW_SCHEMA``), labelled by the
+reference's ``{scenario}-s{shards}[-p{processes}]`` rule:
+
+* ``{scenario}-s1`` is the loop driver in this process (``fused:
+  false``, ``speedup_vs_unfused`` 1);
+* ``{scenario}-sN-pN`` (N > 1) runs the sharded round
+  (``repro_torch.core.dials_sharded``) as N gloo ranks started by
+  ``bootstrap.spawn_local`` (one shard per process, all sharing
+  ``cuda:0`` on a one-card machine), and rank 0's steady rounds make the
+  row (``fused: true``, ``speedup_vs_unfused`` against the ``-s1`` row
+  when it ran); each rank also times one replicated collect of all
+  agents (``collect_s``) and one region-decomposed collect of its block
+  (``collect_s_sharded_gs``, rank 0's; null where the env cannot tile N
+  blocks), ``gs_speedup`` their ratio.
+
+The shard rows run at the cell's collect width (an empty ``--shards``
+runs none). ``--streams S1,S2,...`` adds the reference's large-batch
+rows on the FIRST scenario, ``{scenario}-streams{S}``: the loop driver
+at collect width S. A row's columns:
 
 * ``round_s`` / ``round_s_async``: the steady round, the mean over
-  rounds 1.. (round 0 pays set-up and, async, the priming collect), from
-  the records' ``wall_s``; ``overlap_speedup`` their ratio;
+  rounds 1.. (round 0 pays set-up and, async, the priming collect; with
+  one round, that round), from the records' ``wall_s``;
+  ``overlap_speedup`` their ratio;
 * ``inner_steps_per_s[_async]``: F * E * T * N agent-env steps a round
   over the steady round;
 * ``total_wall_s[_async]``: the whole ``run()``, set-up included;
-* ``collect_s`` and ``env_steps_per_s``: one collect of S streams timed
-  alone after a warm-up call (``S * collect_steps / collect_s``).
+* ``collect_s`` and ``env_steps_per_s``: one collect timed alone after a
+  warm-up call (``S * collect_steps / collect_s``).
 
 Beside the rows (the schema admits no other column), ``spread`` keeps
 each run's per-round ``round_s`` with the minimum, median and maximum of
-its steady rounds: the run-to-run spread in one process.
+its steady rounds: the run-to-run spread in one process; a sharded row's
+also keeps each rank's ``collect_s`` and its kernel launches
+(``launches_by_rank``: all, and by shape), which the parent's counts do
+not see.
 
-``--shards 1,2`` adds the reference's sharded rows
-(``benchmarks/scaling.py:109-188``) at the one ``--streams`` width,
-labelled by its ``{scenario}-s{shards}[-p{processes}]`` rule:
+Scenarios: every name of ``repro_torch.launch.variants.MARL_SCENARIOS``
+is the reference's cell (``benchmarks/scaling.py:148-152``:
+``torch_run._setup``'s widths, FNN AIP and policy,
+:func:`reference_cell`); the default is the reference's grid. The DIALS
+cells of ``PERF.md`` are extra names (``SCENARIOS``): side ``--side``
+(default 10, 100 agents), ``chip_smoke.make_trainer``'s widths, the GRU
+AIP. Without ``--fast`` a reference cell runs 4 rounds of F=20 and 64
+collect steps, a side-10 cell 4 rounds of F=5 and ``DIALSConfig``'s
+collect steps; ``--fast`` (the reference's CI smoke) runs 2 rounds of
+F=4 and 32 collect steps; ``--rounds`` and ``--inner`` win over both.
 
-* ``shards=1`` is the loop driver in this process, as above
-  (``fused: false``, ``speedup_vs_unfused`` 1);
-* ``shards=N>1`` runs the sharded round (``repro_torch.core.
-  dials_sharded``) as N gloo ranks started by ``bootstrap.spawn_local``
-  (one shard per process, all sharing ``cuda:0`` on a one-card machine),
-  serial and with the dispatch-mode async collect, and rank 0's steady
-  rounds make the row (``fused: true``, ``processes: N``,
-  ``speedup_vs_unfused`` against the ``shards=1`` row); each rank also
-  times one replicated collect of all agents (``collect_s``) and one
-  region-decomposed collect of its block (``collect_s_sharded_gs``,
-  rank 0's; null where the env cannot tile N blocks), ``gs_speedup``
-  their ratio, each after a warm-up call.
+``--processes P1,P2,...`` keeps the rows whose process count is listed:
+the port runs one shard per process, so ``-sN-pN`` runs at P=N, and
+``-s1`` and the stream rows at P=1. Every other cell prints a ``# skip``
+line; a list that leaves no row exits 2. ``--profile-dir`` wraps the
+sweep in ``repro_torch.obs.trace.profile`` (the spawned ranks do not
+profile); ``--telemetry-dir`` gives each (cell, sync/async) run its own
+event-log directory and merges each afterwards. Kernels are on on the
+card. Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-The scenarios are the DIALS cells of ``PERF.md`` at side=10 (100 agents,
-``chip_smoke.make_trainer``: the library's default widths, the GRU AIP,
-``DIALSConfig()`` cut to ``--rounds`` rounds and F=``--inner``), kernels
-on: warehouse with the FNN policy, warehouse with the recurrent policy,
-traffic. Run from the root of a checkout on a machine with one NVIDIA
-GPU:
+    python3 benchmarks/torch_scaling.py [--fast] [--shards 1,2,4,8,16]
+        [--scenarios traffic-2x2,powergrid-ring16] [--processes 1,2]
+        [--streams 8,64,512] [--rounds R] [--inner F]
+        [--telemetry-dir DIR] [--profile-dir DIR]
 
-    python3 benchmarks/torch_scaling.py [--scenarios warehouse-gru]
-        [--streams 8,16] [--rounds 4] [--inner 5] [--telemetry-dir DIR]
-        [--shards 1,2]
-
-It writes ``experiments/bench/BENCH_torch_dials_scaling.json`` and
-``name,metric,value`` lines on stdout. ``--device cpu --side 2`` is a
-rehearsal of the script on the host (plain versions; its times are the
-CPU's and say nothing of the card).
+It writes ``experiments/bench/BENCH_torch_dials_scaling.json`` (the
+gate, ``benchmarks/torch_check_bench.py --which scaling``, reads it) and
+``name,metric,value`` lines on stdout. ``--device cpu`` is a rehearsal
+on the host (plain versions; its times are the CPU's and say nothing of
+the card).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -72,10 +91,20 @@ OUT_PATH = os.path.join(ROOT, "experiments", "bench",
                         "BENCH_torch_dials_scaling.json")
 # seconds a sharded cell's ranks may take, serial and async runs together
 RANK_TIMEOUT_S = 1800.0
-# scenario -> (env, policy kind): the DIALS cells of PERF.md
+# scenario -> (env, policy kind): the side-10 DIALS cells of PERF.md
 SCENARIOS = {"warehouse-fnn": ("warehouse", "fnn"),
              "warehouse-gru": ("warehouse", "gru"),
              "traffic": ("traffic", "fnn")}
+# the reference's default grid (benchmarks/scaling.py:293-303)
+DEFAULT_SCENARIOS = ("traffic-2x2", "supplychain-line4", "powergrid-ring16",
+                     "supplychain-line16")
+# (rounds, F, collect steps): --fast, the reference's cells, the side-10
+# cells (None: DIALSConfig's collect steps)
+FAST_SIZES = (2, 4, 32)
+REFERENCE_SIZES = (4, 20, 64)
+SIDE10_SIZES = (4, 5, None)
+PROCESS_RULE = ("the port runs one shard per process (P = the shard "
+                "count; -s1 and the stream rows at P=1)")
 
 
 def spread(history):
@@ -95,23 +124,70 @@ def steady_round(history):
         (len(history) - 1)
 
 
-def _trainer(scenario, streams, args, device, overlap, label,
-             make_trainer=None, **kw):
-    """The cell's trainer, built by ``make_trainer`` (default
-    ``chip_smoke.make_trainer``: the cell's own widths)."""
-    if make_trainer is None:
-        import chip_smoke
-        make_trainer = chip_smoke.make_trainer
-    env, policy_kind = SCENARIOS[scenario]
+def cell_sizes(scenario, args):
+    """(rounds, F, collect steps or None) of ``scenario``'s runs."""
+    rounds, inner, collect_steps = (
+        FAST_SIZES if args.fast else
+        SIDE10_SIZES if scenario in SCENARIOS else REFERENCE_SIZES)
+    return (rounds if args.rounds is None else args.rounds,
+            inner if args.inner is None else args.inner, collect_steps)
+
+
+def reference_cell(rounds, inner, collect_steps, shards, overlap,
+                   streams=None, telemetry_dir=None):
+    """The reference's scaling cell (``benchmarks/scaling.py:148-152``,
+    and ``:225-230`` with ``streams``)."""
+    from repro_torch.core import dials
+    from repro_torch.launch import variants
+    return dials.DIALSConfig(
+        outer_rounds=rounds, aip_refresh=inner, collect_envs=4,
+        collect_steps=collect_steps, n_envs=8, rollout_steps=16,
+        eval_episodes=4, telemetry_dir=telemetry_dir,
+        **variants.dials_variant_for(shards, overlap, streams=streams))
+
+
+def n_agents(scenario, side):
+    from repro_torch.envs import registry
+    from repro_torch.launch import variants
+    if scenario in SCENARIOS:
+        env, cell_side = SCENARIOS[scenario][0], side
+    else:
+        env, cell_side = variants.MARL_SCENARIOS[scenario]
+    return registry.make(env, side=cell_side)[1].info().n_agents
+
+
+def _trainer(scenario, args, device, overlap, label, *, streams=None,
+             shards=1, make_trainer=None):
+    """The cell's trainer: ``make_trainer`` (default
+    ``chip_smoke.make_trainer``) for a side-10 name, the reference's cell
+    otherwise."""
+    from repro_torch.launch import variants
+    rounds, inner, collect_steps = cell_sizes(scenario, args)
     tel = (os.path.join(args.telemetry_dir,
                         f"{label}-{'async' if overlap else 'sync'}")
            if args.telemetry_dir else None)
-    return make_trainer(
-        env, args.side, device=device,
-        use_kernels="on" if device.type == "cuda" else "off",
-        rounds=args.rounds, refresh=args.inner,
-        policy_kind=policy_kind, collect_streams=streams,
-        async_collect=overlap, telemetry_dir=tel, **kw)
+    use_kernels = "on" if device.type == "cuda" else "off"
+    if scenario in SCENARIOS:
+        if make_trainer is None:
+            import chip_smoke
+            make_trainer = chip_smoke.make_trainer
+        env, policy_kind = SCENARIOS[scenario]
+        steps = {} if collect_steps is None else \
+            {"collect_steps": collect_steps}
+        return make_trainer(
+            env, args.side, device=device, use_kernels=use_kernels,
+            rounds=rounds, refresh=inner, policy_kind=policy_kind,
+            telemetry_dir=tel, **steps,
+            **variants.dials_variant_for(shards, overlap, streams=streams))
+    from benchmarks.torch_run import _setup
+    from repro_torch.core import dials
+    env_mod, env_cfg, _info, pc, ac, ppo_cfg = _setup(
+        *variants.MARL_SCENARIOS[scenario])
+    cfg = reference_cell(rounds, inner, collect_steps, shards, overlap,
+                         streams, tel)
+    return dials.DIALSTrainer(
+        env_mod, env_cfg, pc, ac, ppo_cfg,
+        dataclasses.replace(cfg, use_kernels=use_kernels), device=device)
 
 
 def _collect_s(collect, params, key, sync):
@@ -124,35 +200,17 @@ def _collect_s(collect, params, key, sync):
     return time.perf_counter() - t0
 
 
-def run_cell(scenario, streams, args, device, sync, label=None,
-             make_trainer=None):
-    from repro_torch import random as R
-    label = label or f"{scenario}-streams{streams}"
-    out = {}
-    for overlap in (False, True):
-        trainer = _trainer(scenario, streams, args, device, overlap, label,
-                           make_trainer)
-        key = R.key(args.seed, device=device)
-        t0 = time.perf_counter()
-        _, hist = trainer.run(key)
-        sync()
-        out[overlap] = (hist, time.perf_counter() - t0)
-        for rec in hist:
-            print(f"{label} {'async' if overlap else 'serial'} round "
-                  f"{rec['round']}: round_s={rec['round_s']:.4f} "
-                  f"collect_s={rec['collect_s']:.4f} aip_s={rec['aip_s']:.4f}"
-                  f" inner_s={rec['inner_s']:.4f} eval_s={rec['eval_s']:.4f}"
-                  f" data_round={rec['data_round']}", flush=True)
-    # one collect of S streams alone, after a warm-up call
-    collect_s = _collect_s(trainer.collect,
-                           trainer.init(key)["ials"]["params"], key, sync)
-
-    cfg, n = trainer.cfg, trainer.info.n_agents
-    (h_sync, wall_sync), (h_async, wall_async) = out[False], out[True]
+def _row(label, scenario, n, shards, streams, runs, cfg, collect_s,
+         sharded_s=None):
+    """A scaling row from the serial and async runs' (history, wall)."""
+    from repro_torch.core import dials
+    (h_sync, wall_sync), (h_async, wall_async) = runs
     steady, steady_async = steady_round(h_sync), steady_round(h_async)
     inner_steps = cfg.aip_refresh * cfg.n_envs * cfg.rollout_steps * n
+    streams = dials.collect_stream_count(cfg) if streams is None else streams
     row = {"label": label, "scenario": scenario, "n_agents": n,
-           "shards": 1, "processes": 1, "streams": streams, "fused": False,
+           "shards": shards, "processes": shards, "streams": streams,
+           "fused": shards > 1,
            "round_s": steady, "round_s_async": steady_async,
            "overlap_speedup": steady / steady_async,
            "inner_steps_per_s": inner_steps / steady,
@@ -160,17 +218,55 @@ def run_cell(scenario, streams, args, device, sync, label=None,
            "total_wall_s": wall_sync, "total_wall_s_async": wall_async,
            "collect_s": collect_s,
            "env_steps_per_s": streams * cfg.collect_steps / collect_s,
-           "collect_s_sharded_gs": None, "gs_speedup": None}
+           "collect_s_sharded_gs": sharded_s,
+           "gs_speedup": (collect_s / sharded_s
+                          if sharded_s is not None else None)}
     return row, {"serial": spread(h_sync), "async": spread(h_async),
                  "data_round_async": [r["data_round"] for r in h_async]}
 
 
-def _sharded_rank(scenario, streams, args, device_name, label,
-                  make_trainer):
+def run_cell(scenario, args, device, sync, *, label, streams=None,
+             make_trainer=None):
+    """The loop driver's row of one cell, in this process, at collect
+    width ``streams`` (None: the cell's own)."""
+    from repro_torch import random as R
+    out = []
+    for overlap in (False, True):
+        trainer = _trainer(scenario, args, device, overlap, label,
+                           streams=streams, make_trainer=make_trainer)
+        key = R.key(args.seed, device=device)
+        t0 = time.perf_counter()
+        _, hist = trainer.run(key)
+        sync()
+        out.append((hist, time.perf_counter() - t0))
+        for rec in hist:
+            print(f"{label} {'async' if overlap else 'serial'} round "
+                  f"{rec['round']}: round_s={rec['round_s']:.4f} "
+                  f"collect_s={rec['collect_s']:.4f} aip_s={rec['aip_s']:.4f}"
+                  f" inner_s={rec['inner_s']:.4f} eval_s={rec['eval_s']:.4f}"
+                  f" data_round={rec['data_round']}", flush=True)
+    collect_s = _collect_s(trainer.collect,
+                           trainer.init(key)["ials"]["params"], key, sync)
+    return _row(label, scenario, trainer.info.n_agents, 1, streams, out,
+                trainer.cfg, collect_s)
+
+
+def kernel_launches():
+    """This process's GRU and GAE kernel launches: ``{name: n}`` and
+    ``{name: {shape: n}}`` (GRU by ``AxTxBxH``, GAE by ``TxB``)."""
+    from repro_torch.kernels.gae import kernel as ak
+    from repro_torch.kernels.gru import kernel as gk
+    tables = {**gk.SHAPE_LAUNCHES, **ak.SHAPE_LAUNCHES}
+    return ({**gk.LAUNCHES, **ak.LAUNCHES},
+            {name: {"x".join(map(str, k)): n for k, n in sorted(tbl.items())}
+             for name, tbl in tables.items()})
+
+
+def _sharded_rank(scenario, args, device_name, label, make_trainer):
     """One rank of a ``shards=world`` cell (started by
     ``bootstrap.spawn_local``): the sharded round serial, then with the
     dispatch-mode async collect, then the collect A/B. Returns plain
-    values (rank 0's make the row)."""
+    values (rank 0's make the row) and the rank's kernel launches."""
     import torch
     from repro_torch import random as R
     from repro_torch.distributed import bootstrap, runtime
@@ -184,8 +280,9 @@ def _sharded_rank(scenario, streams, args, device_name, label,
         build.extension()                  # built by the parent: a load
     out = {"rank": ctx.process_id}
     for overlap in (False, True):
-        trainer = _trainer(scenario, streams, args, device, overlap, label,
-                           make_trainer, shards=ctx.num_processes)
+        trainer = _trainer(scenario, args, device, overlap, label,
+                           shards=ctx.num_processes,
+                           make_trainer=make_trainer)
         key = R.key(args.seed, device=device)
         t0 = time.perf_counter()
         _, hist = trainer.run(key)
@@ -207,103 +304,159 @@ def _sharded_rank(scenario, streams, args, device_name, label,
             params, runner.mesh), key, sync)
         if runner.use_sharded_gs else None)
     out["n_agents"] = trainer.info.n_agents
-    out["cfg"] = (trainer.cfg.aip_refresh, trainer.cfg.n_envs,
-                  trainer.cfg.rollout_steps, trainer.cfg.collect_steps)
+    out["cfg"] = trainer.cfg
+    launches, by_shape = kernel_launches()
+    out["launches"] = {"launches": launches, "by_shape": by_shape}
     return out
 
 
-def run_sharded_cell(scenario, streams, shards, args, device,
-                     unfused_round_s, make_trainer=None):
-    """The ``shards``-rank row of ``scenario`` from its ranks' runs."""
+def run_sharded_cell(scenario, shards, args, device, unfused_round_s,
+                     make_trainer=None):
+    """The ``shards``-rank row of ``scenario`` from its ranks' runs, with
+    ``speedup_vs_unfused`` when ``unfused_round_s`` (the ``-s1`` row's
+    steady round) is given."""
     from repro_torch.distributed import bootstrap
     label = f"{scenario}-s{shards}-p{shards}"
-    ranks = bootstrap.spawn_local(shards, _sharded_rank, scenario, streams,
-                                  args, str(device), label, make_trainer,
+    ranks = bootstrap.spawn_local(shards, _sharded_rank, scenario, args,
+                                  str(device), label, make_trainer,
                                   timeout_s=RANK_TIMEOUT_S)
     r0 = ranks[0]
-    (h_sync, wall_sync), (h_async, wall_async) = r0["serial"], r0["async"]
     for r in ranks:
         if [h["round"] for h in r["serial"][0]] != \
-                [h["round"] for h in h_sync]:
+                [h["round"] for h in r0["serial"][0]]:
             raise RuntimeError(f"{label}: rank {r['rank']} ran other rounds")
-    steady, steady_async = steady_round(h_sync), steady_round(h_async)
-    refresh, n_envs, rollout_steps, collect_steps = r0["cfg"]
-    n = r0["n_agents"]
-    inner_steps = refresh * n_envs * rollout_steps * n
-    sharded_s = r0["collect_s_sharded_gs"]
-    row = {"label": label, "scenario": scenario, "n_agents": n,
-           "shards": shards, "processes": shards, "streams": streams,
-           "fused": True,
-           "round_s": steady, "round_s_async": steady_async,
-           "overlap_speedup": steady / steady_async,
-           "inner_steps_per_s": inner_steps / steady,
-           "inner_steps_per_s_async": inner_steps / steady_async,
-           "total_wall_s": wall_sync, "total_wall_s_async": wall_async,
-           "collect_s": r0["collect_s"],
-           "env_steps_per_s": streams * collect_steps / r0["collect_s"],
-           "collect_s_sharded_gs": sharded_s,
-           "gs_speedup": (r0["collect_s"] / sharded_s
-                          if sharded_s is not None else None),
-           "speedup_vs_unfused": unfused_round_s / steady}
-    return row, {"serial": spread(h_sync), "async": spread(h_async),
-                 "data_round_async": [r["data_round"] for r in h_async],
-                 "collect_s_by_rank": [r["collect_s"] for r in ranks],
-                 "collect_s_sharded_gs_by_rank": [
-                     r["collect_s_sharded_gs"] for r in ranks]}
+    row, sp = _row(label, scenario, r0["n_agents"], shards, None,
+                   (r0["serial"], r0["async"]), r0["cfg"], r0["collect_s"],
+                   r0["collect_s_sharded_gs"])
+    if unfused_round_s is not None:
+        row["speedup_vs_unfused"] = unfused_round_s / row["round_s"]
+    sp["collect_s_by_rank"] = [r["collect_s"] for r in ranks]
+    sp["collect_s_sharded_gs_by_rank"] = [r["collect_s_sharded_gs"]
+                                          for r in ranks]
+    sp["launches_by_rank"] = [r["launches"] for r in ranks]
+    return row, sp
 
 
-def sharded_rows(scenario, streams, shard_counts, args, device, sync,
+def sharded_rows(scenario, shard_counts, args, device, sync,
                  make_trainer=None):
-    """``scenario``'s rows for ``shard_counts`` (the first is 1, the
-    unfused baseline) with their spreads, as ``(row, spread)`` pairs."""
-    unfused, sp = run_cell(scenario, streams, args, device, sync,
-                           label=f"{scenario}-s1", make_trainer=make_trainer)
-    out = [({**unfused, "speedup_vs_unfused": 1.0}, sp)]
-    for shards in shard_counts[1:]:
-        out.append(run_sharded_cell(scenario, streams, shards, args, device,
-                                    unfused["round_s"], make_trainer))
+    """``scenario``'s shard rows for ``shard_counts`` (1: the loop path
+    in this process; N > 1: N ranks) with their spreads, as ``(row,
+    spread)`` pairs."""
+    out, unfused = [], None
+    for shards in shard_counts:
+        if shards == 1:
+            row, sp = run_cell(scenario, args, device, sync,
+                               label=f"{scenario}-s1",
+                               make_trainer=make_trainer)
+            unfused = row["round_s"]
+            out.append(({**row, "speedup_vs_unfused": 1.0}, sp))
+        else:
+            out.append(run_sharded_cell(scenario, shards, args, device,
+                                        unfused, make_trainer))
     return out
 
 
-def main() -> int:
+def plan(scenarios, shard_counts, processes, streams_list, side):
+    """The cells to run, ``{scenario: [shard count, ...]}``, and the
+    stream widths, after printing the reference's ``# skip`` lines for
+    counts that do not divide a scenario's agents and the port's for
+    process counts ``processes`` (None: all) does not list."""
+    cells = {}
+    for scenario in scenarios:
+        n = n_agents(scenario, side)
+        cells[scenario] = []
+        for shards in shard_counts:
+            if n % shards:
+                print(f"# skip {scenario} shards={shards}: "
+                      f"{n} agents not divisible")
+            elif processes is not None and shards not in processes:
+                print(f"# skip {scenario} shards={shards}: the port runs "
+                      f"one shard per process (P={shards})")
+            else:
+                cells[scenario].append(shards)
+    if streams_list and processes is not None and 1 not in processes:
+        print(f"# skip {scenarios[0]} streams={streams_list}: the stream "
+              f"rows run in one process (P=1)")
+        streams_list = []
+    return cells, streams_list
+
+
+def merge_telemetry(directory) -> int:
+    """Merge every cell directory under ``directory`` that holds
+    ``telemetry-p*.jsonl`` (``repro_torch.obs.sinks.merge_dir``); returns
+    their number."""
+    from repro_torch.obs import sinks
+    merged = 0
+    for root, _dirs, files in sorted(os.walk(directory)):
+        if any(f.startswith("telemetry-p") and f.endswith(".jsonl")
+               for f in files):
+            sinks.merge_dir(root)
+            merged += 1
+    return merged
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scenarios", default=",".join(SCENARIOS),
-                    help=f"comma-separated, of {sorted(SCENARIOS)}")
-    ap.add_argument("--streams", default="8",
-                    help="comma-separated collect stream widths S")
-    ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--inner", type=int, default=5, help="F")
-    ap.add_argument("--side", type=int, default=10)
+    ap.add_argument("--fast", action="store_true",
+                    help="the reference's CI smoke: 2 rounds of F=4, 32 "
+                         "collect steps")
+    ap.add_argument("--shards", default="1,2,4,8,16",
+                    help="comma-separated shard counts (1 = the loop "
+                         "path; empty: no shard rows); counts that do not "
+                         "divide a scenario's agent count are skipped")
+    ap.add_argument("--scenarios", default=",".join(DEFAULT_SCENARIOS),
+                    help="comma-separated names of launch.variants."
+                         f"MARL_SCENARIOS, or of {sorted(SCENARIOS)}")
+    ap.add_argument("--streams", default=None,
+                    help="comma-separated collect stream widths S: one "
+                         "loop-path row per S on the FIRST scenario, "
+                         "labelled {scenario}-streams{S}")
+    ap.add_argument("--processes", default=None,
+                    help="comma-separated process counts: keep the rows "
+                         "that run at a listed P (-sN-pN at P=N, -s1 and "
+                         "the stream rows at P=1)")
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--inner", type=int, default=None, help="F")
+    ap.add_argument("--side", type=int, default=10,
+                    help=f"side of the {sorted(SCENARIOS)} cells")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--shards", default=None,
-                    help="comma-separated shard counts, e.g. 1,2: the "
-                         "reference's sharded rows, one gloo rank per "
-                         "shard (needs one --streams width)")
     ap.add_argument("--telemetry-dir", default=None,
                     help="one JSONL event-log directory per (cell, "
-                         "serial/async) run under this directory")
+                         "sync/async) run under this directory, merged "
+                         "to telemetry.jsonl at the end")
+    ap.add_argument("--profile-dir", default=None,
+                    help="a torch.profiler trace of the sweep in this "
+                         "process into DIR/trace.json (the spawned ranks "
+                         "do not profile)")
     ap.add_argument("--out", default=OUT_PATH)
-    args = ap.parse_args()
-    scenarios = [s for s in args.scenarios.split(",") if s]
-    unknown = set(scenarios) - set(SCENARIOS)
+    args = ap.parse_args(argv)
+    from repro_torch.launch import variants
+    scenarios = [s.strip() for s in args.scenarios.split(",") if s.strip()]
+    unknown = set(scenarios) - set(variants.MARL_SCENARIOS) - set(SCENARIOS)
     if unknown:
         ap.error(f"unknown scenarios {sorted(unknown)}")
-    if args.rounds < 2:
-        ap.error("--rounds must be >= 2 (round 0 is not steady)")
-    streams_list = sorted({int(s) for s in args.streams.split(",")})
-    shard_counts = (sorted({int(s) for s in args.shards.split(",")})
-                    if args.shards else None)
-    if shard_counts is not None:
-        if len(streams_list) != 1:
-            ap.error("--shards takes one --streams width")
-        if shard_counts[0] != 1:
-            ap.error("--shards must include 1 (the unfused baseline that "
-                     "speedup_vs_unfused compares with)")
+    for flag in ("rounds", "inner"):
+        if getattr(args, flag) is not None and getattr(args, flag) < 1:
+            ap.error(f"--{flag} must be >= 1")
+    shard_counts = sorted({int(s) for s in args.shards.split(",")
+                           if s.strip()})
+    if shard_counts and shard_counts[0] < 1:
+        ap.error("--shards must be >= 1")
+    processes = (sorted({int(p) for p in args.processes.split(",")})
+                 if args.processes else None)
+    cells, streams_list = plan(
+        scenarios, shard_counts, processes,
+        sorted({int(s) for s in args.streams.split(",")})
+        if args.streams else [], args.side)
+    if not streams_list and not any(cells.values()):
+        ap.error(f"--processes {args.processes} --shards {args.shards!r} "
+                 f"--streams {args.streams}: no row left; {PROCESS_RULE}")
 
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
     device = dispatch.resolve_device(args.device)   # raises without a card
     if device.type == "cuda":
         import chip_smoke
@@ -318,20 +471,16 @@ def main() -> int:
         card, sync, kind, platform, count = None, lambda: None, "cpu", \
             "cpu", 1
 
-    rows, spreads = [], {}
-
-    def add(row, sp):
-        rows.append(row)
-        spreads[row["label"]] = sp
-
-    for scenario in scenarios:
-        if shard_counts is None:
-            for streams in streams_list:
-                add(*run_cell(scenario, streams, args, device, sync))
-            continue
-        for row, sp in sharded_rows(scenario, streams_list[0], shard_counts,
-                                    args, device, sync):
-            add(row, sp)
+    pairs = []
+    with obs_trace.profile(args.profile_dir):
+        for scenario, counts in cells.items():
+            pairs += sharded_rows(scenario, counts, args, device, sync)
+        for streams in streams_list:
+            pairs.append(run_cell(
+                scenarios[0], args, device, sync, streams=streams,
+                label=f"{scenarios[0]}-streams{streams}"))
+    rows = [row for row, _ in pairs]
+    spreads = {row["label"]: sp for row, sp in pairs}
     problems = [p for r in rows for p in obs_metrics.validate_bench_row(
         r, obs_metrics.SCALING_ROW_SCHEMA)]
     if problems:
@@ -341,12 +490,13 @@ def main() -> int:
     record = {"device": {"platform": platform, "kind": kind,
                          "count": count},
               "card": card,
-              "config": {"side": args.side, "rounds": args.rounds,
-                         "inner": args.inner, "seed": args.seed,
-                         "shards": shard_counts,
+              "config": {"fast": args.fast, "side": args.side,
+                         "rounds": args.rounds, "inner": args.inner,
+                         "seed": args.seed, "shards": shard_counts,
+                         "processes": processes, "streams": streams_list,
                          "max_aip_staleness": 2},
               "rows": rows, "spread": spreads}
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
     print("name,metric,value")
@@ -360,6 +510,9 @@ def main() -> int:
                   f"{sp[mode]['min']}/{sp[mode]['median']}/"
                   f"{sp[mode]['max']}")
     print(f"# wrote {args.out} ({kind}; {card})")
+    if args.telemetry_dir:
+        print(f"# merged telemetry in {merge_telemetry(args.telemetry_dir)} "
+              f"cell dir(s) under {args.telemetry_dir}")
     return 0
 
 

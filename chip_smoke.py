@@ -167,10 +167,18 @@ It
      found, nothing else), and ``benchmarks/torch_report.py``'s dry-run
      and roofline tables over 8's dry-run record, its roofline terms
      equal to ``benchmarks/torch_run.py --only roofline``'s;
- 10. prints the kernel table as one JSON line, the nvidia-smi line, and
+ 10. runs the port's scaling bench into its gate, no JAX
+     (``run_scaling_gate_path``): ``benchmarks/torch_scaling.py --fast``
+     once in process at traffic-2x2 (the ``-s1`` loop row, the ``-s2-p2``
+     row on two gloo ranks sharing the card, the ``-streams8`` row),
+     ``benchmarks/torch_check_bench.py --which scaling`` on its record
+     against itself (no finding) and on a copy without one row (exactly
+     that row missing), and each merged telemetry directory through
+     ``tools/telemetry_report_torch.py --check``;
+ 11. prints the kernel table as one JSON line, the nvidia-smi line, and
      as its last line ``{"ok": true, "device": {...}}``.
 
-Each path (each of 4's, 5's, 6, 7, 8, 9) runs with every launch count set to 0
+Each path (each of 4's, 5's, 6, 7, 8, 9, 10) runs with every launch count set to 0
 just before it and read just after (the kernels line gives each kernel's
 launches by path); each phase prints its seconds, and a line before the
 table all of them. Any failed phase
@@ -3744,14 +3752,15 @@ BENCH_DEFECTS = {"removed": 0, "null": ("gae", "speedup_fwd"),
 BENCH_PATH = "bench gate and reports (torch_kernels --fast, twice)"
 
 
-def _bench_gate(check_bench, fresh, baseline, max_regression):
-    """``torch_check_bench.check("kernels", ...)`` with its summary line
+def _bench_gate(check_bench, fresh, baseline, max_regression,
+                which="kernels"):
+    """``torch_check_bench.check(which, ...)`` with its summary line
     captured: (problems, the line)."""
     import contextlib
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        problems = check_bench.check("kernels", fresh, baseline,
+        problems = check_bench.check(which, fresh, baseline,
                                      max_regression=max_regression,
                                      subset=False)
     return problems, buf.getvalue().strip()
@@ -3854,7 +3863,7 @@ def run_bench_gate_path(device, smi):
     for name in BENCH_KERNELS:
         check(counts[name] > 0, f"torch_kernels --fast never launched "
                                 f"{name}")
-    errs = check_at_launched_shapes(device, by_shape)
+    errs = check_at_launched_shapes(device, by_shape, "the two runs")
 
     problems, line = _bench_gate(torch_check_bench, runs["B"], runs["A"],
                                  math.inf)
@@ -3911,13 +3920,13 @@ def run_bench_gate_path(device, smi):
     return counts, by_shape, errs
 
 
-def check_at_launched_shapes(device, by_shape):
+def check_at_launched_shapes(device, by_shape, runs):
     """Every GRU and GAE kernel against its plain version at each shape
-    the bench runs launched it (``by_shape``, read before this call, so
-    these launches are not counted): ``gru_case`` (forward, gradients at
-    GRU_TOL, the backward twice for its bits) and ``gae_case`` (forward
-    bit for bit, gradients at GAE_TOL). Returns {kernel: {"shapes": [...],
-    "max_abs_err": worst}}."""
+    ``runs`` (the bench runs) launched it (``by_shape``, read before this
+    call, so these launches are not counted): ``gru_case`` (forward,
+    gradients at GRU_TOL, the backward twice for its bits) and
+    ``gae_case`` (forward bit for bit, gradients at GAE_TOL). Returns
+    {kernel: {"shapes": [...], "max_abs_err": worst}}."""
     import torch
     from repro_torch.marl.ppo import PPOConfig
     gen = torch.Generator(device=device)
@@ -3942,9 +3951,134 @@ def check_at_launched_shapes(device, by_shape):
          lambda t, b: gae_case(gen, device, t, b, ppo_cfg.gamma,
                                ppo_cfg.lam))
     print(f"bench gate: GRU and GAE kernels held to their plain versions at "
-          f"every shape the two runs launched: {json.dumps(errs)}",
-          flush=True)
+          f"every shape {runs} launched: {json.dumps(errs)}", flush=True)
     return errs
+
+
+# the scaling bench into the gate: torch_scaling --fast once in process at
+# traffic-2x2 (the reference's cell: FNN AIP and policy, so the GAE
+# forward), its -s2-p2 row on two gloo ranks sharing the card; F cut
+# from --fast's 4 to 1 (76.6 s for the phase at F=4 on one H100)
+SCALING_ARGV = ("--fast", "--scenarios", "traffic-2x2", "--shards", "1,2",
+                "--processes", "1,2", "--streams", "8", "--inner", "1")
+SCALING_ROWS = ("traffic-2x2-s1", "traffic-2x2-s2-p2", "traffic-2x2-streams8")
+SCALING_REMOVED = "traffic-2x2-s2-p2"
+# the GAE forward's (T, B) on each -s2-p2 rank: 16 rollout steps, 8 envs
+# x 2 of traffic-2x2's 4 agents (16x32 in process)
+SCALING_RANK_SHAPE = "16x16"
+SCALING_PATH = "scaling bench and gate (torch_scaling --fast, traffic-2x2)"
+
+
+def run_scaling_gate_path(device, smi):
+    """The port's scaling bench into its gate on the card, no JAX:
+    ``benchmarks/torch_scaling.main`` with SCALING_ARGV in process once
+    (the counts set to 0 just before it; the ranks of the ``-s2-p2`` row
+    count in their own processes and return their counts in the record's
+    ``spread``, which are added to this process's), whose rows must be
+    exactly SCALING_ROWS, each a valid ``SCALING_ROW_SCHEMA`` row; the
+    GAE forward launched in process and on every rank, at
+    SCALING_RANK_SHAPE there, and each GRU and GAE kernel held to its
+    plain version at every shape the sweep launched it. Then
+    ``benchmarks/torch_check_bench.check("scaling", A, A)`` must find
+    nothing, and a copy of A without the SCALING_REMOVED row exactly that
+    row missing; every merged telemetry directory of the sweep passes
+    ``tools/telemetry_report_torch.py --check``. Returns the sweep's
+    launch counts (all, by shape) and the kernels' errors at those
+    shapes."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from benchmarks import torch_check_bench, torch_scaling
+    from repro_torch.obs import metrics as obs_metrics
+    d = os.path.join(ROOT, "build", "chip_smoke_scaling")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    a_path, tel = os.path.join(d, "A.json"), os.path.join(d, "tel")
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = torch_scaling.main([*SCALING_ARGV, "--telemetry-dir", tel,
+                                 "--out", a_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_shape = launch_counts(), shape_counts()
+    out = buf.getvalue().splitlines()
+    print("\n".join(line for line in out
+                    if " round " in line or line.startswith("#")),
+          flush=True)
+    print(f"torch_scaling {' '.join(SCALING_ARGV)} on {smi}: exit {rc}, "
+          f"{wall:.2f} s; launches in process {counts}; by shape "
+          f"{by_shape}", flush=True)
+    check(rc == 0, f"torch_scaling exited {rc}:\n{buf.getvalue()[-2000:]}")
+    with open(a_path) as f:
+        record = json.load(f)
+    rows = record["rows"]
+    check([r["label"] for r in rows] == list(SCALING_ROWS),
+          f"torch_scaling rows {[r['label'] for r in rows]}, want "
+          f"{list(SCALING_ROWS)}")
+    for r in rows:
+        problems = obs_metrics.validate_bench_row(
+            r, obs_metrics.SCALING_ROW_SCHEMA)
+        check(not problems, f"{r['label']}: {problems}")
+        sp = record["spread"][r["label"]]
+        print(f"scaling row {r['label']}: " + json.dumps(
+            {k: r[k] for k in ("n_agents", "shards", "processes", "streams",
+                               "fused", "round_s", "round_s_async",
+                               "collect_s", "collect_s_sharded_gs",
+                               "speedup_vs_unfused") if k in r})
+            + f"; round_s serial {sp['serial']['round_s']}, async "
+              f"{sp['async']['round_s']}", flush=True)
+    check(counts["gae_forward"] > 0, "torch_scaling never launched "
+                                     "gae_forward in process")
+    for label, sp in record["spread"].items():
+        for r, got in enumerate(sp.get("launches_by_rank", ())):
+            print(f"scaling row {label} rank {r}: launches "
+                  f"{got['launches']}; by shape {got['by_shape']}",
+                  flush=True)
+            check(got["launches"]["gae_forward"] > 0,
+                  f"{label} rank {r} never launched gae_forward")
+            for k, n in got["launches"].items():
+                counts[k] += n
+            for k, tbl in got["by_shape"].items():
+                for shape, n in tbl.items():
+                    by_shape[k][shape] = by_shape[k].get(shape, 0) + n
+    check(len(record["spread"][SCALING_REMOVED].get("launches_by_rank", ()))
+          == 2, f"{SCALING_REMOVED}: no launch counts from its two ranks")
+    print(f"torch_scaling launches, in process and on the ranks: {counts}; "
+          f"by shape {by_shape}", flush=True)
+    errs = check_at_launched_shapes(device, by_shape, "the scaling sweep")
+    check(SCALING_RANK_SHAPE in errs["gae_forward"]["shapes"],
+          f"gae_forward not held at the ranks' shape {SCALING_RANK_SHAPE}: "
+          f"{errs['gae_forward']['shapes']}")
+
+    problems, line = _bench_gate(torch_check_bench, a_path, a_path,
+                                 math.inf, "scaling")
+    print(f"scaling gate A against A: {line}; findings {problems}",
+          flush=True)
+    check(not problems, f"scaling gate: findings in A against A {problems}")
+    broken = dict(record, rows=[r for r in rows
+                                if r["label"] != SCALING_REMOVED])
+    b_path = os.path.join(d, "A_without_row.json")
+    with open(b_path, "w") as f:
+        json.dump(broken, f)
+    found, line = _bench_gate(torch_check_bench, b_path, a_path, 0.25,
+                              "scaling")
+    want = [f"{SCALING_REMOVED}: row missing from fresh artifact"]
+    print(f"scaling gate on A without {SCALING_REMOVED}: {line}; findings "
+          f"{found}", flush=True)
+    check(found == want, f"scaling gate on the broken copy: {found}, want "
+                         f"{want}")
+    merged = sorted(root for root, _dirs, files in os.walk(tel)
+                    if "telemetry.jsonl" in files)
+    check(len(merged) == 2 * len(SCALING_ROWS),
+          f"merged telemetry directories {merged}")
+    for directory in merged:
+        _telemetry_report(directory)
+    return counts, by_shape, errs
 
 
 PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
@@ -3956,7 +4090,8 @@ PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "experiment harness", "gae kernel vs plain at the harness shape",
           "contracts path", "gemma2-9b serving path",
           "lm architectures serving path", "mamba2 ssm layer path",
-          "lm training path", "lm mesh path", "bench gate and reports")
+          "lm training path", "lm mesh path", "bench gate and reports",
+          "scaling bench and gate")
 # phases that read an earlier phase's results
 NEEDS = {"dials sharded path": "dials warehouse gru-policy path",
          "bench gate and reports": "lm mesh path",
@@ -4143,6 +4278,17 @@ def main(argv=None) -> int:
                     r["max_abs_err"] = max(
                         r["max_abs_err"],
                         bench_errs[r["name"]]["max_abs_err"])
+        if "scaling bench and gate" in run:
+            *scaling, scaling_errs = phase("scaling bench and gate",
+                                           run_scaling_gate_path, device,
+                                           smi)
+            paths[SCALING_PATH] = tuple(scaling)
+            for r in rows:
+                if scaling_errs.get(r["name"], {}).get("shapes"):
+                    r["at_scaling_shapes"] = scaling_errs[r["name"]]
+                    r["max_abs_err"] = max(
+                        r["max_abs_err"],
+                        scaling_errs[r["name"]]["max_abs_err"])
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
@@ -4175,7 +4321,7 @@ def main(argv=None) -> int:
                                    "bound_ms_by_shape", "call_ms",
                                    "device_ms", "ms_by_route", "zamba2",
                                    "at_harness_shape", "at_lm_shapes",
-                                   "at_bench_shapes")
+                                   "at_bench_shapes", "at_scaling_shapes")
                  if k in r},
               "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}

@@ -18,6 +18,9 @@ import collections
 import os
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.analysis import lint as ref_lint

@@ -31,6 +31,9 @@ import types
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import assert_tree_equal, tree_maxdiff

@@ -31,6 +31,8 @@ import types
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 import chip_smoke
 from benchmarks import check_bench as jcheck
 from benchmarks import kernels as jkernels

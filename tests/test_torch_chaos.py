@@ -9,6 +9,9 @@ import signal
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.distributed import chaos as jchaos

@@ -8,6 +8,9 @@ import os
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import assert_tree_equal

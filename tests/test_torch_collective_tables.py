@@ -6,6 +6,10 @@ and must be classified, or ``validate_collective_tables`` fails in any
 test process that imported it first. Imports no JAX."""
 import importlib
 
+import pytest
+
+pytest.importorskip("torch")
+
 from repro_torch.distributed import runtime
 
 

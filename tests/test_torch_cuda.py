@@ -36,11 +36,16 @@ gradient leaf and two train steps on the card against the CPU within
 tools: ``benchmarks/torch_kernels.py --fast`` in process, its record
 through ``benchmarks/torch_check_bench.py`` against itself (no finding),
 and a short telemetry run's log through ``tools/telemetry_report_torch.py
---check``.
+--check``; ``benchmarks/torch_scaling.py --fast`` at traffic-2x2 in
+process (the loop row, two gloo ranks sharing the card, a stream row),
+its rows exactly the three labels and the GAE forward launched.
 """
 import dataclasses
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1048,3 +1053,41 @@ def test_telemetry_report_torch_checks_a_card_run(cuda_device, tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "# telemetry OK:" in proc.stdout and "2 round records" in \
         proc.stdout
+
+
+@pytest.mark.cuda
+def test_scaling_bench_fast_on_card(cuda_device, tmp_path):
+    """``benchmarks/torch_scaling.py --fast`` in process on the card at
+    traffic-2x2, shards 1,2, processes 1,2, streams 8 (``chip_smoke.py``'s
+    scaling phase): exactly its three rows, each a valid
+    ``SCALING_ROW_SCHEMA`` row, and the GAE forward launched by the
+    reference cell's inner PPO steps, in process and on each rank of the
+    ``-s2-p2`` row (at its (T, B) = (16, 16) block)."""
+    import json
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmarks import torch_scaling
+    from repro_torch.obs import metrics
+    before = gae_kernel.LAUNCHES["gae_forward"]
+    out = str(tmp_path / "BENCH_torch_dials_scaling.json")
+    assert torch_scaling.main(
+        ["--fast", "--scenarios", "traffic-2x2", "--shards", "1,2",
+         "--processes", "1,2", "--streams", "8", "--out", out]) == 0
+    assert gae_kernel.LAUNCHES["gae_forward"] > before
+    with open(out) as f:
+        record = json.load(f)
+    assert [r["label"] for r in record["rows"]] == [
+        "traffic-2x2-s1", "traffic-2x2-s2-p2", "traffic-2x2-streams8"]
+    for r in record["rows"]:
+        assert metrics.validate_bench_row(
+            r, metrics.SCALING_ROW_SCHEMA) == [], r["label"]
+    assert record["device"]["platform"] == "gpu"
+    # each rank of the -s2-p2 row launched it too, at its own block
+    ranks = record["spread"]["traffic-2x2-s2-p2"]["launches_by_rank"]
+    assert len(ranks) == 2
+    for got in ranks:
+        assert got["launches"]["gae_forward"] > 0
+        assert "16x16" in got["by_shape"]["gae_forward"]

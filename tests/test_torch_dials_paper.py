@@ -15,6 +15,8 @@ import shutil
 import jax
 import pytest
 
+pytest.importorskip("torch")
+
 from _torch_parity import assert_tree_equal, tree_maxdiff
 from repro.checkpoint import ckpt as jckpt
 from repro.core import dials as jdials

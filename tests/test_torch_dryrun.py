@@ -25,6 +25,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 from jax.sharding import AbstractMesh as JAbstractMesh, NamedSharding
 
 from repro.configs import registry as jregistry, shapes as jshapes

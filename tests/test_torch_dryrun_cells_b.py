@@ -5,6 +5,8 @@ architecture's train cell, and the decode cell (the prefill cell where
 there is no decode step) of those that stand for a family."""
 import pytest
 
+pytest.importorskip("torch")
+
 from repro_torch.configs import registry
 
 from _torch_dryrun_cells import check_cells

@@ -4,6 +4,10 @@ the collect inside the port, and the rank-broadcast reset."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import assert_tree_equal, jkey_to_torch, to_torch

@@ -8,6 +8,9 @@ import itertools
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.distributed import fault as jfault

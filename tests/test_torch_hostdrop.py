@@ -18,6 +18,10 @@ import os
 import shutil
 
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import _torch_procs as procs

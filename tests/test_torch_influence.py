@@ -5,6 +5,9 @@ single-batch and its chunked path."""
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import jkey_to_torch, to_torch, tree_maxdiff

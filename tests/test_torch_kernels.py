@@ -11,6 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import assert_close_scaled, to_torch, tree_maxdiff

@@ -18,6 +18,8 @@ file of its own, so that ``--dist loadfile`` spreads the JAX compiles).
 """
 import pytest
 
+pytest.importorskip("torch")
+
 from _torch_parity import check_loss_and_grads
 
 ARCHS = ("gemma2-9b", "tinyllama-1.1b", "yi-34b", "qwen1.5-32b")

@@ -16,6 +16,8 @@ metrics.
 """
 import pytest
 
+pytest.importorskip("torch")
+
 from _torch_parity import check_loss_and_grads
 
 ARCHS = ("mamba2-780m", "zamba2-1.2b", "granite-moe-1b-a400m", "dbrx-132b",

@@ -4,6 +4,10 @@ policies and action sampling, AdamW and clipping, and one full
 reference vmapped over agents."""
 import jax
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import jkey_to_torch, to_torch, tree_maxdiff

@@ -16,6 +16,8 @@ the single-device port on the same weights and inputs:
 Each test is one group of four spawned ranks (no group outlives it)."""
 import pytest
 
+pytest.importorskip("torch")
+
 from repro_torch.distributed import bootstrap
 
 import _torch_mesh_jobs as jobs

@@ -14,6 +14,9 @@ import dataclasses
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import jax

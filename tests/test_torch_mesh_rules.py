@@ -9,6 +9,9 @@ import sys
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:      # dev extra absent: property tests skip

@@ -9,6 +9,9 @@ import functools
 
 import jax
 import pytest
+
+pytest.importorskip("torch")
+
 from jax.sharding import AbstractMesh as JAbstractMesh
 
 from repro.configs import registry as jregistry, shapes as jshapes

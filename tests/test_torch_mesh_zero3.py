@@ -7,6 +7,8 @@ variants and the serving steps: ``tests/test_torch_mesh_numerics.py``).
 """
 import pytest
 
+pytest.importorskip("torch")
+
 import _torch_mesh_jobs as jobs
 from test_torch_mesh_numerics import check_train_variants
 

@@ -22,6 +22,9 @@ import os
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.obs import metrics as jmetrics

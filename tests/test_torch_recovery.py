@@ -14,6 +14,8 @@ import time
 
 import pytest
 
+pytest.importorskip("torch")
+
 import _torch_procs as procs
 from repro.distributed import bootstrap as jboot
 from repro.distributed import recovery as jrec

@@ -6,6 +6,10 @@ heartbeat delay parks its main thread, so it never beats round 2 and dies
 outside any collective). Rank 0 commits step 2, its gate times out, and
 it re-executes solo, resuming at round 2 (``tests/_torch_procs.
 recovery_scenario`` holds the outcome)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import _torch_procs as procs
 
 

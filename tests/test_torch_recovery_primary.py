@@ -6,6 +6,10 @@ The store is the external coordinator, so rank 0's death leaves the
 survivor's coordination intact; the survivor's ``recover()`` finalizes
 the pending commit (takeover) and re-executes solo, resuming at round 3:
 no completed round is lost to the primary's death."""
+import pytest
+
+pytest.importorskip("torch")
+
 import _torch_procs as procs
 
 

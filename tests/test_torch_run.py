@@ -18,7 +18,8 @@ imports JAX or the JAX package.
   card;
 * ``torch_scaling.py``'s ``--shards 1,2`` rows on the CPU (two gloo
   ranks, narrow widths), which validate against ``SCALING_ROW_SCHEMA``,
-  and its refusals of a bad ``--shards``.
+  and its refusals of a bad ``--shards`` (``tests/test_torch_scaling.py``
+  holds its other modes).
 """
 import argparse
 import ast
@@ -31,6 +32,9 @@ import sys
 
 import jax
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import to_torch
@@ -218,10 +222,10 @@ def test_torch_scaling_sharded_rows():
     import chip_smoke
     from benchmarks import torch_scaling
     from repro_torch.obs import metrics
-    args = argparse.Namespace(side=2, rounds=2, inner=1, seed=0,
+    args = argparse.Namespace(side=2, rounds=2, inner=1, seed=0, fast=False,
                               telemetry_dir=None)
     pairs = torch_scaling.sharded_rows(
-        "warehouse-fnn", 8, [1, 2], args, torch.device("cpu"), lambda: None,
+        "warehouse-fnn", [1, 2], args, torch.device("cpu"), lambda: None,
         make_trainer=functools.partial(chip_smoke.make_trainer, small=True))
     rows = [row for row, _ in pairs]
     assert [r["label"] for r in rows] == ["warehouse-fnn-s1",
@@ -233,6 +237,8 @@ def test_torch_scaling_sharded_rows():
     s1, s2 = rows
     assert (s1["fused"], s1["processes"], s1["speedup_vs_unfused"]) == \
         (False, 1, 1.0)
+    # the cell's own collect width (make_trainer's small cell: 4 streams)
+    assert s1["streams"] == s2["streams"] == 4
     assert s1["collect_s_sharded_gs"] is None and s1["gs_speedup"] is None
     assert (s2["fused"], s2["shards"], s2["processes"]) == (True, 2, 2)
     assert s2["collect_s_sharded_gs"] > 0       # a 2x2 grid tiles 2 bands
@@ -242,11 +248,14 @@ def test_torch_scaling_sharded_rows():
         s1["round_s"] / s2["round_s"])
     for _, sp in pairs:
         assert len(sp["serial"]["round_s"]) == 2
+    # each rank's kernel launches (the plain versions on the CPU: none)
+    assert [set(r["launches"].values()) for r in
+            pairs[1][1]["launches_by_rank"]] == [{0}, {0}]
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--shards", "1,2", "--streams", "8,16"], "one --streams width"),
-    (["--shards", "2"], "must include 1"),
+    (["--shards", "0,1"], "--shards must be >= 1"),
+    (["--shards", ""], "no row left"),
 ])
 def test_torch_scaling_refuses_bad_shards(argv, msg):
     out = subprocess.run(

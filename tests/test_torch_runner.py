@@ -6,6 +6,9 @@ env state, observations and keys bitwise."""
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import (assert_tree_equal, jkey_to_torch, to_torch,

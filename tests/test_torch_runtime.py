@@ -20,6 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import (assert_tree_equal, jkey_to_torch, to_np,

@@ -23,6 +23,9 @@ import functools
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch import random as R

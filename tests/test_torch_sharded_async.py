@@ -5,6 +5,10 @@ the CPU (``tests/_torch_multihost_check.py --mode async``): at
 the serial sharded run's (every round force-synced), and at 2 the
 data-round tags and force-syncs follow the reference's schedule
 (``tests/test_async_collect.py``: tags [0, 0, 1])."""
+import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import _torch_procs as procs

@@ -9,6 +9,9 @@ slice per rank, ``replicated/`` and a verifying ``COMMIT``."""
 import os
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import _torch_procs as procs

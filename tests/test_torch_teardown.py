@@ -17,6 +17,8 @@ import sys
 
 import pytest
 
+pytest.importorskip("torch")
+
 from repro_torch.launch import variants
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),

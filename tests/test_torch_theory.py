@@ -9,6 +9,9 @@ boolean fields, ``optimal_policy`` with the same greedy actions, and a
 tie that both break to the first maximal action."""
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 try:
     from hypothesis import given, settings, strategies as st

@@ -23,6 +23,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _torch_parity import (assert_leaves_close, np_leaves, train_batch,
