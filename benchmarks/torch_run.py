@@ -18,13 +18,19 @@ reference's sizes, widths, labels and row keys.
                      ``python -m repro_torch.launch.dryrun``), with the
                      H100's constants (``benchmarks/torch_roofline.py``).
 
-The port runs one shard per process, so ``--shards N`` with N > 1 and
-``--sharded-gs on`` are refused: the sharded rows come from
-``benchmarks/torch_scaling.py --shards``, which starts the ranks.
+``--shards N`` (N > 1) runs the DIALS cells of ``fig3_learning`` (each
+env's, through :func:`fig3_env_rows`) and ``fig4_f_sweep`` on the
+agent-sharded round, one shard per process: N local ranks of one gloo
+group, started by ``repro_torch.distributed.bootstrap.spawn_local`` (on
+a card they share it), rank 0's records kept; the GS baseline runs in
+the parent, as the reference's does. ``--sharded-gs on|off`` forces the
+region-decomposed GS collect on or off there; ``on`` without N > 1
+raises, as ``DIALSTrainer.run`` does.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 benchmarks/torch_run.py [--only NAME] [--fast]
+        [--shards N] [--sharded-gs auto|on|off]
         [--use-kernels auto|on|off] [--async-collect]
         [--collect-streams S] [--profile-dir DIR]
 
@@ -50,9 +56,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 OUT_DIR = os.path.join("experiments", "bench")
-SHARDS_REFUSAL = (
-    "the port runs one shard per process: run the sharded rows with "
-    "benchmarks/torch_scaling.py --shards, which starts one rank per shard")
+# the spawned ranks of a --shards N run: a bench's whole sweep, so the
+# limit is the longest run's (the full fig4 sweep), not a test's
+SHARDED_TIMEOUT_S = 12 * 3600.0
 
 
 def _emit(rows, name):
@@ -75,14 +81,6 @@ def _clone(tree):
     from repro_torch.tree import tree_map
     return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
                     else x, tree)
-
-
-def refuse_sharded(shards, sharded_gs) -> None:
-    """Raise for the reference's in-process sharded options."""
-    if shards is not None and shards > 1:
-        raise ValueError(f"--shards {shards}: {SHARDS_REFUSAL}")
-    if sharded_gs == "on":
-        raise ValueError(f"--sharded-gs on: {SHARDS_REFUSAL}")
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +122,57 @@ def _dials_config(*, rounds, inner, untrained=False, use_kernels="auto",
                                      streams=collect_streams))
 
 
+def _dials_runs(env_name, cells, device, state=None):
+    """``DIALSTrainer.run`` from key 0 for each cell (``_dials_config``
+    keywords) on ``env_name`` at side 2, from ``state`` when given:
+    [(history, wall seconds)]."""
+    from repro_torch import random as R
+    from repro_torch.core import dials
+    from repro_torch.tree import tree_map
+    env_mod, env_cfg, _info, pc, ac, ppo_cfg = _setup(env_name, 2)
+    out = []
+    for cell in cells:
+        tr = dials.DIALSTrainer(env_mod, env_cfg, pc, ac, ppo_cfg,
+                                _dials_config(**cell), device=device)
+        start = None if state is None else tree_map(
+            lambda x: x.to(device, copy=True)
+            if isinstance(x, torch.Tensor) else x, state)
+        t0 = time.perf_counter()
+        _, hist = tr.run(R.key(0, device=device), state=start)
+        _sync(device)
+        out.append((hist, time.perf_counter() - t0))
+    return out
+
+
+def _dials_rank(env_name, cells, device, state):
+    """One rank of a ``--shards N`` run: joins the group the ``DIALS_*``
+    contract declares and runs its shard of every cell."""
+    from repro_torch.distributed import bootstrap
+    from repro_torch.kernels import dispatch
+    ctx = bootstrap.bootstrap()
+    device = dispatch.resolve_device(device)
+    if device.type == "cpu":       # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // ctx.num_processes))
+    return _dials_runs(env_name, cells, device, state)
+
+
+def dials_runs(env_name, cells, *, device, shards=None, state=None):
+    """:func:`_dials_runs` in this process, or, with ``shards`` > 1 and no
+    group declared around this process, on ``shards`` ranks spawned by
+    ``bootstrap.spawn_local`` (each runs its shard of the sharded round;
+    rank 0's records are returned)."""
+    from repro_torch.distributed import bootstrap
+    from repro_torch.tree import tree_map
+    if (shards or 1) > 1 and bootstrap.config_from_env() is None:
+        host = None if state is None else tree_map(
+            lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, state)
+        return bootstrap.spawn_local(shards, _dials_rank, env_name, cells,
+                                     str(device), host,
+                                     timeout_s=SHARDED_TIMEOUT_S)[0]
+    return _dials_runs(env_name, cells, device, state)
+
+
 def fig3_env_rows(env_name, *, rounds, inner, device="cuda",
                   use_kernels="auto", shards=None, async_collect=False,
                   sharded_gs="auto", collect_streams=None, state=None,
@@ -131,32 +180,29 @@ def fig3_env_rows(env_name, *, rounds, inner, device="cuda",
     """One env of :func:`fig3_learning`: its DIALS, untrained-DIALS and GS
     rows, in that order. ``state`` (a ``DIALSTrainer`` state) and
     ``gs_state`` (a ``make_gs_trainer`` state) replace the trainers'
-    own inits, e.g. the reference's through ``repro_torch.convert``."""
+    own inits, e.g. the reference's through ``repro_torch.convert``.
+    ``shards`` > 1 runs the two DIALS cells on spawned ranks
+    (:func:`dials_runs`)."""
     from repro_torch import random as R
-    from repro_torch.core import dials
     from repro_torch.marl import runner
-    refuse_sharded(shards, sharded_gs)
     env_mod, env_cfg, info, pc, ac, ppo_cfg = _setup(env_name, 2)
     rows = []
     # --- DIALS and untrained-DIALS
-    for untrained in (False, True):
-        cfg = _dials_config(rounds=rounds, inner=inner, untrained=untrained,
-                            use_kernels=use_kernels, shards=shards,
-                            async_collect=async_collect,
-                            sharded_gs=sharded_gs,
-                            collect_streams=collect_streams)
-        tr = dials.DIALSTrainer(env_mod, env_cfg, pc, ac, ppo_cfg, cfg,
-                                device=device)
-        t0 = time.perf_counter()
-        _, hist = tr.run(R.key(0, device=device),
-                         state=None if state is None else _clone(state))
-        label = ("untrained-DIALS" if untrained else "DIALS") \
+    cells = [dict(rounds=rounds, inner=inner, untrained=untrained,
+                  use_kernels=use_kernels, shards=shards,
+                  async_collect=async_collect, sharded_gs=sharded_gs,
+                  collect_streams=collect_streams)
+             for untrained in (False, True)]
+    runs = dials_runs(env_name, cells, device=device, shards=shards,
+                      state=state)
+    for cell, (hist, wall) in zip(cells, runs):
+        label = ("untrained-DIALS" if cell["untrained"] else "DIALS") \
             + f"-{env_name}"
         rows.append({"label": label,
                      "final_gs_return": hist[-1]["gs_return"],
                      "best_gs_return": max(h["gs_return"] for h in hist),
                      "aip_ce_final": hist[-1]["aip_ce_after"],
-                     "wall_s": time.perf_counter() - t0})
+                     "wall_s": wall})
     # --- GS baseline: the same number of env steps
     init_fn, train_fn, eval_fn = runner.make_gs_trainer(
         env_mod, env_cfg, pc, ppo_cfg,
@@ -244,29 +290,23 @@ def fig3_scalability(fast: bool = False, device="cuda"):
 
 def fig4_f_sweep(fast: bool = False, shards=None, async_collect=False,
                  use_kernels="auto", sharded_gs="auto", device="cuda"):
-    """AIP training frequency F: returns + influence CE (paper Fig. 4)."""
-    from repro_torch import random as R
-    from repro_torch.core import dials
-    refuse_sharded(shards, sharded_gs)
-    rows = []
+    """AIP training frequency F: returns + influence CE (paper Fig. 4).
+    ``shards`` > 1 runs the sweep's cells on spawned ranks
+    (:func:`dials_runs`)."""
     total_inner = 12 if fast else 60
     sweeps = ((2, 6), (6, 2), (total_inner, 1)) if fast else \
         ((5, 12), (15, 4), (30, 2), (60, 1))
-    env_mod, env_cfg, info, pc, ac, ppo_cfg = _setup("warehouse", 2)
-    for refresh, rounds in sweeps:
-        cfg = _dials_config(rounds=rounds, inner=refresh,
-                            use_kernels=use_kernels, shards=shards,
-                            async_collect=async_collect,
-                            sharded_gs=sharded_gs)
-        tr = dials.DIALSTrainer(env_mod, env_cfg, pc, ac, ppo_cfg, cfg,
-                                device=device)
-        t0 = time.perf_counter()
-        _, hist = tr.run(R.key(0, device=device))
-        rows.append({"label": f"F={refresh}x{rounds}",
-                     "refresh": refresh,
-                     "final_gs_return": hist[-1]["gs_return"],
-                     "aip_ce_final": hist[-1]["aip_ce_after"],
-                     "wall_s": time.perf_counter() - t0})
+    cells = [dict(rounds=rounds, inner=refresh, use_kernels=use_kernels,
+                  shards=shards, async_collect=async_collect,
+                  sharded_gs=sharded_gs)
+             for refresh, rounds in sweeps]
+    runs = dials_runs("warehouse", cells, device=device, shards=shards)
+    rows = [{"label": f"F={cell['inner']}x{cell['rounds']}",
+             "refresh": cell["inner"],
+             "final_gs_return": hist[-1]["gs_return"],
+             "aip_ce_final": hist[-1]["aip_ce_after"],
+             "wall_s": wall}
+            for cell, (hist, wall) in zip(cells, runs)]
     _emit(rows, "fig4_f_sweep")
     return rows
 
@@ -379,9 +419,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fast", action="store_true",
                     help="reduced iteration counts (CI mode)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="1 = the loop path (the default in one process); "
-                         "more is refused: use benchmarks/torch_scaling.py "
-                         "--shards")
+                    help="DIALS runtime shard count: N > 1 runs the DIALS "
+                         "cells on N spawned local ranks, one shard each "
+                         "(None = auto, 1 = the loop path)")
     ap.add_argument("--async-collect", action="store_true",
                     help="overlap each round's GS collect with the "
                          "previous round's inner steps (one-round "
@@ -393,7 +433,9 @@ def main(argv=None) -> int:
                          "the CPU; on = kernel, raises on the CPU)")
     ap.add_argument("--sharded-gs", default="auto",
                     choices=("auto", "on", "off"),
-                    help="'on' is refused (one shard per process)")
+                    help="region-decomposed GS collect/eval on the shards "
+                         "(auto = whenever the env partition supports the "
+                         "shard count; on needs --shards N > 1)")
     ap.add_argument("--collect-streams", type=int, default=None,
                     help="GS env-stream count S for the DIALS cells "
                          "(None = collect_envs)")
@@ -406,10 +448,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.only is not None and args.only not in BENCHES:
         ap.error(f"unknown bench {args.only!r}, of {sorted(BENCHES)}")
-    try:
-        refuse_sharded(args.shards, args.sharded_gs)
-    except ValueError as e:
-        ap.error(str(e))
 
     from repro_torch.kernels import dispatch
     from repro_torch.obs import trace as obs_trace

@@ -1,7 +1,14 @@
-"""Times of one tree's redesigned kernels on a GPU, for comparing trees.
+"""Times of one tree's kernels on a GPU, for comparing trees.
 
 For the ``repro_torch`` under ``--src`` (default: this checkout's), prints
 
+* the kernels' times at the shapes their main paths give them, each the
+  mean of CUDA events around back-to-back wrapper calls: ``gru_fwd`` and
+  the GRU backward at the DIALS AIP's 100x128x7x64 and the recurrent
+  policy's 100x16x4x128; ``flash_fwd`` (float32, FFMA) at (16, 2048, 256)
+  and ``flash_fwd_sm90`` (bf16) at gemma2-9b's prefill layer, window
+  1,024 / 4,096 and softcap 50; ``ssd_chunk`` (float32) and
+  ``ssd_chunk_sm90`` (bf16) at mamba2-780m's layer width, chunk 128;
 * ``gae_fwd`` and ``gae_bwd`` at the DIALS main path's shape (T=16,
   B=1600: warehouse side=10, 100 agents x 16 envs) and at a long T
   (256 x 1600): the device time per launch, from ``torch.profiler`` over
@@ -13,7 +20,8 @@ For the ``repro_torch`` under ``--src`` (default: this checkout's), prints
   (2, 8192, 1536) bf16 activations: the median of 7 synchronised warm
   calls (host clock) and the SSD kernel's device time in one traced call.
 
-Run the trees in turns in one call, on one card (parent, change, change,
+Each tree builds its kernels into the ``build/`` beside its ``src``. Run
+the trees in turns in one call, on one card (parent, change, change,
 parent), from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 benchmarks/torch_tree_times.py [--src DIR] [--label NAME]
@@ -32,6 +40,46 @@ ITERS = 200
 LAYER_CALLS = 7
 
 
+def route_times(device, label):
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.gru import kernel as gk
+    from repro_torch.kernels.ssd import kernel as sk
+    gen = torch.Generator(device=device).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
+    for a, t, b, h in ((100, 128, 7, 64), (100, 16, 4, 128)):
+        ins = [rnd(a, t, b, 3 * h), rnd(a, h, 3 * h) / h ** 0.5,
+               0.1 * rnd(a, 3 * h), rnd(a, b, h),
+               (torch.rand(a, t, b, generator=gen, device=device)
+                < 0.02).float()]
+        hs, g = gk.forward(*ins), rnd(a, t, b, h)
+        for name, fn in (("gru_forward", lambda: gk.forward(*ins)),
+                         ("gru_backward", lambda: gk.backward(*ins, hs, g))):
+            print(f"{label}: {name} {a}x{t}x{b}x{h}: "
+                  f"{chip_smoke.cuda_ms(fn, 20):.4f} ms", flush=True)
+    for name, dtype, bh, bhkv, t, window in (
+            ("flash_fwd", torch.float32, 16, 8, 2048, 1024),
+            ("flash_fwd_sm90", torch.bfloat16, 32, 16, 8192, 4096)):
+        q, k, v = (rnd(n, t, 256).to(dtype) for n in (bh, bhkv, bhkv))
+        kw = dict(causal=True, sliding_window=window, softcap=50.0)
+        ms = chip_smoke.cuda_ms(lambda: fk.forward(q, k, v, **kw), 5)
+        print(f"{label}: {name} ({bh}, {t}, 256) window {window}: "
+              f"{ms:.4f} ms", flush=True)
+        del q, k, v
+    bsz, t = chip_smoke.SSM_INPUT
+    h, p, n = 48, 64, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = torch.nn.functional.softplus(rnd(bsz, t, h) - 3.0)
+        xw = (rnd(bsz, t, h, p) * dt[..., None]).to(dtype).contiguous()
+        la = (dt * -torch.exp(rnd(h) * 0.5)).contiguous()
+        bm, c = rnd(bsz, t, n).to(dtype), rnd(bsz, t, n).to(dtype)
+        fn = lambda: sk.forward(xw, la, bm, c, chunk=128)
+        print(f"{label}: {sk.route(dtype, p, n, 128)} {bsz}x{t}x{h}x{p} N "
+              f"{n} L 128: {chip_smoke.cuda_ms(fn, 20):.4f} ms", flush=True)
+
+
 def gae_times(device, label):
     import torch
 
@@ -45,7 +93,9 @@ def gae_times(device, label):
         calls = {"gae_fwd": lambda: ak.forward(r, v, nv, d, 0.99, 0.95),
                  "gae_bwd": lambda: ak.backward(g, d, 0.99, 0.95)}
         for name, fn in calls.items():
-            dev = chip_smoke.device_ms(fn, ITERS, name)
+            dev = chip_smoke.device_ms(
+                fn, ITERS, "gae_forward" if name == "gae_fwd"
+                else "gae_backward", name)
             call = chip_smoke.cuda_ms(fn, ITERS)
             print(f"{label}: {name} ({t}x{b}): device {dev:.5f} ms a "
                   f"launch (torch.profiler, {ITERS} launches); "
@@ -106,6 +156,7 @@ def main() -> int:
     from repro_torch.kernels import dispatch
     device = dispatch.resolve_device("cuda:0")
     print(f"card: {chip_smoke.smi_line()}", flush=True)
+    route_times(device, args.label)
     gae_times(device, args.label)
     ssm_layer_time(device, args.label)
     return 0

@@ -27,7 +27,10 @@ It
      the recurrent policy's (100x16x4, 100x1x16 and 100x1x8 at hidden
      128) and at 1x16x64 and 1x128x256 at hidden 128, the backward twice
      for its bits,
-     times per launch and per step at each; GAE forward (bit for bit) and
+     times per launch and per step at each; the streaming GRU kernels
+     (hidden above 128: ``gru_fwd_stream``, ``gru_bwd_chain_stream``) the
+     same way at GRU_WIDE_SHAPES (100x7x128 at hidden 256, 16x16x64 at
+     512), each beside its bound and the plain version's time; GAE forward (bit for bit) and
      backward (1e-6), each with its device time per launch
      (``torch.profiler``) beside its host-inclusive time per call; flash
      attention at gemma2-9b's prefill
@@ -35,11 +38,22 @@ It
      version in float32 on the same inputs (1e-3 + 8e-3 |plain|), with its
      achieved TFLOP/s and share of the bf16 bound beside compiled
      ``flex_attention``, and one float32 shape (2e-5, the FFMA kernel); the
+     FFMA kernel ``flash_fwd_padded`` (checked after the paths) at the
+     head_dims the tensor-core kernel does not take (FLASH_FFMA_CASES: 96 at
+     T=4,096, 16 at the reduced
+     gemma2-9b's layer, 512), float32 and bf16, each against the plain
+     version in float32 (2e-5; 1e-3 + 8e-3 |plain|) with its time, bound,
+     plain time and one PyTorch call's: SDPA's for the causal case,
+     compiled ``flex_attention``'s with a window or softcap (null, with
+     the reason printed, where it does not compile); the
      SSD intra-chunk block and the SSD op at mamba2-780m's layer width, in
      float32 (2e-4, the FFMA kernel ``ssd_chunk``) and bf16 (the
      tensor-core kernel ``ssd_chunk_sm90`` and, as its "before",
      ``ssd_chunk`` on the same inputs), both bf16 routes timed, and at
-     zamba2-1.2b's width (64 heads, state 64);
+     zamba2-1.2b's width (64 heads, state 64); the tiled pair
+     ``ssd_chunk_tiled`` (any chunk, P, N) at chunk 256 at mamba2's width
+     in bf16 and float32 and at P = N = 6 (SSD_TILED_CASES), timed beside
+     its bound and the plain version;
   4. drives the DIALS paths at side=10 (100 agents) at the library's
      default widths with the GRU AIP, ``use_kernels="on"``, checking every
      round record and printing each round's phase seconds: warehouse with
@@ -86,9 +100,14 @@ It
      bit for bit the serial run, bound 2 tags [0, 0, 1]), with the
      recovery times and the three kernels' launches printed; then the
      kernel path against the plain path on a small input (one round,
-     warehouse side=2); then the paper's experiment harness
+     warehouse side=2); the same small warehouse with the recurrent
+     policy's GRU at hidden 512 and the AIP's at 256 (WIDE_GRU_HIDDEN: the
+     streaming kernels, forward and backward, counted as the ``dials
+     wide gru`` path), kernels against plain (AIP and policy params 1e-4)
+     and every GRU and GAE kernel held to plain at each shape the round
+     launched it; then the paper's experiment harness
      (``benchmarks/torch_run.py``): the ``fig3_learning`` cell of
-     warehouse at the ``--fast`` widths, cut to 1 round of F=5 (DIALS,
+     warehouse at the ``--fast`` widths, cut to 1 round of F=2 (DIALS,
      untrained-DIALS and GS
      rows, the reference's keys, finite, the GAE forward launched and
      held to its plain version at the cell's shape, T=16 x B=32),
@@ -116,16 +135,20 @@ It
      prefill), or the phase fails; then the registry's other eight
      architectures (granite-moe, zamba2, mamba2 and whisper-tiny at full
      width and depth; dbrx, qwen1.5, yi and llama-3.2-vision at full
-     width, cut in depth to fit the card), bf16, each in turn: a B=2 x
+     width, cut in depth to fit the card) and gemma2-9b's reduced config
+     (head_dim 16), bf16, each in turn: a B=2 x
      T=4096 prefill (whisper: 448 over 1,500 stub frames) with the flash
      kernel and without it, the last logits within LOGIT_TOL, each
-     self-attention block launching ``flash_fwd_sm90`` once and nothing
+     self-attention block launching once the kernel its head_dim routes to
+     (``flash_fwd_sm90``; ``flash_fwd_padded`` at 16) and nothing
      else launched, the MoE's dropped share and aux terms; then a greedy
      decode at B=4, finite; init, prefill and decode times, parameter
      counts and peak memory printed;
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
      (2, 8192, 1536) bf16 activations (one launch of ``ssd_chunk_sm90``)
-     against ``use_kernel=False``, then times both warm (median of 7) and
+     against ``use_kernel=False``, and at chunk 256 (one launch of
+     ``ssd_chunk_tiled``) likewise, then times the first both warm (median
+     of 7) and
      profiles the kernel call the same way (the SSD kernel's share of its
      device time; one traced ``ssd_chunk_sm90`` launch a kept call);
   7. drives LM training on the card (``launch/steps.make_train_step``,
@@ -204,6 +227,9 @@ PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 GRU_TOL = 1e-5
 GAE_TOL = 1e-6
+# the streaming GRU kernels (hidden above 128): the paper's 100 agents at
+# the AIP training's T=7 over 128 rows at 256, and a policy-like 512
+GRU_WIDE_SHAPES = ((100, 7, 128, 256), (16, 16, 64, 512))
 # flash: |err| <= atol + rtol*|plain|. float32: the reference's 2e-5. bf16
 # inputs: the plain version runs in float32 on the same inputs, so only the
 # kernel's bf16 output rounding (at most 2^-8 relative) and the order of
@@ -215,6 +241,13 @@ FLASH_Q_SCALE = 8.0
 # SSD: float32 the reference's 2e-4; bf16 outputs stored in bf16 within
 # 1e-2 times max(1, largest magnitude) (two bf16 roundings of 2^-8 each)
 SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# the FFMA flash kernel past the tensor-core kernel's head_dims (B, heads,
+# KV heads, T, D, window, softcap): 96 at a full prompt, causal (the
+# timed case, SDPA beside it); 16, the reduced gemma2-9b's layer at the
+# lm serving path's prompt; 512, the widest, at T=2048
+FLASH_FFMA_CASES = ((1, 8, 2, 4096, 96, None, None),
+                    (2, 4, 2, 4096, 16, 32, 50.0),
+                    (1, 4, 2, 2048, 512, 1024, 50.0))
 # gemma2-9b last logits, flash against plain prefill, and the SSM layer's
 # output, kernel against plain, both bf16: within tol times max(1, largest
 # magnitude) (bf16 rounding flips at other places, carried through the
@@ -223,14 +256,16 @@ LOGIT_TOL = 5e-2
 SSM_LAYER_TOL = 2e-2
 
 # The DIALS paths: side=10 (100 agents), the library's default widths,
-# DIALSConfig() cut to a few rounds and F=3 (depth the run's time limit
+# DIALSConfig() cut to a few rounds and F=2 (depth the run's time limit
 # cannot pay for on a slow host). The first slice's path
 # (warehouse, FNN policy) runs one round; the recurrent policy's path two,
 # the second of which the checkpoint resume repeats; traffic one round and
 # the GS baseline GS_TRAIN_STEPS steps; powergrid and supplychain an
 # ENV_STEPS-step GS trajectory each, card against CPU.
 SIDE = 10
-AIP_REFRESH = 3
+AIP_REFRESH = 2
+# the wide GRU path: the recurrent policy's GRU and the AIP's above 128
+WIDE_GRU_HIDDEN = (512, 256)
 FNN_ROUNDS = 1
 GRU_POLICY_ROUNDS = 2
 GS_TRAIN_STEPS = 3
@@ -310,6 +345,12 @@ MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
 # 2048, expand 2, heads of 64, state 64
 ZAMBA2 = dict(heads=64, state=64)
 SSM_INPUT = (2, 8192)
+# the tiled SSD kernels (any chunk, P, N): chunk 256 at mamba2-780m's
+# layer width (B, T, heads, P, N, chunk, dtype), and P = N = 6
+SSD_TILED_CASES = ((2, 8192, 48, 64, 128, 256, "bfloat16"),
+                   (2, 8192, 48, 64, 128, 256, "float32"),
+                   (2, 8192, 48, 6, 6, 256, "float32"))
+SSM_TILED_CHUNK = 256
 SSM_TIMED = 7
 
 # The registry's other eight architectures served (their reference
@@ -331,7 +372,10 @@ LM_DEPTH_CUT = {"dbrx-132b": 2, "qwen1.5-32b": 8, "yi-34b": 8,
 LM_FLASH_LAUNCHES = {"granite-moe-1b-a400m": 24, "zamba2-1.2b": 19,
                      "mamba2-780m": 0, "whisper-tiny": 4, "dbrx-132b": 2,
                      "qwen1.5-32b": 8, "yi-34b": 8,
-                     "llama-3.2-vision-90b": 4}
+                     "llama-3.2-vision-90b": 4, "gemma2-9b-reduced": 2}
+# reduced configs served beside them: gemma2-9b's (2 layers, head_dim 16,
+# bf16), whose attention takes the FFMA kernel flash_fwd_padded
+LM_REDUCED = ("gemma2-9b",)
 LM_PROMPT = (2, 4096)
 WHISPER_TARGET = 448
 LM_DECODE_BATCH, LM_DECODE_PROMPT, LM_DECODE_NEW = 4, 8, 8
@@ -665,6 +709,64 @@ def check_gru(gen, device, shapes):
     ]
 
 
+def check_gru_wide(gen, device):
+    """The streaming kernels (``gru_fwd_stream``, ``gru_bwd_chain_stream``,
+    hidden above 128) at GRU_WIDE_SHAPES, each held to the plain version
+    forward and backward (GRU_TOL), the backward twice for its bits, and
+    timed with CUDA events beside its bound and the plain version's time.
+    Returns their two kernel rows, timed at the first shape."""
+    import torch
+    from repro_torch.kernels.gru import kernel as gk, ref as gref
+    fwd_err = bwd_err = 0.0
+    timed = {}
+    for a, t, b, hdim in GRU_WIDE_SHAPES:
+        fe, be, ins, g = gru_case(gen, device, a, t, b, hdim)
+        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+        hs = gk.forward(*ins)
+        leaves = [x.clone().requires_grad_() for x in ins[:4]]
+        hs_p = gref.gru_scan(*leaves, ins[4])
+        fb, bb = gru_bounds(a, t, b, hdim)
+        timed[(a, t, b, hdim)] = dict(
+            ms=cuda_ms(lambda: gk.forward(*ins), 10),
+            bwd_ms=cuda_ms(lambda: gk.backward(*ins, hs, g), 10),
+            plain_ms=cuda_ms(lambda: gref.gru_scan(*ins), 3),
+            plain_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                hs_p, leaves, g, retain_graph=True), 3),
+            bound=fb, bwd_bound=bb)
+        x = timed[(a, t, b, hdim)]
+        print(f"gru (streaming W_h) {a}x{t}x{b}x{hdim}: forward "
+              f"{x['ms']:.4f} ms (bound {fb[0]:.5f} ms by {fb[1]}, "
+              f"{fb[0] / x['ms']:.4f} of it; plain {x['plain_ms']:.4f} ms); "
+              f"backward {x['bwd_ms']:.4f} ms (bound {bb[0]:.5f} ms, "
+              f"{bb[0] / x['bwd_ms']:.4f} of it; plain "
+              f"{x['plain_bwd_ms']:.4f} ms)", flush=True)
+        del hs, hs_p, leaves
+        torch.cuda.empty_cache()
+    key = GRU_WIDE_SHAPES[0]
+    by_shape = lambda f: {"x".join(map(str, k)): f(v)
+                          for k, v in timed.items()}
+    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/gru.cu",
+                  shape="x".join(map(str, key)), library_ms=None)
+    first = timed[key]
+    return [
+        dict(name="gru_forward_stream",
+             replaces="src/repro/kernels/gru/kernel.py:64",
+             max_abs_err=fwd_err, ms=first["ms"],
+             plain_ms=first["plain_ms"], bound=first["bound"],
+             ms_by_shape=by_shape(lambda v: v["ms"]),
+             bound_ms_by_shape=by_shape(lambda v: v["bound"][0]),
+             plain_ms_by_shape=by_shape(lambda v: v["plain_ms"]), **common),
+        dict(name="gru_backward_stream",
+             replaces="src/repro/kernels/gru/kernel.py:132",
+             max_abs_err=bwd_err, ms=first["bwd_ms"],
+             plain_ms=first["plain_bwd_ms"], bound=first["bwd_bound"],
+             ms_by_shape=by_shape(lambda v: v["bwd_ms"]),
+             bound_ms_by_shape=by_shape(lambda v: v["bwd_bound"][0]),
+             plain_ms_by_shape=by_shape(lambda v: v["plain_bwd_ms"]),
+             **common),
+    ]
+
+
 def gae_case(gen, device, t, b, gamma, lam):
     """Both GAE kernels against the plain version at (T, B): the forward
     bit for bit, the gradients at GAE_TOL. Returns (forward error,
@@ -919,12 +1021,94 @@ def check_flash_at_lm_shapes(gen, device):
     return out
 
 
+def check_flash_ffma(gen, device):
+    """The FFMA kernel ``flash_fwd_padded`` at the head_dims the
+    tensor-core kernel does not take (FLASH_FFMA_CASES: 16, the reduced configs'; 96;
+    512, the widest), in float32 and bf16, against the plain version in
+    float32 on the same inputs (FLASH_TOL; bf16 q scaled by
+    FLASH_Q_SCALE), each timed with CUDA events beside its bound (the true
+    head_dim's FLOPs over the peak of the inputs' type) and the plain
+    version; beside each, one PyTorch call for the same function:
+    ``scaled_dot_product_attention`` for the causal case, compiled
+    ``flex_attention`` (``flash_library_ms``) where a window or a softcap
+    is set, or null with the reason where it does not run. Returns the
+    kernel row, timed at the first case in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    worst, timed = 0.0, {}
+    for (b, h, hkv, t, d, window, cap) in FLASH_FFMA_CASES:
+        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            rnd = lambda n: torch.randn(b * n, t, d, generator=gen,
+                                        device=device)
+            q, k, v = rnd(h), rnd(hkv), rnd(hkv)
+            if dtype == torch.bfloat16:
+                q = q * FLASH_Q_SCALE
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            check(fk.route(dtype, d) == "flash_fwd_padded",
+                  f"flash {name} D={d} does not route to flash_fwd_padded")
+            got = launched(fk.LAUNCHES, "flash_fwd_padded",
+                           lambda: fk.forward(q, k, v, **kw))
+            want = torch.cat([fr.attention_bhsd(
+                q[i * h:(i + 1) * h].float(),
+                k[i * hkv:(i + 1) * hkv].float(),
+                v[i * hkv:(i + 1) * hkv].float(), **kw) for i in range(b)])
+            label = f"flash_fwd_padded {name} {b}x{h}/{hkv}x{t}xD{d}"
+            err = allclose_rel(label, got, want, *FLASH_TOL[name])
+            worst = max(worst, err)
+            del got, want
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: fk.forward(q, k, v, **kw), 5)
+            plain_ms = cuda_ms(lambda: torch.cat([fr.attention_bhsd(
+                q[i * h:(i + 1) * h], k[i * hkv:(i + 1) * hkv],
+                v[i * hkv:(i + 1) * hkv], **kw) for i in range(b)]), 2)
+            if window is None and cap is None:
+                qb, kb, vb = (x.view(b, -1, t, d) for x in (q, k, v))
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, is_causal=True, enable_gqa=True), 5)
+                lib_name = "scaled_dot_product_attention (causal, GQA)"
+            else:
+                lib_ms, lib_name = flash_library_ms(q, k, v, b, [kw])
+            flop = 4.0 * d * b * h * live_pairs(t, window)
+            nbytes = q.element_size() * (2 * b * h * t * d
+                                         + 2 * b * hkv * t * d)
+            bound = bound_ms(nbytes, flop, PEAK_BF16_PER_S
+                             if dtype == torch.bfloat16 else PEAK_FP32_PER_S)
+            timed[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                library=lib_name, bound_ms=bound[0],
+                                bound_by=bound[1], max_abs_err=err,
+                                bound=bound)
+            print(f"{label} (window {window}, softcap {cap}): {ms:.4f} ms, "
+                  f"{flop / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.4f} of "
+                  f"the bound {bound[0]:.5f} ms by {bound[1]}; plain "
+                  f"{plain_ms:.4f} ms; {lib_name}: "
+                  + (f"{lib_ms:.4f} ms" if lib_ms is not None else
+                     "not measured")
+                  + f"; max abs err {err:.3e}", flush=True)
+            del q, k, v
+            torch.cuda.empty_cache()
+    first = next(iter(timed))
+    row = timed[first]
+    return dict(name="flash_fwd_padded", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:95",
+                max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound=row["bound"], library_ms=row["library_ms"],
+                library=row["library"], shape=first,
+                by_shape={k: {n: x for n, x in v.items() if n != "bound"}
+                          for k, v in timed.items()})
+
+
 def flash_library_ms(q, k, v, b, cases):
     """One PyTorch call for the same function, timed as a yardstick only:
-    ``flex_attention`` (compiled) with a softcap ``score_mod`` and a
-    causal+window ``mask_mod``. Returns (ms a launch, its name), or (None,
-    the reason) if it does not run here: no other call computes this
-    function (SDPA has no softcap), so none stands in for it."""
+    ``flex_attention`` (compiled) with a softcap ``score_mod`` (the
+    cases' one softcap, or none) and a causal+window ``mask_mod``, one
+    call a case. Returns (ms a launch, the mean over the cases, and its
+    name), or (None, the reason) if it does not run here: no other call
+    computes this function (SDPA has no softcap), so none stands in for
+    it."""
     import torch
     qb, kb, vb = (x.view(b, -1, x.shape[1], x.shape[2]) for x in (q, k, v))
     name = "flex_attention (compiled, softcap score_mod, causal+window mask)"
@@ -948,9 +1132,9 @@ def flash_library_ms(q, k, v, b, cases):
             mask = create_block_mask(mask_mod, None, None, q.shape[1],
                                      k.shape[1], device=q.device)
             calls.append(lambda m=mask: flex(
-                qb, kb, vb, score_mod=score_mod, block_mask=m,
-                enable_gqa=True))
-        return cuda_ms(lambda: [c() for c in calls], 3) / 2, name
+                qb, kb, vb, score_mod=None if cap is None else score_mod,
+                block_mask=m, enable_gqa=True))
+        return cuda_ms(lambda: [c() for c in calls], 3) / len(calls), name
     except Exception as exc:     # a yardstick: the port never calls it
         reason = (f"{name} did not run ({type(exc).__name__}: "
                   f"{str(exc)[:200]}); library_ms is null")
@@ -970,46 +1154,66 @@ def kernel_resources():
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = str(build.LIBRARY)
-    run = lambda *a: subprocess.run([tool, *a, lib], capture_output=True,
-                                    text=True, timeout=300,
-                                    check=True).stdout
-    res_usage = run("-res-usage")
-    flash = re.compile(r"(flash_fwd(?:_sm90)?)ILi(\d+)E")
+    from concurrent.futures import ThreadPoolExecutor
+    run = lambda flag: subprocess.run([tool, flag, lib], capture_output=True,
+                                      text=True, timeout=300,
+                                      check=True).stdout
+    with ThreadPoolExecutor(2) as pool:   # the two dumps side by side
+        res_usage, sass = pool.map(run, ("-res-usage", "-sass"))
+    # flash_fwd_sm90<D> and flash_fwd<DC, RQ, CK, T, PADDED> (D = 64 DC):
+    # the route flash_fwd without PADDED, flash_fwd_padded with it
+    flash = re.compile(r"(flash_fwd_sm90)ILi(\d+)EE|"
+                       r"flash_fwdILi(\d+)ELi(\d+)ELi\d+E"
+                       r"(f|13__nv_bfloat16)Lb([01])E")
+
+    def flash_key(m):
+        if m.group(1):
+            return ("flash_fwd_sm90", int(m.group(2)), "bf16", "")
+        if m.group(6) == "0":
+            return ("flash_fwd", 64 * int(m.group(3)), "f32", "")
+        return ("flash_fwd_padded", 64 * int(m.group(3)),
+                "f32" if m.group(5) == "f" else "bf16",
+                f"rows {16 * int(m.group(4))}")
     usage, fn = {}, None
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
             fn = flash.search(m.group(1))
         elif fn and "REG:" in line:
-            name, n = fn.group(1), int(fn.group(2))
-            d = n if name.endswith("sm90") else 64 * n
-            usage[(name, d)] = dict(re.findall(r"(\w+):(\d+)", line))
+            usage[flash_key(fn)] = dict(re.findall(r"(\w+):(\d+)", line))
             fn = None
-    sass = run("-sass")
     hgmma, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = flash.search(m.group(1))
         elif fn and "HGMMA" in line:
-            name, n = fn.group(1), int(fn.group(2))
-            d = n if name.endswith("sm90") else 64 * n
-            hgmma[(name, d)] = hgmma.get((name, d), 0) + 1
+            key = flash_key(fn)
+            hgmma[key] = hgmma.get(key, 0) + 1
     ext = build.extension()
-    for (name, d), use in sorted(usage.items()):
+    for key, use in sorted(usage.items()):
+        name, d, dtype, tiles = key
         smem = ext.flash_attention_sm90_smem_bytes(d) \
             if name == "flash_fwd_sm90" else None
-        print(f"resources {name} D={d}: REG {use.get('REG')} (at entry), "
+        print(f"resources {name} D={d} {dtype}{' ' + tiles if tiles else ''}"
+              f": REG {use.get('REG')} (at entry), "
               f"STACK {use.get('STACK')}, LOCAL {use.get('LOCAL')}, static "
               f"SHARED {use.get('SHARED')}, dynamic shared "
               f"{smem if smem is not None else 'see flash_attention.cu'}, "
-              f"HGMMA {hgmma.get((name, d), 0)}", flush=True)
+              f"HGMMA {hgmma.get(key, 0)}", flush=True)
     for d in (64, 128, 256):
-        check(("flash_fwd_sm90", d) in usage,
-              f"flash_fwd_sm90 D={d} not found in {lib}")
-        check(hgmma.get(("flash_fwd_sm90", d), 0) > 0,
+        key = ("flash_fwd_sm90", d, "bf16", "")
+        check(key in usage, f"flash_fwd_sm90 D={d} not found in {lib}")
+        check(hgmma.get(key, 0) > 0,
               f"flash_fwd_sm90 D={d} issues no HGMMA: not on the tensor "
               f"cores")
+    for d in (64, 128, 256):
+        check(("flash_fwd", d, "f32", "") in usage,
+              f"flash_fwd D={d} not found in {lib}")
+    for d in (64, 128, 192, 256, 384, 512):
+        for dtype in ("f32", "bf16"):
+            check(any(k[:3] == ("flash_fwd_padded", d, dtype) for k in usage),
+                  f"flash_fwd_padded D={d} {dtype} not found in {lib}")
     ssd_resources(res_usage, sass, ext)
     gru_resources(res_usage, ext)
 
@@ -1058,15 +1262,20 @@ def gru_resources(res_usage: str, ext):
     recur = re.compile(r"(gru_fwd|gru_bwd_chain)ILi(\d+)ELi(\d+)ELi(\d+)"
                        r"ELi(\d+)ELb([01])E")
     plain = re.compile(r"(gru_bwd_weights_sum|gru_bwd_weights|"
-                       r"gru_bwd_gates)E")
+                       r"gru_bwd_gates)E|(gru_fwd_stream|gru_bwd_chain_stream)"
+                       r"ILi(\d+)E")
     found, fn = [], None
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
             fn = recur.search(m.group(1)) or plain.search(m.group(1))
         elif fn and "REG:" in line:
-            found.append((fn.groups(), dict(re.findall(r"(\w+):(\d+)",
-                                                       line))))
+            groups = fn.groups()
+            if fn.re is plain:     # (name,) or (name, rows)
+                groups = ((groups[0],) if groups[0] else
+                          (f"{groups[1]} rows {groups[2]}",))
+            found.append((groups, dict(re.findall(r"(\w+):(\d+)",
+                                                  line))))
             fn = None
     check(any(g[0] == "gru_fwd" and g[5] == "1" for g, _ in found) and
           any(g[0] == "gru_bwd_chain" and g[5] == "1" for g, _ in found),
@@ -1114,18 +1323,18 @@ def ssd_ffma(xw, la, bm, c, chunk):
     return y, st, cd
 
 
-def ssd_bound(bsz, t, h, p, n, chunk):
-    """Each input read once and each output written once (bf16 x, b, c and
-    y, f32 la, states and decay); C·Bᵀ once per (b, chunk) and per head
-    the causal half of M·X, the decay-weighted M and the chunk state, on
-    the bf16 tensor cores."""
+def ssd_bound(bsz, t, h, p, n, chunk, elt=2, peak=PEAK_BF16_PER_S):
+    """Each input read once and each output written once (x, b, c and y
+    of ``elt`` bytes, f32 la, states and decay); C·Bᵀ once per (b, chunk)
+    and per head the causal half of M·X, the decay-weighted M and the
+    chunk state, at ``peak`` (bf16: the tensor cores)."""
     nc = t // chunk
-    nbytes = (2.0 * (2 * bsz * t * h * p + 2 * bsz * t * n)
+    nbytes = (elt * (2.0 * bsz * t * h * p + 2 * bsz * t * n)
               + 4.0 * (bsz * t * h + bsz * nc * h * p * n + bsz * nc * h))
     ops = bsz * nc * (2.0 * chunk * chunk * n + h * (
         p * chunk * (chunk + 1) + 2.0 * chunk * chunk
         + 2.0 * chunk * p * n + chunk * n))
-    return bound_ms(nbytes, ops, PEAK_BF16_PER_S)
+    return bound_ms(nbytes, ops, peak)
 
 
 def check_ssd(gen, device):
@@ -1231,15 +1440,74 @@ def check_ssd(gen, device):
                             ffma_ms=zffma, bound_ms=zbound[0]))
 
 
+def check_ssd_tiled(gen, device):
+    """``ssd_chunk_tiled`` (any chunk, P, N) at SSD_TILED_CASES: chunk 256
+    at mamba2-780m's layer width in bf16 and float32, and chunk 256 with
+    head_dim and state 6; each output against the plain intra-chunk block
+    in float32 on the same inputs (SSD_TOL), timed with CUDA events beside
+    its bound (the shape's FLOPs over the peak of its inputs' type) and the
+    plain version. Returns the kernel row, timed at the first case."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk, ref as sr
+    worst, timed = 0.0, {}
+    for bsz, t, h, p, n, chunk, name in SSD_TILED_CASES:
+        dtype = getattr(torch, name)
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
+        dt = torch.nn.functional.softplus(rnd(bsz, t, h) - 3.0)
+        a = -torch.exp(rnd(h) * 0.5)
+        xw = (rnd(bsz, t, h, p) * dt[..., None]).to(dtype).contiguous()
+        bm, c = rnd(bsz, t, n).to(dtype), rnd(bsz, t, n).to(dtype)
+        la = (dt * a).contiguous()
+        check(sk.route(dtype, p, n, chunk) == "ssd_chunk_tiled",
+              f"ssd {name} P={p} N={n} L={chunk} not on ssd_chunk_tiled")
+        label = f"ssd_chunk_tiled {name} {bsz}x{t}x{h}x{p} N {n} L {chunk}"
+        got = launched(sk.LAUNCHES, "ssd_chunk_tiled",
+                       lambda: sk.forward(xw, la, bm, c, chunk=chunk))
+        want = sr.intra_chunk(xw, la, bm, c, chunk=chunk)
+        err = 0.0
+        for what, g, w, tol in zip(("y", "states", "chunk_decay"), got, want,
+                                   (SSD_TOL[name], SSD_TOL["float32"],
+                                    SSD_TOL["float32"])):
+            err = max(err, allclose_err([(f"{label} {what}", g, w)], tol))
+        worst = max(worst, err)
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: sk.forward(xw, la, bm, c, chunk=chunk), 10)
+        plain_ms = cuda_ms(lambda: sr.intra_chunk(xw, la, bm, c,
+                                                  chunk=chunk), 2)
+        bound = ssd_bound(bsz, t, h, p, n, chunk,
+                          elt=xw.element_size(),
+                          peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
+                          else PEAK_FP32_PER_S)
+        timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1], max_abs_err=err, bound=bound)
+        print(f"{label}: {ms:.4f} ms a launch, {bound[0] / ms:.4f} of the "
+              f"bound {bound[0]:.5f} ms by {bound[1]}; plain {plain_ms:.4f} "
+              f"ms; max abs err {err:.3e}", flush=True)
+        del xw, la, bm, c
+        torch.cuda.empty_cache()
+    first = next(iter(timed))
+    row = timed[first]
+    return dict(name="ssd_chunk_tiled", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd.cu",
+                replaces="src/repro/kernels/ssd/kernel.py:65",
+                max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound=row["bound"], library_ms=None, shape=first,
+                by_shape={k: {n: x for n, x in v.items() if n != "bound"}
+                          for k, v in timed.items()})
+
+
 # ---------------------------------------------------------------------------
 # the DIALS paths
 # ---------------------------------------------------------------------------
 def make_trainer(env, side, *, device, use_kernels, small=False, rounds=1,
-                 refresh=1, policy_kind="fnn", **dials_kw):
+                 refresh=1, policy_kind="fnn", gru_hidden=(16, 16),
+                 **dials_kw):
     """The loop driver on ``env`` at ``side``: the library's default
-    widths with a GRU AIP (``small``: narrow widths), ``DIALSConfig()``
-    cut to ``rounds`` and F=``refresh``; ``dials_kw`` sets further
-    ``DIALSConfig`` fields (``ckpt_dir``, the async collect, telemetry)."""
+    widths with a GRU AIP (``small``: narrow widths, the policy's and the
+    AIP's GRU at ``gru_hidden``), ``DIALSConfig()`` cut to ``rounds`` and
+    F=``refresh``; ``dials_kw`` sets further ``DIALSConfig`` fields
+    (``ckpt_dir``, the async collect, telemetry)."""
     from repro_torch.core import dials, influence
     from repro_torch.envs import registry
     from repro_torch.marl import policy, ppo
@@ -1248,10 +1516,10 @@ def make_trainer(env, side, *, device, use_kernels, small=False, rounds=1,
     if small:
         pc = policy.PolicyConfig(info.obs_dim, info.n_actions,
                                  kind=policy_kind, hidden=(32,),
-                                 gru_hidden=16)
+                                 gru_hidden=gru_hidden[0])
         ac = influence.AIPConfig(info.alsh_dim, info.n_influence,
-                                 kind="gru", hidden=(32,), gru_hidden=16,
-                                 epochs=5)
+                                 kind="gru", hidden=(32,),
+                                 gru_hidden=gru_hidden[1], epochs=5)
         dc = dials.DIALSConfig(outer_rounds=rounds, aip_refresh=refresh,
                                collect_envs=4, collect_steps=32, n_envs=4,
                                rollout_steps=8, eval_episodes=2,
@@ -2588,8 +2856,8 @@ def run_contracts_path(device, smi):
 # the paper's experiment harness (benchmarks/torch_run.py)
 # ---------------------------------------------------------------------------
 # torch_run.py's --fast fig3_learning cell (3 rounds of F=10,
-# benchmarks/run.py:78-79) cut in depth to 1 round of F=5
-HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 1, 5
+# benchmarks/run.py:78-79) cut in depth to 1 round of F=2
+HARNESS_ENV, HARNESS_ROUNDS, HARNESS_INNER = "warehouse", 1, 2
 HARNESS_DIALS_KEYS = {"label", "final_gs_return", "best_gs_return",
                       "aip_ce_final", "wall_s"}
 
@@ -2918,25 +3186,34 @@ def _lm_batch(spec, b, t, gen, device):
     return batch
 
 
-def serve_arch(arch, device, smi):
-    """One architecture of ``run_lm_archs_path``; returns its flash
-    launches."""
+def serve_arch(arch, device, smi, reduced=False):
+    """One architecture of ``run_lm_archs_path`` (its registry's reduced
+    config with ``reduced``); returns its flash launches."""
     import torch
     from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch import steps
     from repro_torch.models import api
-    spec = registry.get(arch)
+    spec = registry.get(arch, reduced=reduced)
+    label = arch + ("-reduced" if reduced else "")
     full = steps.model_cfg(spec).n_layers
-    if arch in LM_DEPTH_CUT:
+    if arch in LM_DEPTH_CUT and not reduced:
         spec = with_model_cfg(spec, n_layers=LM_DEPTH_CUT[arch])
     cfg = steps.model_cfg(spec)
     flash = with_model_cfg(spec, use_flash=True)
     plain = with_model_cfg(spec, use_flash=False)
     want = sum(ls.mixer == "attn" for ls in cfg.period) * cfg.repeats \
         + (cfg.repeats if cfg.shared is not None else 0)
-    check(want == LM_FLASH_LAUNCHES[arch],
-          f"{arch}: {want} self-attention blocks a prefill, not "
-          f"{LM_FLASH_LAUNCHES[arch]}")
+    check(want == LM_FLASH_LAUNCHES[label],
+          f"{label}: {want} self-attention blocks a prefill, not "
+          f"{LM_FLASH_LAUNCHES[label]}")
+    # the kernel each self-attention block's dtype and head_dim route to
+    kernels_of = {fk.route(ls.attn.dtype, ls.attn.dh)
+                  for ls in cfg.period + (cfg.shared,)
+                  if ls is not None and ls.mixer == "attn"}
+    check(len(kernels_of) <= 1, f"{label}: attention blocks on {kernels_of}")
+    route = kernels_of.pop() if kernels_of else "flash_fwd_sm90"
+    arch = label
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2972,11 +3249,10 @@ def serve_arch(arch, device, smi):
     plain_s = time.perf_counter() - t0
     check(launch_counts() == counts, f"{arch}: the plain prefill launched "
                                      f"a kernel")
-    check(counts["flash_attention"] == want
-          and counts["flash_fwd_sm90"] == want and counts["flash_fwd"] == 0,
+    check(counts["flash_attention"] == want and counts[route] == want,
           f"{arch}: prefill launched flash {counts['flash_attention']} times "
-          f"({counts['flash_fwd_sm90']} tensor-core, {counts['flash_fwd']} "
-          f"FFMA), not {want} (all bf16: all tensor-core)")
+          f"({ {r: counts[r] for r in fk.ROUTES} }), not {want}, all on "
+          f"{route}")
     check(all(v == 0 for k, v in counts.items()
               if not k.startswith("flash")),
           f"{arch}: the prefill launched another kernel: {counts}")
@@ -3039,19 +3315,24 @@ def serve_arch(arch, device, smi):
 
 
 def run_lm_archs_path(device, smi):
-    """The registry's other eight architectures (LM_ARCHS) served on the
-    card, each in turn and freed before the next: the prefill step with
+    """The registry's other eight architectures (LM_ARCHS), then the
+    reduced configs of LM_REDUCED (gemma2-9b's: head_dim 16, which
+    routes to the FFMA kernel ``flash_fwd_padded``), served on the card, each in
+    turn and freed before the next: the prefill step with
     the flash kernel and without it, each timed after an untimed call
     (their last-position logits within
     LOGIT_TOL times max(1, max |logit|); the plain run replays the flash
     run's MoE routes, see ``RouteLog``), each self-attention block
-    launching ``flash_fwd_sm90`` once (LM_FLASH_LAUNCHES) and nothing
-    else launched (no SSD kernel on any model path), then a greedy decode
+    launching once the kernel its dtype and head_dim route to
+    (``flash_fwd_sm90``, or ``flash_fwd_padded`` for the reduced gemma2-9b;
+    LM_FLASH_LAUNCHES) and nothing else launched (no SSD kernel on any
+    model path), then a greedy decode
     through ``make_serve_step`` (finite logits of the right shape).
     Returns the launch counts of the flash prefills."""
     total = {}
-    for arch in LM_ARCHS:
-        for k, n in serve_arch(arch, device, smi).items():
+    for arch, reduced in ([(a, False) for a in LM_ARCHS]
+                          + [(a, True) for a in LM_REDUCED]):
+        for k, n in serve_arch(arch, device, smi, reduced).items():
             total[k] = total.get(k, 0) + n
     check(total["flash_attention"] == sum(LM_FLASH_LAUNCHES.values()),
           f"lm architectures: {total['flash_attention']} flash launches")
@@ -3065,8 +3346,11 @@ def run_ssm_path(device):
     warm-up call of each and the median of SSM_TIMED synchronised calls of
     each, then the kernel call traced as ``traced_calls`` takes it (its
     one ``ssd_chunk_sm90`` launch a call checked against the wrapper's
-    count) for the SSD kernel's share of the layer's device time.
-    Returns the launch counts of the counted call."""
+    count) for the SSD kernel's share of the layer's device time; the same
+    layer at chunk SSM_TILED_CHUNK (one launch of ``ssd_chunk_tiled``)
+    against its plain call. Returns the launch counts of the two counted
+    calls."""
+    import dataclasses
     import statistics
     import torch
     from repro_torch.configs import common
@@ -3088,11 +3372,19 @@ def run_ssm_path(device):
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
+    # the same layer at chunk SSM_TILED_CHUNK: past ssd_chunk_sm90's and
+    # ssd_chunk's chunks, on ssd_chunk_tiled
+    tiled = dataclasses.replace(cfg, chunk=SSM_TILED_CHUNK)
+    tiled_layer = {k: (lambda k=k: ssm.ssm_layer(params, x, tiled,
+                                                 use_kernel=k))
+                   for k in (True, False)}
     with torch.inference_mode():
         reset_counts()
         cold_s, y_k = timed(layer[True])
+        tiled_s, y_kt = timed(tiled_layer[True])
         counts = launch_counts()
         _, y_p = timed(layer[False])
+        tiled_plain_s, y_pt = timed(tiled_layer[False])
         warm = {}
         for k, fn in layer.items():
             fn()
@@ -3101,15 +3393,24 @@ def run_ssm_path(device):
         summary = device_summary(
             traced_calls(layer[True], PROFILE_ITERS, "ssd_chunk_sm90",
                          "ssd_chunk_sm90"), "ssd_chunk_sm90")
-    check(counts["ssd_intra_chunk"] == 1 and counts["ssd_chunk_sm90"] == 1
-          and counts["ssd_chunk"] == 0,
+    check(counts["ssd_intra_chunk"] == 2 and counts["ssd_chunk_sm90"] == 1
+          and counts["ssd_chunk_tiled"] == 1 and counts["ssd_chunk"] == 0,
           f"ssm_layer launched the SSD kernels {counts['ssd_intra_chunk']} "
           f"times ({counts['ssd_chunk_sm90']} ssd_chunk_sm90, "
-          f"{counts['ssd_chunk']} ssd_chunk), not ssd_chunk_sm90 once")
-    check(tuple(y_k.shape) == (b, t, cfg.d_model) and y_k.dtype == cfg.dtype,
-          f"ssm_layer output {tuple(y_k.shape)} {y_k.dtype}")
+          f"{counts['ssd_chunk_tiled']} ssd_chunk_tiled, "
+          f"{counts['ssd_chunk']} ssd_chunk), not ssd_chunk_sm90 once at "
+          f"chunk {cfg.chunk} and ssd_chunk_tiled once at {tiled.chunk}")
+    for y in (y_k, y_kt):
+        check(tuple(y.shape) == (b, t, cfg.d_model) and y.dtype == cfg.dtype,
+              f"ssm_layer output {tuple(y.shape)} {y.dtype}")
     err = allclose_err([("ssm_layer, kernel vs plain", y_k, y_p)],
                        SSM_LAYER_TOL)
+    err_t = allclose_err([(f"ssm_layer at chunk {tiled.chunk}, kernel vs "
+                           f"plain", y_kt, y_pt)], SSM_LAYER_TOL)
+    print(f"ssm layer at chunk {tiled.chunk} (ssd_chunk_tiled): cold "
+          f"{tiled_s:.4f} s with the kernel, {tiled_plain_s:.4f} s plain; "
+          f"max abs diff {err_t:.4e} (max |y| "
+          f"{float(y_pt.abs().max()):.4f})", flush=True)
     print(f"ssm layer: {cfg.num_heads} heads x {cfg.head_dim}, state "
           f"{cfg.state}, chunk {cfg.chunk}, on ({b}, {t}, {cfg.d_model}) "
           f"bf16: cold {cold_s:.4f} s; warm median of {SSM_TIMED} "
@@ -3342,6 +3643,66 @@ def check_small_against_plain(device):
     check(all(math.isfinite(h_on[k]) for k in
               ("gs_return", "ials_reward", "aip_ce_after")),
           "small input: non-finite record")
+
+def run_wide_gru_path(device):
+    """Warehouse side=2 (4 agents) at narrow widths but with the
+    recurrent policy's GRU at WIDE_GRU_HIDDEN[0] and the AIP's at
+    WIDE_GRU_HIDDEN[1], both above 128 (the streaming kernels), one round
+    of F=2 through the kernels (counted: every GRU launch at those
+    widths, forward and backward), then the same round through the plain
+    versions from the same key: the AIP's and the policy's params within
+    1e-4 and the AIP's CE within 1e-5, as the small-input check compares
+    the AIP's. Every GRU and GAE kernel is then held to its plain version
+    at each shape the round launched it (``check_at_launched_shapes``:
+    among them the streaming kernels' partial tiles, B < the tile's
+    rows). Returns (counts, counts by shape, {kernel row: errors}), the
+    GRU's under its streaming rows."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.kernels.gru import kernel as gk
+    from repro_torch.tree import leaves
+    out = {}
+    for mode in ("on", "off"):
+        trainer = make_trainer("warehouse", 2, device=device,
+                               use_kernels=mode, small=True, rounds=1,
+                               refresh=2, policy_kind="gru",
+                               gru_hidden=WIDE_GRU_HIDDEN)
+        key = R.key(1, device=device)
+        if mode == "on":
+            state, hist, counts, by_shape = drive_dials(
+                "wide gru path", trainer, key, 1,
+                "policy=cuda,aip=cuda,ppo=cuda")
+        else:
+            state, hist = trainer.run(key)
+            torch.cuda.synchronize()
+        out[mode] = (state, hist[0])
+    for name in ("gru_forward", "gru_backward"):
+        widths = {int(k.split("x")[-1]) for k in by_shape[name]}
+        check(widths == set(WIDE_GRU_HIDDEN),
+              f"wide gru path: {name} launched at hidden {sorted(widths)}, "
+              f"not at {WIDE_GRU_HIDDEN}")
+        check(counts[f"{name}_stream"] == counts[name],
+              f"wide gru path: {counts[name]} {name} launches, "
+              f"{counts[f'{name}_stream']} of them streaming")
+    (s_on, h_on), (s_off, h_off) = out["on"], out["off"]
+    diff = lambda a, b: max(max_err(x, y)
+                            for x, y in zip(leaves(a), leaves(b)))
+    aip_err = diff(s_on["aips"], s_off["aips"])
+    policy_err = diff(s_on["ials"]["params"], s_off["ials"]["params"])
+    ce_err = max(abs(h_on[k] - h_off[k])
+                 for k in ("aip_ce_before", "aip_ce_after"))
+    print(f"wide gru path (policy GRU {WIDE_GRU_HIDDEN[0]}, AIP GRU "
+          f"{WIDE_GRU_HIDDEN[1]}), kernels vs plain: aip params max abs err "
+          f"{aip_err:.3e}, policy params {policy_err:.3e}, aip CE max abs "
+          f"err {ce_err:.3e}, gs_return {h_on['gs_return']:.6f} vs "
+          f"{h_off['gs_return']:.6f}", flush=True)
+    check(aip_err <= 1e-4 and policy_err <= 1e-4 and ce_err <= 1e-5,
+          "wide gru path: kernel path and plain path disagree")
+    errs = check_at_launched_shapes(device, by_shape, "the wide gru path")
+    errs = {f"{n}_stream" if n.startswith("gru") else n: e
+            for n, e in errs.items()}
+    return counts, by_shape, errs
+
 
 def _mesh_spec(layers=None, f32=False, **cfg_kw):
     """tinyllama-1.1b (full width; ``layers`` cuts the depth), or its
@@ -3950,8 +4311,8 @@ def check_at_launched_shapes(device, by_shape, runs):
     held(("gae_forward", "gae_backward"),
          lambda t, b: gae_case(gen, device, t, b, ppo_cfg.gamma,
                                ppo_cfg.lam))
-    print(f"bench gate: GRU and GAE kernels held to their plain versions at "
-          f"every shape {runs} launched: {json.dumps(errs)}", flush=True)
+    print(f"GRU and GAE kernels held to their plain versions at every "
+          f"shape {runs} launched: {json.dumps(errs)}", flush=True)
     return errs
 
 
@@ -4087,7 +4448,7 @@ PHASES = ("gru/gae kernels vs plain", "flash kernel vs plain",
           "dials traffic path", "envs on the card",
           "checkpoint resume on the card", "dials async collect path",
           "dials fault path", "dials small input vs plain",
-          "experiment harness", "gae kernel vs plain at the harness shape",
+          "dials wide gru path", "experiment harness", "gae kernel vs plain at the harness shape",
           "contracts path", "gemma2-9b serving path",
           "lm architectures serving path", "mamba2 ssm layer path",
           "lm training path", "lm mesh path", "bench gate and reports",
@@ -4179,7 +4540,8 @@ def main(argv=None) -> int:
         if "gru/gae kernels vs plain" in run:
             rows += phase("gru/gae kernels vs plain", lambda: check_gru(
                 gen, device, shapes) + check_gae(
-                gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam))
+                gen, device, 16, n_agents * 16, ppo_cfg.gamma, ppo_cfg.lam)
+                + check_gru_wide(gen, device))
         if "flash kernel vs plain" in run:
             rows.append(phase("flash kernel vs plain", check_flash, gen,
                               device))
@@ -4188,6 +4550,8 @@ def main(argv=None) -> int:
                 check_flash_at_lm_shapes, gen, device)
         if "ssd kernel vs plain" in run:
             rows.append(phase("ssd kernel vs plain", check_ssd, gen, device))
+            rows.append(phase("ssd tiled kernel vs plain", check_ssd_tiled,
+                              gen, device))
         for row in rows:
             print(f"kernel {row['name']}: max abs err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
@@ -4236,6 +4600,16 @@ def main(argv=None) -> int:
         if "dials small input vs plain" in run:
             phase("dials small input vs plain", check_small_against_plain,
                   device)
+        if "dials wide gru path" in run:
+            *wide, wide_errs = phase("dials wide gru path",
+                                     run_wide_gru_path, device)
+            paths["dials wide gru (warehouse side 2, hidden "
+                  f"{'/'.join(map(str, WIDE_GRU_HIDDEN))})"] = tuple(wide)
+            for r in rows:
+                if wide_errs.get(r["name"], {}).get("shapes"):
+                    r["at_wide_path_shapes"] = wide_errs[r["name"]]
+                    r["max_abs_err"] = max(
+                        r["max_abs_err"], wide_errs[r["name"]]["max_abs_err"])
         if "experiment harness" in run:
             paths["experiment harness (fig3 warehouse cell)"] = (phase(
                 "experiment harness", run_harness_path, device), {})
@@ -4289,6 +4663,12 @@ def main(argv=None) -> int:
                     r["max_abs_err"] = max(
                         r["max_abs_err"],
                         scaling_errs[r["name"]]["max_abs_err"])
+        if "flash kernel vs plain" in run:
+            # after the paths: its yardsticks compile flex_attention four
+            # times, and the one run that compiled them before the SSD
+            # phase saw torch.profiler miss 3 of that phase's 22 markers
+            rows.append(phase("flash ffma kernel vs plain at other head_dims",
+                              check_flash_ffma, gen, device))
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
@@ -4301,7 +4681,9 @@ def main(argv=None) -> int:
                     merged[shape] = merged.get(shape, 0) + n
         if run == set(PHASES):
             for name in ("gru_forward", "gru_backward", "gae_forward",
-                         "flash_attention", "ssd_intra_chunk"):
+                         "flash_attention", "ssd_intra_chunk",
+                         "gru_forward_stream", "gru_backward_stream",
+                         "flash_fwd_padded", "ssd_chunk_tiled"):
                 check(counts[name] > 0, f"its path never launched {name}")
         print(f"phases on {smi}: "
               f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
@@ -4318,10 +4700,12 @@ def main(argv=None) -> int:
               "bound_by": r["bound"][1],
               "library_ms": r.get("library_ms"),
               **{k: r[k] for k in ("library", "shape", "ms_by_shape",
-                                   "bound_ms_by_shape", "call_ms",
+                                   "bound_ms_by_shape", "plain_ms_by_shape",
+                                   "by_shape", "call_ms",
                                    "device_ms", "ms_by_route", "zamba2",
                                    "at_harness_shape", "at_lm_shapes",
-                                   "at_bench_shapes", "at_scaling_shapes")
+                                   "at_bench_shapes", "at_scaling_shapes",
+                                   "at_wide_path_shapes")
                  if k in r},
               "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}

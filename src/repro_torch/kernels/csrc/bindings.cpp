@@ -34,8 +34,8 @@ cudaError_t launch_gae_forward(const float* r, const float* v,
 cudaError_t launch_gae_backward(const float* g, const float* d, float* dr,
                                 float* dnv, int T, int B, float gamma,
                                 float gamma_lam, cudaStream_t stream);
-cudaError_t launch_flash_attention(const float* q, const float* k,
-                                   const float* v, float* o, int BH,
+cudaError_t launch_flash_attention(const void* q, const void* k,
+                                   const void* v, void* o, bool bf16, int BH,
                                    int BHkv, int Tq, int Tk, int D,
                                    int causal, int window, float softcap,
                                    float scale, cudaStream_t stream);
@@ -50,6 +50,12 @@ cudaError_t launch_ssd_chunk(const void* xw, const float* la, const void* b,
                              const void* c, void* y, float* st, float* cd,
                              bool bf16, int B, int T, int H, int P, int N,
                              int L, int G, cudaStream_t stream);
+size_t ssd_tiled_smem_bytes(int L, int P);
+cudaError_t launch_ssd_chunk_tiled(const void* xw, const float* la,
+                                   const void* b, const void* c, void* y,
+                                   float* st, float* cd, bool bf16, int B,
+                                   int T, int H, int P, int N, int L,
+                                   cudaStream_t stream);
 size_t ssd_sm90_smem_bytes(int L, int P, int N);
 cudaError_t launch_ssd_chunk_sm90(const void* xw, const float* la,
                                   const void* b, const void* c, void* y,
@@ -142,14 +148,15 @@ void gae_backward(torch::Tensor g, torch::Tensor d, torch::Tensor dr,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// float32 only: the FFMA kernel (flash_attention.cu)
+// float32 or bfloat16: the FFMA kernel (flash_attention.cu)
 void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                      torch::Tensor o, bool causal, int64_t window,
                      double softcap, double scale) {
   const c10::cuda::CUDAGuard guard(q.device());
+  const bool bf16 = half_or_float({q, k, v, o}, {"q", "k", "v", "out"});
   C10_CUDA_CHECK(launch_flash_attention(
-      in(q, "q"), in(k, "k"), in(v, "v"), out(o, "out"), q.size(0),
-      k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bf16,
+      q.size(0), k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
       (int)window, (float)softcap, (float)scale,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -180,6 +187,20 @@ void ssd_intra_chunk(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
       out(st, "states"), out(cd, "chunk_decay"), bf16, xw.size(0),
       xw.size(1), xw.size(2), xw.size(3), b.size(2), (int)chunk,
       (int)heads_per_block, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// float32 or bfloat16, any chunk, P and N: the tiled pair (ssd.cu)
+void ssd_intra_chunk_tiled(torch::Tensor xw, torch::Tensor la,
+                           torch::Tensor b, torch::Tensor c, torch::Tensor y,
+                           torch::Tensor st, torch::Tensor cd, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(xw.device());
+  const bool bf16 = half_or_float({xw, b, c, y}, {"xw", "b", "c", "y"});
+  C10_CUDA_CHECK(launch_ssd_chunk_tiled(
+      xw.data_ptr(), in(la, "la"), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+      out(st, "states"), out(cd, "chunk_decay"), bf16, xw.size(0),
+      xw.size(1), xw.size(2), xw.size(3), b.size(2), (int)chunk,
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -214,6 +235,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_sm90_smem_bytes", &flash_attention_sm90_smem_bytes);
   m.def("ssd_smem_bytes", &ssd_smem_bytes);
   m.def("ssd_intra_chunk", &ssd_intra_chunk);
+  m.def("ssd_tiled_smem_bytes", &ssd_tiled_smem_bytes);
+  m.def("ssd_intra_chunk_tiled", &ssd_intra_chunk_tiled);
   m.def("ssd_sm90_smem_bytes", &ssd_sm90_smem_bytes);
   m.def("ssd_intra_chunk_sm90", &ssd_intra_chunk_sm90);
 }

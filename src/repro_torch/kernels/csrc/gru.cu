@@ -1,8 +1,10 @@
 // GRU recurrence kernels for Hopper (sm_90a).
 //
 // Replace the Pallas kernels of repro/kernels/gru/kernel.py:
-//   gru_fwd                  <- _gru_forward / _gru_kernel (the recurrence)
-//   gru_bwd_gates, gru_bwd_chain, gru_bwd_weights, gru_bwd_weights_sum
+//   gru_fwd (H <= 128), gru_fwd_stream (H > 128)
+//                            <- _gru_forward / _gru_kernel (the recurrence)
+//   gru_bwd_gates, gru_bwd_chain (H <= 128) or gru_bwd_chain_stream
+//   (H > 128), gru_bwd_weights, gru_bwd_weights_sum
 //                            <- _gru_backward / _gru_bwd_kernel (its adjoint)
 //
 // Layout (leading agent axis A; the reference vmaps the scan over agents):
@@ -56,6 +58,26 @@
 //  * The wrapper picks R (2, 4 or 8 rows a tile) from the grid: fewer rows
 //    a block shorten its steps, so a card with idle SMs takes smaller
 //    tiles (kernels/gru/kernel.py, tile_rows).
+//  * H > 128 (gru_fwd_stream, gru_bwd_chain_stream): W_h is 3H x H floats,
+//    786,432 bytes at H=256, more than a block's 232,448 of shared memory,
+//    so it cannot stay resident. It is streamed from global memory every
+//    step instead: an agent's W_h (3 MiB at H=512) is read by all its
+//    tiles each step and stays in the 50 MB L2 when the agents' weights
+//    fit there. Thread u owns unit u (a loop over units when H exceeds
+//    the block) and reads column u of each gate, so a warp's loads are
+//    coalesced, and each weight feeds the R rows of the tile from
+//    registers: in a block no weight is read by two threads, so staging
+//    it in shared memory would add a copy and save no read. Only h (the
+//    forward) or dgh and the adjoint (the chain) live in shared memory.
+//    The chain's dgh.W_h^T reads rows of W_h: a warp owns a unit, its
+//    lanes stride the 3H columns (coalesced), and a fixed shuffle tree
+//    sums them, so the bits repeat from run to run. This design is the
+//    simple one and has no bound on H but shared memory (2 R H floats
+//    forward, 4 R H the chain). The Hopper redesign, for later: a
+//    thread-block cluster of C CTAs, each holding 3H/C columns of W_h in
+//    its shared memory for all T steps, h exchanged over distributed
+//    shared memory once a step -- resident weights again, which the
+//    cluster makes room for above 128 (at H <= 128 it was rejected, above).
 //
 // The backward splits the serial chain from the parallel work:
 //   1. gru_bwd_gates: gh = hp.W_h + b_h for all T.B rows of an agent at
@@ -505,6 +527,170 @@ gru_bwd_chain(const float* __restrict__ gi, const float* __restrict__ wh,
 }
 
 // ---------------------------------------------------------------------------
+// H > 128: W_h streamed from global memory (L2) every step
+// ---------------------------------------------------------------------------
+constexpr int STREAM_THREADS = 512;
+
+// forward: one block per (agent, tile of R rows); thread u owns units
+// u, u + blockDim.x, ... Shared memory: h, 2 x R x H, double-buffered and
+// masked by the next step's reset as the next step reads it.
+template <int R>
+__global__ void __launch_bounds__(STREAM_THREADS)
+gru_fwd_stream(const float* __restrict__ gi, const float* __restrict__ wh,
+               const float* __restrict__ bh, const float* __restrict__ h0,
+               const float* __restrict__ resets, float* __restrict__ hs,
+               int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int a = blockIdx.x, b0 = blockIdx.y * R, H3 = 3 * H;
+  const float* wa = wh + (size_t)a * H * H3;
+  const float* ba = bh + (size_t)a * H3;
+  for (int e = tid; e < R * H; e += nthr) {
+    const int r = e / H, u = e - r * H, b = b0 + r;
+    smem[e] = b < B ? h0[((size_t)a * B + b) * H + u] *
+                          (1.0f - resets[(size_t)a * T * B + b])
+                    : 0.0f;
+  }
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const float* hc = smem + (t & 1) * R * H;
+    float* hn = smem + ((t + 1) & 1) * R * H;
+    for (int u = tid; u < H; u += nthr) {
+      float acc[R][3];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
+      const float* w = wa + u;
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) {
+        const float* wk = w + (size_t)k * H3;
+        const float w0 = __ldg(wk), w1 = __ldg(wk + H), w2 = __ldg(wk + 2 * H);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float hv = hc[r * H + k];
+          acc[r][0] = fmaf(hv, w0, acc[r][0]);
+          acc[r][1] = fmaf(hv, w1, acc[r][1]);
+          acc[r][2] = fmaf(hv, w2, acc[r][2]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int b = b0 + r;
+        if (b >= B) {
+          hn[r * H + u] = 0.0f;
+          continue;
+        }
+        const size_t row = ((size_t)a * T + t) * B + b;
+        const float* g = gi + row * H3;
+        const float rg = sigmoid_f32(g[u] + (acc[r][0] + ba[u]));
+        const float z = sigmoid_f32(g[H + u] + (acc[r][1] + ba[H + u]));
+        const float n = tanhf(g[2 * H + u] + rg * (acc[r][2] + ba[2 * H + u]));
+        const float hnew = (1.0f - z) * n + z * hc[r * H + u];
+        hs[row * H + u] = hnew;
+        const float keep_next =
+            t + 1 < T ? 1.0f - resets[((size_t)a * T + t + 1) * B + b] : 0.0f;
+        hn[r * H + u] = hnew * keep_next;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// backward, phase 2: per step, (A) the gate algebra of every (row, unit)
+// of the tile, which writes dgi, r and the dgh row into shared memory and
+// the direct path d z onto the adjoint; (B) dh_{t-1} = (d z + dgh.W_h^T)
+// (1 - reset_t), a warp per unit. Shared memory: dgh (R x 3H) and the
+// carried adjoint (R x H).
+template <int R>
+__global__ void __launch_bounds__(STREAM_THREADS)
+gru_bwd_chain_stream(const float* __restrict__ gi,
+                     const float* __restrict__ wh,
+                     const float* __restrict__ gh,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ resets,
+                     const float* __restrict__ hs,
+                     const float* __restrict__ g, float* __restrict__ dgi,
+                     float* __restrict__ rgate, float* __restrict__ dh0,
+                     int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int a = blockIdx.x, b0 = blockIdx.y * R, H3 = 3 * H;
+  float* dg_s = smem;               // R x 3H
+  float* dh_s = smem + R * H3;      // R x H
+  const float* wa = wh + (size_t)a * H * H3;
+  for (int e = tid; e < R * H; e += nthr) dh_s[e] = 0.0f;
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    for (int u = tid; u < H; u += nthr) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int b = b0 + r;
+        const bool valid = b < B;
+        const int bc = min(b, B - 1);
+        const size_t row = ((size_t)a * T + t) * B + bc;
+        const float keep = valid ? 1.0f - resets[row] : 0.0f;
+        const float hprev = t > 0 ? hs[(row - B) * H + u]
+                                  : h0[((size_t)a * B + bc) * H + u];
+        const float* ghr = gh + row * H3;
+        const float* gir = gi + row * H3;
+        const float gh_n = ghr[2 * H + u];
+        const float rg = sigmoid_f32(gir[u] + ghr[u]);
+        const float z = sigmoid_f32(gir[H + u] + ghr[H + u]);
+        const float n = tanhf(gir[2 * H + u] + rg * gh_n);
+        const float d = g[row * H + u] + dh_s[r * H + u];
+        const float dn = d * (1.0f - z);
+        const float dz = d * (hprev * keep - n);
+        const float da_n = dn * (1.0f - n * n);
+        const float da_z = dz * z * (1.0f - z);
+        const float da_r = da_n * gh_n * rg * (1.0f - rg);
+        if (valid) {
+          float* dgo = dgi + row * H3;
+          dgo[u] = da_r;
+          dgo[H + u] = da_z;
+          dgo[2 * H + u] = da_n;
+          rgate[row * H + u] = rg;
+        }
+        float* dgrow = dg_s + r * H3;
+        dgrow[u] = valid ? da_r : 0.0f;
+        dgrow[H + u] = valid ? da_z : 0.0f;
+        dgrow[2 * H + u] = valid ? da_n * rg : 0.0f;
+        dh_s[r * H + u] = d * z;   // the direct path, finished in (B)
+      }
+    }
+    __syncthreads();
+    for (int u = warp; u < H; u += nwarps) {
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+      const float* wrow = wa + (size_t)u * H3;
+      for (int c = lane; c < H3; c += 32) {
+        const float wv = __ldg(wrow + c);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(dg_s[r * H3 + c], wv, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], off);
+      if (lane == 0)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int b = b0 + r;
+          const float keep =
+              b < B ? 1.0f - resets[((size_t)a * T + t) * B + b] : 0.0f;
+          dh_s[r * H + u] = (dh_s[r * H + u] + acc[r]) * keep;
+        }
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < R * H; e += nthr) {
+    const int r = e / H, u = e - r * H, b = b0 + r;
+    if (b < B) dh0[((size_t)a * B + b) * H + u] = dh_s[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward, phases 1 and 3: tiled FFMA products over all T.B rows
 // ---------------------------------------------------------------------------
 constexpr int GEMM_THREADS = 256;       // 16 x 16
@@ -722,8 +908,8 @@ __global__ void gru_bwd_weights_sum(const float* __restrict__ part,
 // ---------------------------------------------------------------------------
 // configuration and launch
 // ---------------------------------------------------------------------------
-constexpr int MAX_HIDDEN = 128;
-constexpr int REG_HIDDEN = 64;   // W_h in registers up to this width
+constexpr int RESIDENT_HIDDEN = 128;  // W_h resident up to this width
+constexpr int REG_HIDDEN = 64;         // W_h in registers up to this width
 
 // A configuration of the recurrent kernels: UPT units a thread, KS lanes
 // over the reduction axis, KPT of its elements a lane (16 / 32 for the
@@ -759,13 +945,20 @@ size_t chain_smem_of(int H, int rows) {
 }
 
 size_t fwd_smem(int H, int rows) {
+  if (H > RESIDENT_HIDDEN) return (size_t)2 * rows * H * sizeof(float);
   return H <= REG_HIDDEN ? fwd_smem_of<FwdReg>(H, rows)
                          : fwd_smem_of<FwdSmem>(H, rows);
 }
 
 size_t chain_smem(int H, int rows) {
+  if (H > RESIDENT_HIDDEN) return (size_t)4 * rows * H * sizeof(float);
   return H <= REG_HIDDEN ? chain_smem_of<ChainReg>(H, rows)
                          : chain_smem_of<ChainSmem>(H, rows);
+}
+
+// threads of a streaming block: the units, in whole warps, up to 512
+int stream_threads(int H) {
+  return min(STREAM_THREADS, (H + 31) / 32 * 32);
 }
 
 int weight_slices(int M) {
@@ -818,6 +1011,15 @@ template <int R>
 cudaError_t fwd_rows(const float* gi, const float* wh, const float* bh,
                      const float* h0, const float* resets, float* hs, int A,
                      int T, int B, int H, cudaStream_t stream) {
+  if (H > RESIDENT_HIDDEN) {
+    const size_t smem = fwd_smem(H, R);
+    cudaError_t err = allow_smem(gru_fwd_stream<R>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(A, (B + R - 1) / R);
+    gru_fwd_stream<R><<<grid, stream_threads(H), smem, stream>>>(
+        gi, wh, bh, h0, resets, hs, T, B, H);
+    return cudaGetLastError();
+  }
   if (H <= REG_HIDDEN)
     return fwd_at<FwdReg, R>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
   return fwd_at<FwdSmem, R>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
@@ -828,6 +1030,15 @@ cudaError_t chain_rows(const float* gi, const float* wh, const float* gh,
                        const float* h0, const float* resets, const float* hs,
                        const float* g, float* dgi, float* rgate, float* dh0,
                        int A, int T, int B, int H, cudaStream_t stream) {
+  if (H > RESIDENT_HIDDEN) {
+    const size_t smem = chain_smem(H, R);
+    cudaError_t err = allow_smem(gru_bwd_chain_stream<R>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(A, (B + R - 1) / R);
+    gru_bwd_chain_stream<R><<<grid, stream_threads(H), smem, stream>>>(
+        gi, wh, gh, h0, resets, hs, g, dgi, rgate, dh0, T, B, H);
+    return cudaGetLastError();
+  }
   if (H <= REG_HIDDEN)
     return chain_at<ChainReg, R>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
                                  dh0, A, T, B, H, stream);
@@ -836,8 +1047,7 @@ cudaError_t chain_rows(const float* gi, const float* wh, const float* gh,
 }
 
 bool supported(int H, int rows) {
-  return H >= 1 && H <= MAX_HIDDEN &&
-         (rows == 2 || rows == 4 || rows == 8);
+  return H >= 1 && (rows == 2 || rows == 4 || rows == 8);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel of repro/kernels/ssd/kernel.py:
-//   ssd_chunk <- ssd_intra_chunk / _ssd_chunk_kernel
+//   ssd_chunk, ssd_tiled_y + ssd_tiled_state
+//             <- ssd_intra_chunk / _ssd_chunk_kernel
 //
 // Layout: xw (B,T,H,P) dt-weighted inputs and b, c (B,T,N), float32 or
 // bfloat16 (one dtype for the three); la (B,T,H) float32 log decays.
@@ -28,6 +29,25 @@
 // of 16 x 16 owns rows ty + 16r of each product and float4 columns tx +
 // 16k; every product is an FFMA chain in fp32 (no tensor cores, no TF32,
 // no fast-math), to hold the reference's 2e-4.
+//
+// The tiled pair (ssd_tiled_y, ssd_tiled_state) takes every other shape:
+// any chunk L that divides T, any P and N, float32 or bf16 -- the shapes
+// whose whole-chunk tiles above overflow a block (at L=256 the L x L score
+// tile alone is 256 KB) or break its multiples of 16 and 4. Each block
+// computes the chunk's cumulative sum itself (a warp scan, 32 steps at a
+// time), then:
+//  * ssd_tiled_y: one block per (b, chunk, strip of 32 query rows, head,
+//    256 columns of P). Over the strip's live key tiles of 32 (j <= i:
+//    tiles past the strip are skipped), C.B^T is summed over N in chunks
+//    of 64 staged in shared memory, weighted by exp(cs_i - cs_j) into a
+//    32 x 32 tile of M, and M.X is added into registers (2 rows x 16
+//    columns a thread);
+//  * ssd_tiled_state: one block per (b, chunk, 64 x 64 tile of the P x N
+//    state, head), summing x_j (b_j w_j)^T over the chunk in steps of 32
+//    rows; the tile at (0, 0) also writes the chunk decay.
+// Shared memory is about 54 KB plus the L floats of cs, whatever P and N.
+// It recomputes C.B^T per head and per 256 columns of P, and is FFMA on
+// fp32 like ssd_chunk: the simple design, right for every shape.
 //
 // Bound: per (b, chunk) the work is ~2 L^2 N + G (2 L^2 P + 2 L P N) FLOP
 // over ~(2 L N + G (L P + P N)) x 4 bytes, so at mamba2 widths it is
@@ -265,6 +285,238 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the tiled pair: any L, P, N
+// ---------------------------------------------------------------------------
+constexpr int TR = 32;        // ssd_tiled_y: query rows a strip, keys a tile
+constexpr int TNC = 64;       // ssd_tiled_y: N a chunk of C.B^T
+constexpr int TPC = 256;      // ssd_tiled_y: columns of P a block
+constexpr int TKP = TPC / 16; // ssd_tiled_y: columns a thread
+constexpr int TS = 64;        // ssd_tiled_state: rows and columns a tile
+constexpr int TJ = 32;        // ssd_tiled_state: chunk rows a step
+
+// inclusive cumsum of la over the chunk into cs_s[0, L), by warp 0, 32
+// steps at a time in order; the caller synchronises
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ la,
+                                             size_t row0, int H, int h,
+                                             int L, float* cs_s) {
+  const int lane = threadIdx.x;
+  if (lane >= 32) return;
+  float carry = 0.0f;
+  for (int base = 0; base < L; base += 32) {
+    const int i = base + lane;
+    float v = i < L ? la[(row0 + i) * H + h] : 0.0f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += up;
+    }
+    v += carry;
+    if (i < L) cs_s[i] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+size_t tiled_y_smem_floats(int L, int P) {
+  const int pc = P < TPC ? P : TPC;
+  return (size_t)L + 2 * TR * (TNC + 1) + TR * (TR + 1) + (size_t)TR * pc;
+}
+
+size_t tiled_state_smem_floats(int L) {
+  return (size_t)L + 2 * TJ * TS;
+}
+
+// grid (nc * strips, H * P tiles, B)
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+    ssd_tiled_y(const T* __restrict__ xw, const float* __restrict__ la,
+                const T* __restrict__ bm, const T* __restrict__ cm,
+                T* __restrict__ y, int Tt, int H, int P, int N, int L) {
+  extern __shared__ float4 smem4[];
+  float* cs_s = reinterpret_cast<float*>(smem4);   // L
+  float* c_s = cs_s + L;                           // TR x (TNC + 1)
+  float* b_s = c_s + TR * (TNC + 1);               // TR x (TNC + 1)
+  float* m_s = b_s + TR * (TNC + 1);               // TR x (TR + 1)
+  float* x_s = m_s + TR * (TR + 1);                // TR x pc
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int strips = (L + TR - 1) / TR, ptiles = (P + TPC - 1) / TPC;
+  const int ci = blockIdx.x / strips, i0 = (blockIdx.x % strips) * TR;
+  const int h = blockIdx.y / ptiles, p0 = (blockIdx.y % ptiles) * TPC;
+  const int bi = blockIdx.z;
+  const int pc = min(TPC, P - p0);
+  const size_t row0 = (size_t)bi * Tt + (size_t)ci * L;
+  chunk_cumsum(la, row0, H, h, L, cs_s);
+  __syncthreads();
+
+  float acc[2][TKP];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int k = 0; k < TKP; ++k) acc[a][k] = 0.0f;
+  const int k_end = min(L, i0 + TR);
+  for (int k0 = 0; k0 < k_end; k0 += TR) {
+    float sacc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    for (int n0 = 0; n0 < N; n0 += TNC) {
+      const int nn = min(TNC, N - n0);
+      __syncthreads();   // the previous chunk's (or tile's) reads are done
+      for (int e = tid; e < TR * TNC; e += NTHREADS) {
+        const int r = e / TNC, n = e - r * TNC;
+        const bool in_n = n < nn;
+        c_s[r * (TNC + 1) + n] = (in_n && i0 + r < L)
+            ? to_f32(cm[(row0 + i0 + r) * N + n0 + n]) : 0.0f;
+        b_s[r * (TNC + 1) + n] = (in_n && k0 + r < L)
+            ? to_f32(bm[(row0 + k0 + r) * N + n0 + n]) : 0.0f;
+      }
+      __syncthreads();
+      for (int n = 0; n < nn; ++n) {
+        const float c0 = c_s[ty * (TNC + 1) + n];
+        const float c1 = c_s[(ty + 16) * (TNC + 1) + n];
+        const float b0 = b_s[tx * (TNC + 1) + n];
+        const float b1 = b_s[(tx + 16) * (TNC + 1) + n];
+        sacc[0][0] = fmaf(c0, b0, sacc[0][0]);
+        sacc[0][1] = fmaf(c0, b1, sacc[0][1]);
+        sacc[1][0] = fmaf(c1, b0, sacc[1][0]);
+        sacc[1][1] = fmaf(c1, b1, sacc[1][1]);
+      }
+    }
+    // M = C.B^T * exp(cs_i - cs_j) on j <= i; the tile of X beside it
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = i0 + ty + 16 * a, j = k0 + tx + 16 * c;
+        m_s[(ty + 16 * a) * (TR + 1) + tx + 16 * c] =
+            (j <= i && i < L)
+                ? sacc[a][c] * expf(cs_s[i] - cs_s[j]) : 0.0f;
+      }
+    for (int e = tid; e < TR * pc; e += NTHREADS) {
+      const int j = e / pc, p = e - j * pc;
+      x_s[j * pc + p] = k0 + j < L
+          ? to_f32(xw[((row0 + k0 + j) * H + h) * P + p0 + p]) : 0.0f;
+    }
+    __syncthreads();
+    for (int j = 0; j < TR; ++j) {
+      const float m0 = m_s[ty * (TR + 1) + j];
+      const float m1 = m_s[(ty + 16) * (TR + 1) + j];
+#pragma unroll
+      for (int k = 0; k < TKP; ++k) {
+        const int p = tx + 16 * k;
+        if (p < pc) {
+          const float xv = x_s[j * pc + p];
+          acc[0][k] = fmaf(m0, xv, acc[0][k]);
+          acc[1][k] = fmaf(m1, xv, acc[1][k]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int i = i0 + ty + 16 * a;
+    if (i >= L) continue;
+    T* yrow = y + ((row0 + i) * H + h) * P + p0;
+#pragma unroll
+    for (int k = 0; k < TKP; ++k) {
+      const int p = tx + 16 * k;
+      if (p < pc) store_as(yrow + p, acc[a][k]);
+    }
+  }
+}
+
+// grid (nc * P tiles * N tiles, H, B)
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+    ssd_tiled_state(const T* __restrict__ xw, const float* __restrict__ la,
+                    const T* __restrict__ bm, float* __restrict__ st,
+                    float* __restrict__ cd, int Tt, int H, int P, int N,
+                    int L) {
+  extern __shared__ float4 smem4[];
+  float* cs_s = reinterpret_cast<float*>(smem4);   // L
+  float* x_s = cs_s + L;                           // TJ x TS
+  float* b_s = x_s + TJ * TS;                      // TJ x TS
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ptiles = (P + TS - 1) / TS, ntiles = (N + TS - 1) / TS;
+  const int nc = Tt / L, tiles = ptiles * ntiles;
+  const int ci = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int p0 = (tile / ntiles) * TS, n0 = (tile % ntiles) * TS;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const size_t row0 = (size_t)bi * Tt + (size_t)ci * L;
+  chunk_cumsum(la, row0, H, h, L, cs_s);
+  __syncthreads();
+  const float cs_last = cs_s[L - 1];
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
+  for (int j0 = 0; j0 < L; j0 += TJ) {
+    __syncthreads();   // the previous step's reads are done
+    for (int e = tid; e < TJ * TS; e += NTHREADS) {
+      const int j = e / TS, q = e - j * TS, row = j0 + j;
+      const bool in_j = row < L;
+      x_s[e] = (in_j && p0 + q < P)
+          ? to_f32(xw[((row0 + row) * H + h) * P + p0 + q]) : 0.0f;
+      b_s[e] = (in_j && n0 + q < N)
+          ? to_f32(bm[(row0 + row) * N + n0 + q]) *
+                expf(cs_last - cs_s[row]) : 0.0f;
+    }
+    __syncthreads();
+    const int jn = min(TJ, L - j0);
+    for (int j = 0; j < jn; ++j) {
+      float xv[4], bv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) xv[a] = x_s[j * TS + ty + 16 * a];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bv[c] = b_s[j * TS + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(xv[a], bv[c], acc[a][c]);
+    }
+  }
+  float* sbase = st + (((size_t)bi * nc + ci) * H + h) * P * N;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int p = p0 + ty + 16 * a;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = n0 + tx + 16 * c;
+      if (p < P && n < N) sbase[(size_t)p * N + n] = acc[a][c];
+    }
+  }
+  if (tile == 0 && tid == 0)
+    cd[((size_t)bi * nc + ci) * H + h] = expf(cs_last);
+}
+
+template <typename T>
+cudaError_t launch_tiled(const void* xw, const float* la, const void* b,
+                         const void* c, void* y, float* st, float* cd, int B,
+                         int T_, int H, int P, int N, int L,
+                         cudaStream_t stream) {
+  const int nc = T_ / L;
+  const size_t ysmem = tiled_y_smem_floats(L, P) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_tiled_y<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ysmem);
+  if (err != cudaSuccess) return err;
+  const dim3 ygrid(nc * ((L + TR - 1) / TR), H * ((P + TPC - 1) / TPC), B);
+  ssd_tiled_y<T><<<ygrid, NTHREADS, ysmem, stream>>>(
+      static_cast<const T*>(xw), la, static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<T*>(y), T_, H, P, N, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t ssmem = tiled_state_smem_floats(L) * sizeof(float);
+  err = cudaFuncSetAttribute(ssd_tiled_state<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ssmem);
+  if (err != cudaSuccess) return err;
+  const dim3 sgrid(nc * ((P + TS - 1) / TS) * ((N + TS - 1) / TS), H, B);
+  ssd_tiled_state<T><<<sgrid, NTHREADS, ssmem, stream>>>(
+      static_cast<const T*>(xw), la, static_cast<const T*>(b), st, cd, T_, H,
+      P, N, L);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 size_t ssd_smem_bytes(int L, int P, int N) {
@@ -304,4 +556,26 @@ cudaError_t launch_ssd_chunk(const void* xw, const float* la, const void* b,
         P, N, L, G);
   }
   return cudaGetLastError();
+}
+
+// The larger of the tiled pair's two blocks.
+size_t ssd_tiled_smem_bytes(int L, int P) {
+  const size_t y = tiled_y_smem_floats(L, P), s = tiled_state_smem_floats(L);
+  return (y > s ? y : s) * sizeof(float);
+}
+
+// Any L >= 1 that divides T, any P, N >= 1 (the wrapper checks the shared
+// memory of the cumulative sum, L floats).
+cudaError_t launch_ssd_chunk_tiled(const void* xw, const float* la,
+                                   const void* b, const void* c, void* y,
+                                   float* st, float* cd, bool bf16, int B,
+                                   int T, int H, int P, int N, int L,
+                                   cudaStream_t stream) {
+  if (L < 1 || T % L || P < 1 || N < 1 || B < 1 || H < 1)
+    return cudaErrorInvalidValue;
+  if (bf16)
+    return launch_tiled<__nv_bfloat16>(xw, la, b, c, y, st, cd, B, T, H, P,
+                                       N, L, stream);
+  return launch_tiled<float>(xw, la, b, c, y, st, cd, B, T, H, P, N, L,
+                             stream);
 }

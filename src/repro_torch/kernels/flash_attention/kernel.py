@@ -7,14 +7,18 @@ Replaces ``repro/kernels/flash_attention/kernel.py``:
 plain version (``ref.attention_bhsd``) on CPU tensors. Forward only, as
 the reference (it has no VJP).
 
-The kernel is chosen by dtype. bfloat16 q/k/v go to ``flash_fwd_sm90``,
-on the tensor cores (``wgmma``, bf16 products summed in float32, p
-rounded to bf16 for p·v); float32 q/k/v go to ``flash_fwd``, on fp32
-FFMA, since the tensor cores would need TF32 for them. Both take head_dim
-64, 128 or 256; the output is in q's dtype. A failed build or launch
+The kernel is chosen by dtype and head_dim (:func:`route`). bfloat16
+q/k/v at head_dim 64, 128 or 256 go to ``flash_fwd_sm90``, on the tensor
+cores (``wgmma``, bf16 products summed in float32, p rounded to bf16 for
+p·v); float32 q/k/v go to fp32 FFMA, since the tensor cores would need
+TF32 for them: ``flash_fwd`` at head_dim 64, 128 or 256,
+``flash_fwd_padded`` at any other head_dim up to 512, padded up to the
+next of 64, 128, 192, 256, 384, 512; bfloat16 at those other head_dims
+goes to ``flash_fwd_padded`` too, widened to float32 as it is loaded.
+Above 512 the padded kernel's smallest tiles leave no room in a block's
+shared memory and the wrapper raises. The output is in q's dtype. A failed build or launch
 raises: there is no fallback. ``LAUNCHES["flash_attention"]`` counts
-every launch, ``LAUNCHES["flash_fwd_sm90"]`` and ``LAUNCHES["flash_fwd"]``
-each kernel's. The reference's ``block_q``/``block_k``/``interpret``
+every launch, ``LAUNCHES[route]`` each kernel's. The reference's ``block_q``/``block_k``/``interpret``
 arguments are gone: the kernels fix their tiles and there is no
 interpreter on the card.
 """
@@ -29,9 +33,45 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.flash_attention import ref
 
-LAUNCHES = {"flash_attention": 0, "flash_fwd_sm90": 0, "flash_fwd": 0}
+ROUTES = ("flash_fwd_sm90", "flash_fwd", "flash_fwd_padded")
+LAUNCHES = {"flash_attention": 0, **{r: 0 for r in ROUTES}}
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)
+SM90_HEAD_DIMS = (64, 128, 256)  # flash_fwd_sm90 (bf16), flash_fwd (f32)
+FFMA_HEAD_DIMS = (64, 128, 192, 256, 384, 512)  # flash_fwd_padded's
+MAX_HEAD_DIM = FFMA_HEAD_DIMS[-1]
+MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
+
+
+def route(dtype, d: int) -> str:
+    """The kernel a launch goes to: at head_dim 64, 128 or 256
+    ``"flash_fwd_sm90"`` for bf16 and ``"flash_fwd"`` for float32,
+    ``"flash_fwd_padded"`` at the other head_dims."""
+    if d not in SM90_HEAD_DIMS:
+        return "flash_fwd_padded"
+    return "flash_fwd_sm90" if dtype == torch.bfloat16 else "flash_fwd"
+
+
+def ffma_smem_bytes(d: int) -> int:
+    """Shared memory of one ``flash_fwd_padded`` block at head_dim ``d``
+    (1..512), padded as ``csrc/flash_attention.cu`` pads it: q and k tiles of D+4
+    floats a row, v of D, p of keys+4; 64-row tiles up to D=256, 32
+    above."""
+    dp = next(c for c in FFMA_HEAD_DIMS if c >= d)
+    rows = 64 if dp <= 256 else 32
+    return 4 * (2 * rows * (dp + 4) + rows * dp + rows * (rows + 4))
+
+
+def check_head_dim(d: int) -> None:
+    """Raise for a head_dim no kernel takes: below 1, or above
+    MAX_HEAD_DIM."""
+    if d < 1:
+        raise ValueError(f"flash attention head_dim must be >= 1, got {d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash attention kernel takes head_dim up to {MAX_HEAD_DIM}, "
+            f"got {d}: at {MAX_HEAD_DIM} its 32-row q, k and v tiles "
+            f"already take {ffma_smem_bytes(MAX_HEAD_DIM)} of the "
+            f"{MAX_SMEM_BYTES} bytes of shared memory a block has")
 
 
 def forward(q, k, v, *, causal: bool = True,
@@ -44,9 +84,7 @@ def forward(q, k, v, *, causal: bool = True,
     check_tensor("q", q, (bh, tq, d), DTYPES)
     check_tensor("k", k, (bh_kv, tk, d), (q.dtype,))
     check_tensor("v", v, (bh_kv, tk, d), (q.dtype,))
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    check_head_dim(d)
     if bh % bh_kv:
         raise ValueError(f"{bh} query rows are not a multiple of {bh_kv} "
                          f"kv rows")
@@ -58,16 +96,16 @@ def forward(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     args = (q, k, v, out, bool(causal), int(sliding_window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(d))
-    if q.dtype == torch.bfloat16:
+    kernel = route(q.dtype, d)
+    if kernel == "flash_fwd_sm90":
         # the tensor maps of its loads need 16-byte aligned rows
         for name, x in (("q", q), ("k", k), ("v", v)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
         ext.flash_attention_sm90(*args)
-        LAUNCHES["flash_fwd_sm90"] += 1
     else:
         ext.flash_attention(*args)
-        LAUNCHES["flash_fwd"] += 1
+    LAUNCHES[kernel] += 1
     LAUNCHES["flash_attention"] += 1
     return out
 

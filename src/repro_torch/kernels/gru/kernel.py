@@ -7,11 +7,18 @@ phases (the gate recompute ``gru_bwd_gates``, the serial adjoint chain
 ``gru_bwd_weights_sum``), and :class:`GRUScan` pairs them as one
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``). Gates
 are recomputed in the backward, not stored; resets get no gradient.
-Hidden widths up to ``MAX_HIDDEN``.
+Any hidden width whose tile fits a block's shared memory: up to
+``RESIDENT_HIDDEN`` W_h stays in registers or shared memory for all T
+steps (``gru_fwd``, ``gru_bwd_chain``); above it W_h is streamed from
+L2 every step (``gru_fwd_stream``, ``gru_bwd_chain_stream``), with the
+rows of a tile halved (down to 2) until h (and the chain's dgh) fit:
+up to H=7,264 both ways.
 
 Every tensor carries a leading agent axis A (the reference vmaps the
 scan over agents), so each agent has its own W_h. ``LAUNCHES`` counts
-the launches of each wrapper, ``SHAPE_LAUNCHES`` the same launches by
+the launches of each wrapper, and under ``gru_forward_stream`` and
+``gru_backward_stream`` those that ran the streaming kernels
+(:func:`route`); ``SHAPE_LAUNCHES`` counts the same launches by
 (A, T, B, H) and ``STREAM_LAUNCHES`` by the CUDA stream they were queued
 on (its ``cuda_stream`` handle), for the chip run to show that the main
 path went through the kernels, at which shapes, and that the overlapped
@@ -29,11 +36,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.gru import ref
 
-LAUNCHES = {"gru_forward": 0, "gru_backward": 0}
+LAUNCHES = {"gru_forward": 0, "gru_backward": 0, "gru_forward_stream": 0,
+            "gru_backward_stream": 0}
 SHAPE_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
 STREAM_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
 _count_lock = threading.Lock()
-MAX_HIDDEN = 128                 # csrc/gru.cu's MAX_HIDDEN
+RESIDENT_HIDDEN = 128            # csrc/gru.cu's RESIDENT_HIDDEN
 MAX_TILE_ROWS = 8                # batch rows a block carries through T
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
 
@@ -64,9 +72,27 @@ def _check_inputs(gi, wh, bh, h0, resets):
     check_tensor("bh", bh, (a, 3 * hdim))
     check_tensor("h0", h0, (a, b, hdim))
     check_tensor("resets", resets, (a, t, b))
-    if not 1 <= hdim <= MAX_HIDDEN:
-        raise ValueError(f"GRU hidden {hdim} is outside 1..{MAX_HIDDEN}")
+    if hdim < 1:
+        raise ValueError(f"GRU hidden {hdim} must be >= 1")
     return a, t, b, hdim
+
+
+def route(hdim: int) -> str:
+    """The kernels a launch at hidden ``hdim`` runs, as ``csrc/gru.cu``
+    picks them: ``"resident"`` (``gru_fwd``, ``gru_bwd_chain``, W_h held
+    for all T steps) up to RESIDENT_HIDDEN, ``"stream"``
+    (``gru_fwd_stream``, ``gru_bwd_chain_stream``) above."""
+    return "stream" if hdim > RESIDENT_HIDDEN else "resident"
+
+
+def fit_rows(rows: int, hdim: int, smem_bytes) -> int:
+    """``rows`` halved (down to 2) while ``smem_bytes(hdim, rows)`` is
+    more than a block's shared memory; only the streaming kernels
+    shrink, the resident ones fit at any rows."""
+    while rows > 2 and route(hdim) == "stream" and \
+            smem_bytes(hdim, rows) > MAX_SMEM_BYTES:
+        rows //= 2
+    return rows
 
 
 def _check_smem(nbytes: int, what: str, hdim: int):
@@ -80,6 +106,8 @@ def _count(name: str, shape, device) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     with _count_lock:
         LAUNCHES[name] += 1
+        if route(shape[-1]) == "stream":
+            LAUNCHES[f"{name}_stream"] += 1
         for table, k in ((SHAPE_LAUNCHES, shape), (STREAM_LAUNCHES, stream)):
             table[name][k] = table[name].get(k, 0) + 1
 
@@ -92,7 +120,8 @@ def forward(gi, wh, bh, h0, resets):
         return hs
     ext = build.extension()
     # smaller tiles while agents x tiles leaves SMs idle
-    rows = tile_rows(b, a, _sm_count(gi.device))
+    rows = fit_rows(tile_rows(b, a, _sm_count(gi.device)), hdim,
+                    ext.gru_forward_smem_bytes)
     _check_smem(ext.gru_forward_smem_bytes(hdim, rows), "forward", hdim)
     ext.gru_forward(gi, wh, bh, h0, resets, hs, rows)
     _count("gru_forward", (a, t, b, hdim), gi.device)
@@ -113,7 +142,8 @@ def backward(gi, wh, bh, h0, resets, hs, g):
     ext = build.extension()
     # the chain's 8 lanes a unit own a row each at 8 rows a tile; fewer
     # rows repeat its gate algebra, worth it only on a card half idle
-    rows = tile_rows(b, a, _sm_count(gi.device) // 2)
+    rows = fit_rows(tile_rows(b, a, _sm_count(gi.device) // 2), hdim,
+                    ext.gru_backward_smem_bytes)
     _check_smem(ext.gru_backward_smem_bytes(hdim, rows), "backward", hdim)
     # scratch: the recomputed gh for the chain, its r gate and the partial
     # sums over slices of rows for dW_h/db_h

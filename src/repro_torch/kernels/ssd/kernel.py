@@ -12,13 +12,16 @@ chunk_decay)``; the fourth output its docstring promises
 dtype and shape (:func:`route`): bfloat16 inputs at head_dim 64, chunk 64
 or 128 and state 64 or 128 (mamba2-780m's and zamba2-1.2b's layers) go to
 ``ssd_chunk_sm90``, on the tensor cores (bf16 products summed in float32,
-M and X·w split into bf16 hi + lo); every other shape, and float32
-inputs, go to ``ssd_chunk``, on fp32 FFMA (chunk a multiple of 16 up to
-128, head_dim and state multiples of 4 up to 128), since the tensor cores
-would need TF32 for float32. Both take xw, b and c in one dtype and la in
-float32. A refused or failed launch raises: no route gives way to another.
-``LAUNCHES["ssd_intra_chunk"]`` counts every launch,
-``LAUNCHES["ssd_chunk_sm90"]`` and ``LAUNCHES["ssd_chunk"]`` each route's.
+M and X·w split into bf16 hi + lo); float32 inputs and the other shapes go
+to fp32 FFMA, since the tensor cores would need TF32 for float32:
+``ssd_chunk`` where its whole-chunk tiles fit (chunk a multiple of 16 up
+to 128, head_dim and state multiples of 4 up to 128, within a block's
+shared memory), ``ssd_chunk_tiled`` (two kernels, ``ssd_tiled_y`` and
+``ssd_tiled_state``) at every other chunk that divides T and every head_dim
+and state, as the reference takes them. All take xw, b and c in one dtype
+and la in float32. A refused or failed launch raises: no route gives way
+to another. ``LAUNCHES["ssd_intra_chunk"]`` counts every launch,
+``LAUNCHES[route]`` each route's.
 """
 from __future__ import annotations
 
@@ -28,20 +31,42 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.ssd import ref
 
-LAUNCHES = {"ssd_intra_chunk": 0, "ssd_chunk_sm90": 0, "ssd_chunk": 0}
+LAUNCHES = {"ssd_intra_chunk": 0, "ssd_chunk_sm90": 0, "ssd_chunk": 0,
+            "ssd_chunk_tiled": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
 SM90_HEAD_DIMS, SM90_CHUNKS, SM90_STATES = (64,), (64, 128), (64, 128)
 SM90_MAX_HEADS = 16              # heads a block of ssd_chunk_sm90
 
 
+def ffma_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of one ``ssd_chunk`` block (``csrc/ssd.cu``'s
+    ``smem_floats``): C·Bᵀ, C then M, B with padded rows, X and cs."""
+    return 4 * (chunk * chunk + chunk * max(chunk, n) + chunk * (n + 4)
+                + chunk * p + chunk)
+
+
 def route(dtype, p: int, n: int, chunk: int) -> str:
     """The kernel a launch goes to: ``"ssd_chunk_sm90"`` for bf16 at the
-    shapes it takes, ``"ssd_chunk"`` otherwise."""
+    shapes it takes, ``"ssd_chunk"`` where its whole-chunk tiles fit,
+    ``"ssd_chunk_tiled"`` otherwise."""
     if (dtype == torch.bfloat16 and p in SM90_HEAD_DIMS
             and n in SM90_STATES and chunk in SM90_CHUNKS):
         return "ssd_chunk_sm90"
-    return "ssd_chunk"
+    if (chunk % 16 == 0 and chunk <= 128 and p % 4 == 0 and p <= 128
+            and n % 4 == 0 and n <= 128
+            and ffma_smem_bytes(chunk, p, n) <= MAX_SMEM_BYTES):
+        return "ssd_chunk"
+    return "ssd_chunk_tiled"
+
+
+def check_shape(t: int, p: int, n: int, chunk: int) -> None:
+    """Raise for a shape no route takes: a chunk that does not divide T,
+    an empty head or state."""
+    if chunk < 1 or t % chunk:
+        raise ValueError(f"chunk {chunk} must be >= 1 and divide T={t}")
+    if p < 1 or n < 1:
+        raise ValueError(f"head_dim {p} and state {n} must be >= 1")
 
 
 def heads_per_block(bsz: int, nc: int, h: int, sms: int) -> int:
@@ -68,16 +93,13 @@ def forward(xw, la, b, c, *, chunk: int):
     check_tensor("la", la, (bsz, t, h))
     check_tensor("b", b, (bsz, t, n), (xw.dtype,))
     check_tensor("c", c, (bsz, t, n), (xw.dtype,))
-    if t % chunk or chunk % 16 or not 16 <= chunk <= 128:
-        raise ValueError(f"chunk {chunk} must be a multiple of 16 up to 128 "
-                         f"that divides T={t}")
-    if p % 4 or p > 128 or n % 4 or n > 128:
-        raise ValueError(f"head_dim {p} and state {n} must be multiples of "
-                         f"4 up to 128")
+    check_shape(t, p, n, chunk)
     kernel = route(xw.dtype, p, n, chunk)
     ext = build.extension()
-    smem = (ext.ssd_sm90_smem_bytes(chunk, p, n) if kernel == "ssd_chunk_sm90"
-            else ext.ssd_smem_bytes(chunk, p, n))
+    smem = {"ssd_chunk_sm90": lambda: ext.ssd_sm90_smem_bytes(chunk, p, n),
+            "ssd_chunk": lambda: ext.ssd_smem_bytes(chunk, p, n),
+            "ssd_chunk_tiled": lambda: ext.ssd_tiled_smem_bytes(chunk, p)
+            }[kernel]()
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"SSD kernel needs {smem} bytes of shared memory "
                          f"at chunk {chunk}, P {p}, N {n}; a block has "
@@ -96,6 +118,8 @@ def forward(xw, la, b, c, *, chunk: int):
                 raise ValueError(f"{name} must be 16-byte aligned")
         ext.ssd_intra_chunk_sm90(xw, la, b, c, y, states, chunk_decay, chunk,
                                  heads_per_block_sm90(bsz, nc, h, sms))
+    elif kernel == "ssd_chunk_tiled":
+        ext.ssd_intra_chunk_tiled(xw, la, b, c, y, states, chunk_decay, chunk)
     else:
         ext.ssd_intra_chunk(xw, la, b, c, y, states, chunk_decay, chunk,
                             heads_per_block(bsz, nc, h, sms))

@@ -38,7 +38,13 @@ through ``benchmarks/torch_check_bench.py`` against itself (no finding),
 and a short telemetry run's log through ``tools/telemetry_report_torch.py
 --check``; ``benchmarks/torch_scaling.py --fast`` at traffic-2x2 in
 process (the loop row, two gloo ranks sharing the card, a stream row),
-its rows exactly the three labels and the GAE forward launched.
+its rows exactly the three labels and the GAE forward launched;
+``benchmarks/torch_run.py --only fig4_f_sweep --fast --shards 2`` on two
+spawned ranks, its rows under the reference's labels and keys. The wide
+routes (GRU above hidden 128, flash at head_dims outside 64/128/256 in
+both dtypes, SSD at any chunk, P and N) at the tolerances above, against
+the plain versions; the bf16 FFMA flash kernel against the plain version
+in float32 on the same inputs (FLASH_BF16_F32_TOL).
 """
 import dataclasses
 
@@ -103,24 +109,36 @@ def _gru_inputs(device, a, t, b, h, seed, reset_p=0.2):
     (3, 7, 2, 128),       # two rows a tile: lanes share rows
     (2, 5, 1, 40),        # one row a tile
     (100, 16, 4, 128),    # the recurrent policy's ppo_loss
-    (100, 1, 16, 128)])   # the recurrent policy's rollout cell
+    (100, 1, 16, 128),    # the recurrent policy's rollout cell
+    (2, 5, 3, 192),       # H > 128: W_h streamed from L2
+    (2, 6, 3, 256),
+    (2, 9, 21, 512),      # three tiles at H=512
+    (3, 4, 2, 300),       # a streaming width no warp multiple
+    (100, 7, 128, 256)])  # full width: 100 agents, 16 tiles each
 def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
     """Forward and backward, with resets, over one and several batch
-    tiles (b=21 spans three tiles of 8) and at the main path's shapes."""
+    tiles (b=21 spans three tiles of 8) and at the main path's shapes;
+    above hidden 128 each launch is counted on the streaming route."""
     ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=0)
     k_leaves = [x.clone().requires_grad_() for x in ins]
     p_leaves = [x.clone().requires_grad_() for x in ins]
+    before = dict(gru_kernel.LAUNCHES)
     hs_k = gru_kernel.GRUScan.apply(*k_leaves, resets)
     hs_p = gru_ref.gru_scan(*p_leaves, resets)
     assert_close_scaled(hs_k, hs_p, GRU_TOL)
     for gk, gp in zip(torch.autograd.grad(hs_k, k_leaves, g),
                       torch.autograd.grad(hs_p, p_leaves, g)):
         assert_close_scaled(gk, gp, GRU_TOL)
+    stream = int(h > 128)
+    assert {k: gru_kernel.LAUNCHES[k] - before[k] for k in before} == {
+        "gru_forward": 1, "gru_backward": 1,
+        "gru_forward_stream": stream, "gru_backward_stream": stream}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("a,t,b,h", [(4, 12, 40, 64), (2, 20, 24, 128),
-                                     (100, 16, 4, 128), (100, 1, 16, 128)])
+                                     (100, 16, 4, 128), (100, 1, 16, 128),
+                                     (3, 9, 20, 256), (2, 5, 8, 512)])
 def test_gru_backward_is_deterministic(cuda_device, a, t, b, h):
     """dW_h and db_h sum all T.B rows in a fixed order, with no atomics:
     two runs give the same bits."""
@@ -643,11 +661,14 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda_device):
                            wh, bh, h0, resets)
     with pytest.raises(ValueError, match="shape"):
         gru_kernel.forward(gi, wh, bh, h0[:, :2], resets)
-    wide = torch.zeros(1, 2, 3, 3 * 136, device=cuda_device)
-    with pytest.raises(ValueError, match="hidden 136"):
-        gru_kernel.forward(wide, torch.zeros(1, 136, 408, device=cuda_device),
-                           torch.zeros(1, 408, device=cuda_device),
-                           torch.zeros(1, 3, 136, device=cuda_device), resets)
+    # the chain's dgh and adjoint (4 R H floats) overflow shared memory
+    # above H=7,264 even at 2 rows a tile
+    hd = 7265
+    z = lambda *s: torch.zeros(*s, device=cuda_device)
+    with pytest.raises(ValueError, match=f"shared memory at hidden {hd}"):
+        gru_kernel.backward(z(1, 2, 3, 3 * hd), z(1, hd, 3 * hd),
+                            z(1, 3 * hd), z(1, 3, hd), resets, z(1, 2, 3, hd),
+                            z(1, 2, 3, hd))
     r = torch.zeros(4, 5, device=cuda_device)
     with pytest.raises(ValueError, match="shape"):
         gae_kernel.forward(r, r, r, r[:3], 0.9, 0.9)
@@ -750,6 +771,71 @@ def test_flash_routes_by_dtype(cuda_device):
         fa_kernel.forward(odd, kb, vb, **kw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bhkv,t,d,window,softcap,causal", [
+    (4, 2, 200, 16, 64, 50.0, True),       # the reduced configs' head_dim
+    (4, 2, 130, 80, None, 30.0, True),     # padded to 128
+    (4, 4, 300, 96, 17, 50.0, True),       # window under a key tile
+    (2, 1, 257, 192, 100, None, True),     # the 192 case, MQA
+    (4, 2, 200, 320, 64, 50.0, True),      # 32-row tiles, padded to 384
+    (2, 2, 150, 512, None, 50.0, False),   # the widest, non-causal
+    (2, 1, 70, 1, None, None, True),       # a head_dim of one
+])
+def test_flash_ffma_head_dims_match_plain(cuda_device, dtype, bh, bhkv, t,
+                                          d, window, softcap, causal):
+    """The FFMA kernel ``flash_fwd_padded`` at head_dims outside the
+    tensor-core kernel's 64/128/256, float32 and bf16 (widened as it
+    loads), against
+    the plain version in float32 on the same inputs: FLASH_TOL in float32;
+    in bf16 only the output's rounding (2^-8 relative) and the order of
+    float32 sums differ, FLASH_BF16_F32_TOL."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    q, k, v = (rnd(bh, t, d) * 3).to(dtype), (rnd(bhkv, t, d) * 3).to(dtype), \
+        rnd(bhkv, t, d).to(dtype)
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    assert fa_kernel.route(dtype, d) == "flash_fwd_padded"
+    before = dict(fa_kernel.LAUNCHES)
+    out = fa_kernel.forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {k: fa_kernel.LAUNCHES[k] - before[k] for k in before} == {
+        "flash_attention": 1, "flash_fwd_padded": 1, "flash_fwd": 0,
+        "flash_fwd_sm90": 0}
+    assert out.dtype == dtype and out.shape == q.shape
+    want = fa_ref.attention_bhsd(q.float(), k.float(), v.float(), **kw)
+    if dtype == torch.float32:
+        assert_allclose(out, want, FLASH_TOL[dtype])
+    else:
+        atol, rtol = FLASH_BF16_F32_TOL
+        diff = (out.double() - want.double()).abs()
+        assert not bool((diff > atol + rtol * want.double().abs()).any()), \
+            f"max abs err {float(diff.max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_96_at_t4096(cuda_device, dtype):
+    """A full-width prompt at head_dim 96: B=1, 8 heads over 2 KV heads,
+    T=4,096, causal with window 1,024 and softcap 50, through the op."""
+    gen = torch.Generator(device=cuda_device).manual_seed(96)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    q, k, v = (rnd(1, 4096, 8, 96) * 3).to(dtype), \
+        (rnd(1, 4096, 2, 96) * 3).to(dtype), rnd(1, 4096, 2, 96).to(dtype)
+    kw = dict(causal=True, sliding_window=1024, softcap=50.0)
+    before = fa_kernel.LAUNCHES["flash_fwd_padded"]
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_kernel.LAUNCHES["flash_fwd_padded"] == before + 1
+    want = fa_ref.attention(q.float(), k.float(), v.float(), **kw)
+    if dtype == torch.float32:
+        assert_allclose(out, want, FLASH_TOL[dtype])
+    else:
+        atol, rtol = FLASH_BF16_F32_TOL
+        diff = (out.double() - want.double()).abs()
+        assert not bool((diff > atol + rtol * want.double().abs()).any()), \
+            f"max abs err {float(diff.max()):.3e}"
+
+
 def _ragged_heads(device, b, t, chunk):
     """A head count that the tensor-core kernel's heads_per_block does not
     divide on this card: its last block takes fewer heads."""
@@ -819,6 +905,44 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [
+    (1, 512, 2, 6, 6, 256),          # chunk 256, P = N = 6
+    (2, 768, 3, 6, 6, 256),
+    (1, 96, 4, 8, 12, 24),           # a chunk no multiple of 16
+    (1, 256, 2, 256, 256, 64),       # P and N of 256
+    (1, 500, 3, 5, 7, 100),          # odd everything
+    (2, 8192, 48, 64, 128, 256),     # mamba2-780m's widths at chunk 256
+])
+def test_ssd_tiled_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
+    """``ssd_chunk_tiled`` (any chunk, P, N) against the plain intra-chunk
+    block, and ``ops.ssd`` with an initial state against ``ssd_chunked``;
+    the tolerances of test_ssd_kernel_matches_plain."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, p, n, dtype)
+    xw = (x * dt[..., None].to(dtype)).contiguous()
+    la = (dt * a).contiguous()
+    assert ssd_kernel.route(dtype, p, n, chunk) == "ssd_chunk_tiled"
+    before = dict(ssd_kernel.LAUNCHES)
+    got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_chunk_tiled"] == \
+        before["ssd_chunk_tiled"] + 1
+    want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
+    tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
+    assert got[0].dtype == dtype
+    assert_close_scaled(got[0], want[0], tol)
+    for g, w in zip(got[1:], want[1:]):
+        assert_close_scaled(g, w, SSD_TOL)
+    s0 = torch.randn(b, h, p, n, generator=gen, device=cuda_device)
+    y_k, s_k = ssd_ops.ssd(x, dt, a, bm, c, chunk=chunk, initial_state=s0)
+    y_p, s_p = ssm_mod.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
+                                   initial_state=s0)
+    assert_close_scaled(y_k, y_p, tol)
+    assert_close_scaled(s_k, s_p, SSD_TOL)
+
+
+@pytest.mark.cuda
 def test_ssd_routes_by_dtype_and_shape(cuda_device):
     """bf16 at mamba2's widths goes to ``ssd_chunk_sm90``; float32, and
     bf16 at chunk 32, go to ``ssd_chunk``; each launch also counts once in
@@ -837,7 +961,7 @@ def test_ssd_routes_by_dtype_and_shape(cuda_device):
         assert ssd_kernel.route(dtype, 64, 128, chunk) == key
         assert {k: ssd_kernel.LAUNCHES[k] - counts[k] for k in counts} == {
             "ssd_intra_chunk": 1, "ssd_chunk_sm90": int(key != "ssd_chunk"),
-            "ssd_chunk": int(key == "ssd_chunk")}
+            "ssd_chunk": int(key == "ssd_chunk"), "ssd_chunk_tiled": 0}
         want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
         tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
         assert_close_scaled(got[0], want[0], tol)
@@ -860,9 +984,9 @@ def test_lm_kernel_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fa_kernel.forward(q.transpose(1, 2).contiguous().transpose(1, 2),
                           q, q)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa_kernel.forward(q[..., :32].contiguous(), q[..., :32].contiguous(),
-                          q[..., :32].contiguous())
+    wide = torch.zeros(4, 64, 513, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim up to 512"):
+        fa_kernel.forward(wide, wide, wide)
     xw = torch.zeros(1, 64, 2, 8, device=cuda_device)
     la = torch.zeros(1, 64, 2, device=cuda_device)
     bm = torch.zeros(1, 64, 16, device=cuda_device)
@@ -880,8 +1004,10 @@ def test_lm_kernel_wrappers_refuse_bad_inputs(cuda_device):
 
 def _card_layer(ls, dtype):
     """A reduced LayerSpec in ``dtype`` with its attention widened to
-    head_dim 64 (the flash kernel takes 64, 128 or 256; the reduced
-    configs have 16)."""
+    head_dim 64, where bf16 takes the tensor-core kernel and float32
+    ``flash_fwd`` (the reduced configs' 16 goes to ``flash_fwd_padded``,
+    held by test_flash_ffma_head_dims_match_plain and chip_smoke.py's
+    reduced gemma2-9b)."""
     subs = {name: dataclasses.replace(getattr(ls, name), dtype=dtype)
             for name in ("attn", "ssm", "mlp", "moe")
             if getattr(ls, name) is not None}
@@ -935,7 +1061,8 @@ def test_moe_and_hybrid_prefill_flash_matches_plain(cuda_device, arch,
     kernel = "flash_fwd" if dtype == torch.float32 else "flash_fwd_sm90"
     other = "flash_fwd_sm90" if dtype == torch.float32 else "flash_fwd"
     assert {k: after[k] - counts[k] for k in counts} == {
-        "flash_attention": launches, kernel: launches, other: 0}
+        "flash_attention": launches, kernel: launches, other: 0,
+        "flash_fwd_padded": 0}
     assert fa_kernel.LAUNCHES == after      # the plain prefill: none
     assert got.dtype == torch.float32
     assert tuple(got.shape) == (2, 1, cfg.vocab)
@@ -1091,3 +1218,62 @@ def test_scaling_bench_fast_on_card(cuda_device, tmp_path):
     for got in ranks:
         assert got["launches"]["gae_forward"] > 0
         assert "16x16" in got["by_shape"]["gae_forward"]
+
+
+@pytest.mark.cuda
+def test_harness_fig4_on_two_ranks_on_card(cuda_device, tmp_path):
+    """``benchmarks/torch_run.py --only fig4_f_sweep --fast --shards 2``:
+    the sweep's DIALS cells on two gloo ranks spawned on the card, its
+    rows under the reference's labels and keys (``benchmarks/run.py``'s
+    fig4_f_sweep), finite, in the JSON and the ``name.label,metric,value``
+    lines."""
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "benchmarks", "torch_run.py"),
+         "--only", "fig4_f_sweep", "--fast", "--shards", "2"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rows = json.loads((tmp_path / "experiments" / "bench" /
+                       "torch_fig4_f_sweep.json").read_text())
+    assert [r["label"] for r in rows] == ["F=2x6", "F=6x2", "F=12x1"]
+    for r in rows:
+        assert set(r) == {"label", "refresh", "final_gs_return",
+                          "aip_ce_final", "wall_s"}
+        assert all(math.isfinite(v) for k, v in r.items() if k != "label")
+    lines = [ln for ln in out.stdout.splitlines() if not ln.startswith("#")]
+    assert lines[0] == "name,metric,value"
+    assert lines[1:] == [f"fig4_f_sweep.{r['label']},{k},{v}" for r in rows
+                         for k, v in r.items() if k != "label"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded_gs", ["on", "off"])
+def test_harness_fig3_env_rows_on_two_ranks_on_card(cuda_device,
+                                                     sharded_gs):
+    """``fig3_learning``'s cell for warehouse (one round of F=1) with
+    ``--shards 2 --sharded-gs on|off``: the DIALS cells on two gloo ranks
+    spawned on the card, the GS collect region-decomposed or replicated;
+    the rows carry the reference's labels and keys, finite."""
+    import math
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmarks import torch_run
+    rows = torch_run.fig3_env_rows("warehouse", rounds=1, inner=1,
+                                   shards=2, sharded_gs=sharded_gs,
+                                   device=str(cuda_device))
+    assert [r["label"] for r in rows] == [
+        "DIALS-warehouse", "untrained-DIALS-warehouse", "GS-warehouse"]
+    dials_keys = {"label", "final_gs_return", "best_gs_return",
+                  "aip_ce_final", "wall_s"}
+    assert [set(r) for r in rows] == [dials_keys, dials_keys,
+                                      {"label", "final_gs_return", "wall_s"}]
+    for r in rows:
+        assert all(math.isfinite(v) for k, v in r.items() if k != "label")

@@ -1,0 +1,254 @@
+"""The kernels' shape domains past the port's first ranges: the same
+numpy-seeded inputs through the JAX package's Pallas kernel in interpret
+mode and through the port's plain version (the kernel's CPU path and its
+oracle on the card), at shapes the wide routes take: the GRU at hidden
+192 and 256 (``gru_fwd_stream``/``gru_bwd_chain_stream``), flash
+attention at head_dim 16, 80 and 320 (``flash_fwd_padded``, float32 and
+bfloat16), the SSD block at chunk 256 with head_dim and state 6
+(``ssd_chunk_tiled``); and the wrappers' range checks and routes, which
+are decided before any launch, without a card. ``test_torch_cuda.py``
+holds each new route to its plain version on the card.
+
+Tolerances: the GRU 1e-5 (``tests/test_kernels.py``'s), absolute at
+magnitudes <= 1 and relative to the largest magnitude above; flash 2e-5
+in float32 and 2e-2 in bfloat16 (|err| <= tol + tol |reference|), SSD
+2e-4, as ``test_torch_attention.py`` and ``test_torch_ssm.py`` hold the
+first ranges."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import torch
+
+from _torch_parity import assert_close_scaled
+from repro.kernels.flash_attention import kernel as jfa_kernel
+from repro.kernels.gru import kernel as jgru_kernel
+from repro.kernels.ssd import kernel as jssd_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.gru import kernel as gru_kernel
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+GRU_TOL, SSD_TOL = 1e-5, 2e-4
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+GRU_T, GRU_B = 5, 3
+
+
+def _assert_close(actual, desired, tol):
+    np.testing.assert_allclose(np.asarray(actual, np.float64),
+                               np.asarray(desired, np.float64),
+                               atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# GRU, hidden above 128
+# ---------------------------------------------------------------------------
+def _gru_inputs(h, resets_on, seed=0):
+    rng = np.random.RandomState(seed)
+    gi = rng.randn(GRU_T, GRU_B, 3 * h).astype(np.float32)
+    wh = (rng.randn(h, 3 * h) / np.sqrt(h)).astype(np.float32)
+    bh = (0.1 * rng.randn(3 * h)).astype(np.float32)
+    h0 = (0.5 * rng.randn(GRU_B, h)).astype(np.float32)
+    resets = ((rng.rand(GRU_T, GRU_B) < 0.3) if resets_on
+              else np.zeros((GRU_T, GRU_B))).astype(np.float32)
+    g = rng.randn(GRU_T, GRU_B, h).astype(np.float32)
+    return gi, wh, bh, h0, resets, g
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gru(h):
+    """hs and the gradients in (gi, wh, bh, h0) of sum(hs * g), through
+    the reference's kernels in interpret mode; one compile per width
+    (the resets are an argument)."""
+    def loss(gi, wh, bh, h0, resets, g):
+        hs = jgru_kernel.gru_scan(gi, wh, bh, h0, resets[..., None],
+                                  interpret=True)
+        return (hs * g).sum(), hs
+    return jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2, 3),
+                                      has_aux=True))
+
+
+@pytest.mark.parametrize("resets_on", [False, True])
+@pytest.mark.parametrize("h", [192, 256])
+def test_gru_wide_matches_reference_kernel(h, resets_on):
+    """The port's plain scan (``gru_scan`` on CPU tensors, with its agent
+    axis of 1) and its autograd against the reference's forward and
+    backward kernels."""
+    gi, wh, bh, h0, resets, g = _gru_inputs(h, resets_on)
+    (_, jhs), jgrads = _jax_gru(h)(gi, wh, bh, h0, resets, g)
+    leaves = [torch.from_numpy(x)[None].requires_grad_()
+              for x in (gi, wh, bh, h0)]
+    before = dict(gru_kernel.LAUNCHES)
+    hs = gru_kernel.gru_scan(*leaves, torch.from_numpy(resets)[None])
+    grads = torch.autograd.grad(hs, leaves, torch.from_numpy(g)[None])
+    assert gru_kernel.LAUNCHES == before              # no launch on the CPU
+    assert_close_scaled(hs[0].detach().numpy(), jhs, GRU_TOL)
+    for got, want in zip(grads, jgrads):      # dgi, dwh, dbh, dh0
+        assert_close_scaled(got[0].numpy(), want, GRU_TOL)
+
+
+@pytest.mark.parametrize("hdim,rows,want", [
+    (64, 8, 8),       # resident routes keep the tile
+    (128, 8, 8),
+    (512, 8, 8),      # forward at 512: 2 x 8 x 512 floats fit
+    (4096, 8, 4),     # 2 x 8 x 4096 floats do not: halved once
+    (7265, 8, 2),     # 2 x 4 x 7265 floats are 32 bytes over
+    (20000, 8, 2)])   # at 2 rows the wrapper's check raises
+def test_gru_fit_rows(hdim, rows, want):
+    """The rows of a streaming tile halve (down to 2) until its shared
+    memory fits a block; csrc/gru.cu's forward needs 2 R H floats."""
+    fwd = lambda hd, r: 2 * r * hd * 4
+    assert gru_kernel.fit_rows(rows, hdim, fwd) == want
+
+
+@pytest.mark.parametrize("hdim,want", [(1, "resident"), (128, "resident"),
+                                       (129, "stream"), (512, "stream")])
+def test_gru_route_is_counted_at_launch(hdim, want, monkeypatch):
+    """``route`` names the kernels a width runs; a launch's count (what a
+    wrapper records after its kernel) adds to ``{name}_stream`` only on
+    the streaming route."""
+    assert gru_kernel.route(hdim) == want
+    monkeypatch.setattr(gru_kernel, "LAUNCHES", dict.fromkeys(
+        gru_kernel.LAUNCHES, 0))
+    monkeypatch.setattr(gru_kernel, "SHAPE_LAUNCHES",
+                        {k: {} for k in gru_kernel.SHAPE_LAUNCHES})
+    monkeypatch.setattr(gru_kernel, "STREAM_LAUNCHES",
+                        {k: {} for k in gru_kernel.STREAM_LAUNCHES})
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+    for name in ("gru_forward", "gru_backward"):
+        gru_kernel._count(name, (2, 3, 4, hdim), "cuda:0")
+    stream = int(want == "stream")
+    assert gru_kernel.LAUNCHES == {
+        "gru_forward": 1, "gru_backward": 1,
+        "gru_forward_stream": stream, "gru_backward_stream": stream}
+
+
+def test_gru_range_checks_without_a_card():
+    """No upper bound on the hidden width in the wrapper: a width is held
+    only to shared memory (the chain's 4 R H floats), with a message that
+    names it."""
+    assert not hasattr(gru_kernel, "MAX_HIDDEN")
+    chain = lambda hd, r: 4 * r * hd * 4
+    assert chain(7264, gru_kernel.fit_rows(8, 7264, chain)) <= \
+        gru_kernel.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory at hidden 7265"):
+        gru_kernel._check_smem(chain(7265, 2), "backward", 7265)
+
+
+# ---------------------------------------------------------------------------
+# flash attention, head_dim outside 64/128/256
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 80, 320])
+def test_flash_head_dims_match_reference_kernel(d, dtype):
+    """Causal, window 24, softcap 20 (q, k, v scaled by 3, so the cap
+    bites), GQA 2:1, T=48: the port's plain version against the reference
+    kernel."""
+    rng = np.random.RandomState(d)
+    t, h, hkv = 48, 4, 2
+    arrs = [3.0 * rng.randn(n, t, d).astype(np.float32)
+            for n in (h, hkv, hkv)]
+    kw = dict(causal=True, sliding_window=24, softcap=20.0)
+    want = jfa_kernel.flash_attention_bhsd(
+        *(jnp.asarray(a).astype(JDT[dtype]) for a in arrs), interpret=True,
+        **kw)
+    got = fa_kernel.flash_attention_bhsd(
+        *(torch.from_numpy(a).to(TDT[dtype]) for a in arrs), **kw)
+    assert got.dtype == TDT[dtype] and tuple(got.shape) == (h, t, d)
+    _assert_close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                  FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "flash_fwd_sm90"),
+    (torch.bfloat16, 128, "flash_fwd_sm90"),
+    (torch.bfloat16, 256, "flash_fwd_sm90"),
+    (torch.bfloat16, 16, "flash_fwd_padded"),   # the reduced gemma2-9b
+    (torch.bfloat16, 96, "flash_fwd_padded"),
+    (torch.bfloat16, 512, "flash_fwd_padded"),
+    (torch.float32, 64, "flash_fwd"),
+    (torch.float32, 256, "flash_fwd"),
+    (torch.float32, 320, "flash_fwd_padded")])
+def test_flash_route(dtype, d, kernel):
+    """At 64, 128 or 256 bf16 stays on the tensor-core kernel and float32
+    on the FFMA kernel ``flash_fwd``; the other head_dims, in either
+    dtype, go to ``flash_fwd_padded``."""
+    assert fa_kernel.route(dtype, d) == kernel
+
+
+def test_flash_range_checks_without_a_card():
+    """1..512 is taken; the padded cases fit a block, the smallest tiles
+    at 512 included; above 512 the message names shared memory."""
+    for d in (1, 16, 63, 80, 192, 257, 320, 384, 511, 512):
+        fa_kernel.check_head_dim(d)
+        assert fa_kernel.ffma_smem_bytes(d) <= fa_kernel.MAX_SMEM_BYTES
+    assert fa_kernel.ffma_smem_bytes(256) == 4 * (2 * 64 * 260 + 64 * 256
+                                                  + 64 * 68)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa_kernel.check_head_dim(513)
+    with pytest.raises(ValueError, match=">= 1"):
+        fa_kernel.check_head_dim(0)
+
+
+# ---------------------------------------------------------------------------
+# SSD, chunk 256 and odd head_dim and state
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk256_p6_n6_matches_reference_kernel(dtype):
+    """The intra-chunk block at chunk 256, head_dim and state 6, two
+    chunks: the port's plain version against the reference kernel (bf16
+    y within 1e-2 scaled, as test_torch_ssm.py holds a bf16 block; the
+    float32 states and decay within 2e-4)."""
+    rng = np.random.RandomState(7)
+    b, t, h, p, n, chunk = 1, 512, 2, 6, 6, 256
+    x = rng.randn(b, t, h, p).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.randn(b, t, h))) * 0.1).astype(np.float32)
+    a = (-np.exp(rng.randn(h) * 0.3)).astype(np.float32)
+    bm = rng.randn(b, t, n).astype(np.float32)
+    c = rng.randn(b, t, n).astype(np.float32)
+    xw, la = x * dt[..., None], dt * a
+    want = jssd_kernel.ssd_intra_chunk(
+        jnp.asarray(xw).astype(JDT[dtype]), jnp.asarray(la),
+        jnp.asarray(bm).astype(JDT[dtype]), jnp.asarray(c).astype(JDT[dtype]),
+        chunk=chunk, interpret=True)
+    got = ssd_kernel.ssd_intra_chunk(
+        torch.from_numpy(xw).to(TDT[dtype]), torch.from_numpy(la),
+        torch.from_numpy(bm).to(TDT[dtype]), torch.from_numpy(c).to(
+            TDT[dtype]), chunk=chunk)
+    y_tol = SSD_TOL if dtype == "float32" else 1e-2
+    assert_close_scaled(got[0].float().numpy(),
+                        np.asarray(want[0].astype(jnp.float32)), y_tol)
+    for g, w in zip(got[1:], want[1:]):
+        assert_close_scaled(g.numpy(), np.asarray(w), SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype,p,n,chunk,kernel", [
+    (torch.bfloat16, 64, 128, 256, "ssd_chunk_tiled"),
+    (torch.float32, 6, 6, 256, "ssd_chunk_tiled"),
+    (torch.float32, 6, 6, 32, "ssd_chunk_tiled"),     # P, N not of 4
+    (torch.float32, 64, 64, 24, "ssd_chunk_tiled"),   # L not of 16
+    (torch.float32, 256, 256, 64, "ssd_chunk_tiled"),
+    (torch.float32, 128, 128, 128, "ssd_chunk_tiled"),  # 265 KB of tiles
+    (torch.float32, 64, 128, 128, "ssd_chunk"),       # 231,936 bytes
+    (torch.bfloat16, 64, 128, 128, "ssd_chunk_sm90")])
+def test_ssd_route_past_the_first_ranges(dtype, p, n, chunk, kernel):
+    """``ssd_chunk`` keeps the shapes whose whole-chunk tiles fit; every
+    other chunk, P and N goes to the tiled pair."""
+    assert ssd_kernel.route(dtype, p, n, chunk) == kernel
+
+
+def test_ssd_range_checks_without_a_card():
+    for t, p, n, chunk in ((512, 6, 6, 256), (96, 1, 1, 96), (7, 3, 5, 7)):
+        ssd_kernel.check_shape(t, p, n, chunk)
+    with pytest.raises(ValueError, match="divide T=512"):
+        ssd_kernel.check_shape(512, 6, 6, 96)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        ssd_kernel.check_shape(512, 0, 6, 256)
+    assert ssd_kernel.ffma_smem_bytes(128, 64, 128) == 231936

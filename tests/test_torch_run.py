@@ -13,9 +13,13 @@ imports JAX or the JAX package.
   and GS runs: ``final_gs_return`` within 1e-6, ``aip_ce_final`` within
   1e-5 (``tests/test_torch_dials.py``'s tolerances);
 * the CLI: ``--device cpu --fast --only table_lemma2`` writes its JSON
-  and the reference's lines; ``--shards 2``, ``--sharded-gs on`` and
-  ``--only roofline`` are refused, ``--device cuda`` raises without a
-  card;
+  and the reference's lines; an unknown bench is refused, ``--sharded-gs
+  on`` without ``--shards N > 1`` raises as ``DIALSTrainer.run`` does,
+  ``--device cuda`` raises without a card;
+* ``--shards 2`` with ``--sharded-gs on`` and ``off``: one
+  ``fig3_learning`` cell (warehouse, one round of F=1) on two spawned
+  gloo ranks, its rows under the same labels and keys as the one-process
+  run's;
 * ``torch_scaling.py``'s ``--shards 1,2`` rows on the CPU (two gloo
   ranks, narrow widths), which validate against ``SCALING_ROW_SCHEMA``,
   and its refusals of a bad ``--shards`` (``tests/test_torch_scaling.py``
@@ -31,6 +35,7 @@ import subprocess
 import sys
 
 import jax
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -159,17 +164,50 @@ def test_cli_writes_json_and_the_reference_lines(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--shards", "2"], "benchmarks/torch_scaling.py --shards"),
-    (["--sharded-gs", "on"], "benchmarks/torch_scaling.py --shards"),
     (["--only", "fig5"], "unknown bench"),
+    (["--sharded-gs", "on", "--only", "fig4_f_sweep"],
+     "requires the sharded runtime"),
+    (["--sharded-gs", "on", "--shards", "1", "--only", "fig4_f_sweep"],
+     "requires the sharded runtime"),
 ])
 def test_cli_refusals(argv, match, capsys):
-    with pytest.raises(SystemExit) as exc:
-        torch_run.main(["--device", "cpu", *argv])
-    assert exc.value.code == 2
-    assert match in capsys.readouterr().err
-    with pytest.raises(ValueError, match="one shard per process"):
-        torch_run.fig3_learning(shards=2, device="cpu")
+    """An unknown bench is an argument error; ``--sharded-gs on`` without
+    ``--shards N > 1`` raises from the first DIALS run, before any round,
+    as the reference's ``DIALSTrainer.run`` does."""
+    if "--sharded-gs" not in argv:
+        with pytest.raises(SystemExit) as exc:
+            torch_run.main(["--device", "cpu", *argv])
+        assert exc.value.code == 2
+        assert match in capsys.readouterr().err
+        return
+    with pytest.raises(ValueError, match=match):
+        torch_run.main(["--device", "cpu", "--fast", *argv])
+
+
+@pytest.fixture(scope="module")
+def fig3_one_process():
+    """warehouse's ``fig3_env_rows`` in this process, one round of F=1."""
+    return torch_run.fig3_env_rows("warehouse", shards=1, rounds=1, inner=1,
+                                   device="cpu")
+
+
+@pytest.mark.parametrize("sharded_gs", ["on", "off"])
+def test_fig3_env_rows_on_two_spawned_ranks(sharded_gs, fig3_one_process):
+    """``--shards 2 --sharded-gs on|off`` runs the DIALS cells on two gloo
+    ranks spawned by ``bootstrap.spawn_local`` (rank 0's records), the GS
+    collect region-decomposed (``on``: warehouse at side 2 splits into two
+    blocks) or replicated (``off``); the rows carry the labels and keys of
+    the one-process run, finite, and the GS row (run in this process) is
+    the same."""
+    one = fig3_one_process
+    two = torch_run.fig3_env_rows("warehouse", shards=2, rounds=1, inner=1,
+                                  sharded_gs=sharded_gs, device="cpu")
+    assert [r["label"] for r in two] == [r["label"] for r in one] == [
+        "DIALS-warehouse", "untrained-DIALS-warehouse", "GS-warehouse"]
+    assert [set(r) for r in two] == [set(r) for r in one]
+    assert all(np.isfinite(v) for r in two for k, v in r.items()
+               if k != "label")
+    assert two[2]["final_gs_return"] == one[2]["final_gs_return"]
 
 
 def test_cli_defaults_to_cuda(monkeypatch):
