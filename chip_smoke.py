@@ -27,10 +27,12 @@ It
      the recurrent policy's (100x16x4, 100x1x16 and 100x1x8 at hidden
      128) and at 1x16x64 and 1x128x256 at hidden 128, the backward twice
      for its bits,
-     times per launch and per step at each; the streaming GRU kernels
-     (hidden above 128: ``gru_fwd_stream``, ``gru_bwd_chain_stream``) the
+     times per launch and per step at each; the GRU above hidden 128 the
      same way at GRU_WIDE_SHAPES (100x7x128 at hidden 256, 16x16x64 at
-     512), each beside its bound and the plain version's time; GAE forward (bit for bit) and
+     512: the forward on the cluster kernel ``gru_fwd_cluster``, twice for
+     its bits, the backward on ``gru_bwd_chain_stream``) and at
+     GRU_STREAM_SHAPE (hidden 640: ``gru_fwd_stream`` too), each beside
+     its bound and the plain version's time; GAE forward (bit for bit) and
      backward (1e-6), each with its device time per launch
      (``torch.profiler``) beside its host-inclusive time per call; flash
      attention at gemma2-9b's prefill
@@ -38,14 +40,16 @@ It
      version in float32 on the same inputs (1e-3 + 8e-3 |plain|), with its
      achieved TFLOP/s and share of the bf16 bound beside compiled
      ``flex_attention``, and one float32 shape (2e-5, the FFMA kernel); the
-     FFMA kernel ``flash_fwd_padded`` (checked after the paths) at the
-     head_dims the tensor-core kernel does not take (FLASH_FFMA_CASES: 96 at
-     T=4,096, 16 at the reduced
-     gemma2-9b's layer, 512), float32 and bf16, each against the plain
+     kernels of the other head_dims (checked after the paths;
+     FLASH_FFMA_CASES: 96 at T=4,096, 16 at the reduced gemma2-9b's layer,
+     512; and FLASH_ODD_CASE, 36 in bf16): bf16 up to 256 on the
+     tensor-core route ``flash_fwd_sm90_padded``, float32 and bf16 at 512
+     on the FFMA kernel ``flash_fwd_padded``, each against the plain
      version in float32 (2e-5; 1e-3 + 8e-3 |plain|) with its time, bound,
-     plain time and one PyTorch call's: SDPA's for the causal case,
-     compiled ``flex_attention``'s with a window or softcap (null, with
-     the reason printed, where it does not compile); the
+     plain time and
+     SDPA's for the causal case (null with a window or softcap: compiled
+     ``flex_attention`` computes those, timed by
+     ``benchmarks/torch_tree_times.py --library``); the
      SSD intra-chunk block and the SSD op at mamba2-780m's layer width, in
      float32 (2e-4, the FFMA kernel ``ssd_chunk``) and bf16 (the
      tensor-core kernel ``ssd_chunk_sm90`` and, as its "before",
@@ -102,7 +106,7 @@ It
      kernel path against the plain path on a small input (one round,
      warehouse side=2); the same small warehouse with the recurrent
      policy's GRU at hidden 512 and the AIP's at 256 (WIDE_GRU_HIDDEN: the
-     streaming kernels, forward and backward, counted as the ``dials
+     cluster forward and the streaming backward, counted as the ``dials
      wide gru`` path), kernels against plain (AIP and policy params 1e-4)
      and every GRU and GAE kernel held to plain at each shape the round
      launched it; then the paper's experiment harness
@@ -140,7 +144,7 @@ It
      T=4096 prefill (whisper: 448 over 1,500 stub frames) with the flash
      kernel and without it, the last logits within LOGIT_TOL, each
      self-attention block launching once the kernel its head_dim routes to
-     (``flash_fwd_sm90``; ``flash_fwd_padded`` at 16) and nothing
+     (``flash_fwd_sm90``; ``flash_fwd_sm90_padded`` at 16) and nothing
      else launched, the MoE's dropped share and aux terms; then a greedy
      decode at B=4, finite; init, prefill and decode times, parameter
      counts and peak memory printed;
@@ -227,9 +231,12 @@ PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 GRU_TOL = 1e-5
 GAE_TOL = 1e-6
-# the streaming GRU kernels (hidden above 128): the paper's 100 agents at
-# the AIP training's T=7 over 128 rows at 256, and a policy-like 512
+# the GRU above hidden 128 (the forward on the cluster kernel, the
+# backward streaming W_h): the paper's 100 agents at the AIP training's
+# T=7 over 128 rows at 256, and a policy-like 512; and one small shape
+# above the cluster's widest hidden, where the forward streams W_h too
 GRU_WIDE_SHAPES = ((100, 7, 128, 256), (16, 16, 64, 512))
+GRU_STREAM_SHAPE = (2, 5, 8, 640)
 # flash: |err| <= atol + rtol*|plain|. float32: the reference's 2e-5. bf16
 # inputs: the plain version runs in float32 on the same inputs, so only the
 # kernel's bf16 output rounding (at most 2^-8 relative) and the order of
@@ -248,6 +255,9 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 FLASH_FFMA_CASES = ((1, 8, 2, 4096, 96, None, None),
                     (2, 4, 2, 4096, 16, 32, 50.0),
                     (1, 4, 2, 2048, 512, 1024, 50.0))
+# and one bf16 case of a head_dim that is no multiple of 8, whose rows the
+# tensor-core route first copies into rows padded to 8
+FLASH_ODD_CASE = (1, 8, 2, 2048, 36, 512, 50.0)
 # gemma2-9b last logits, flash against plain prefill, and the SSM layer's
 # output, kernel against plain, both bf16: within tol times max(1, largest
 # magnitude) (bf16 rounding flips at other places, carried through the
@@ -374,7 +384,7 @@ LM_FLASH_LAUNCHES = {"granite-moe-1b-a400m": 24, "zamba2-1.2b": 19,
                      "qwen1.5-32b": 8, "yi-34b": 8,
                      "llama-3.2-vision-90b": 4, "gemma2-9b-reduced": 2}
 # reduced configs served beside them: gemma2-9b's (2 layers, head_dim 16,
-# bf16), whose attention takes the FFMA kernel flash_fwd_padded
+# bf16), whose attention takes the padded tensor-core route
 LM_REDUCED = ("gemma2-9b",)
 LM_PROMPT = (2, 4096)
 WHISPER_TARGET = 448
@@ -710,60 +720,95 @@ def check_gru(gen, device, shapes):
 
 
 def check_gru_wide(gen, device):
-    """The streaming kernels (``gru_fwd_stream``, ``gru_bwd_chain_stream``,
-    hidden above 128) at GRU_WIDE_SHAPES, each held to the plain version
-    forward and backward (GRU_TOL), the backward twice for its bits, and
-    timed with CUDA events beside its bound and the plain version's time.
-    Returns their two kernel rows, timed at the first shape."""
+    """The GRU above hidden 128: at GRU_WIDE_SHAPES the forward on the
+    cluster kernel (``gru_fwd_cluster``, its plan and the clusters the card
+    holds at once printed) and the backward on ``gru_bwd_chain_stream``,
+    at GRU_STREAM_SHAPE (above the cluster's widest hidden) both
+    streaming; each held to the plain version forward and backward
+    (GRU_TOL), the backward twice for its bits and the cluster forward
+    twice, and timed with CUDA events beside its bound and the plain
+    version's time. Returns the kernel rows of the cluster forward and
+    the streaming backward, timed at the first wide shape, and of the
+    streaming forward at GRU_STREAM_SHAPE."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.gru import kernel as gk, ref as gref
-    fwd_err = bwd_err = 0.0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    max_active = build.extension().gru_forward_cluster_max_active
+    errs = {"cluster": 0.0, "stream": 0.0, "bwd": 0.0}
     timed = {}
-    for a, t, b, hdim in GRU_WIDE_SHAPES:
+    for a, t, b, hdim in GRU_WIDE_SHAPES + (GRU_STREAM_SHAPE,):
+        kind = gk.forward_route((a, t, b, hdim), sms, max_active)
+        want = "stream" if (a, t, b, hdim) == GRU_STREAM_SHAPE else "cluster"
+        check(kind == want and gk.route(hdim, "backward") == "stream",
+              f"gru {a}x{t}x{b}x{hdim}: forward route {kind}, want {want}")
         fe, be, ins, g = gru_case(gen, device, a, t, b, hdim)
-        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+        errs[kind], errs["bwd"] = max(errs[kind], fe), max(errs["bwd"], be)
         hs = gk.forward(*ins)
+        plan = ""
+        if kind == "cluster":
+            ctas, rows = gk.cluster_plan(hdim, b, a, sms)
+            active = max_active(hdim, ctas, rows)
+            check(active >= 1, f"gru_fwd_cluster {ctas} CTAs x {rows} rows "
+                               f"at hidden {hdim}: the card holds {active}")
+            check(torch.equal(hs, gk.forward(*ins)),
+                  f"gru_fwd_cluster {a}x{t}x{b}x{hdim}: two calls differ in "
+                  f"their bits")
+            plan = (f" [cluster of {ctas} CTAs x {rows} rows, "
+                    f"{gk.cluster_smem_bytes(hdim, rows)} B of shared memory "
+                    f"a CTA, {active} clusters at once; bitwise repeatable]")
         leaves = [x.clone().requires_grad_() for x in ins[:4]]
         hs_p = gref.gru_scan(*leaves, ins[4])
         fb, bb = gru_bounds(a, t, b, hdim)
-        timed[(a, t, b, hdim)] = dict(
+        wide = (a, t, b, hdim) != GRU_STREAM_SHAPE
+        timed[(a, t, b, hdim)] = x = dict(
             ms=cuda_ms(lambda: gk.forward(*ins), 10),
-            bwd_ms=cuda_ms(lambda: gk.backward(*ins, hs, g), 10),
+            bwd_ms=cuda_ms(lambda: gk.backward(*ins, hs, g), 10)
+            if wide else None,
             plain_ms=cuda_ms(lambda: gref.gru_scan(*ins), 3),
             plain_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
-                hs_p, leaves, g, retain_graph=True), 3),
+                hs_p, leaves, g, retain_graph=True), 3) if wide else None,
             bound=fb, bwd_bound=bb)
-        x = timed[(a, t, b, hdim)]
-        print(f"gru (streaming W_h) {a}x{t}x{b}x{hdim}: forward "
-              f"{x['ms']:.4f} ms (bound {fb[0]:.5f} ms by {fb[1]}, "
-              f"{fb[0] / x['ms']:.4f} of it; plain {x['plain_ms']:.4f} ms); "
-              f"backward {x['bwd_ms']:.4f} ms (bound {bb[0]:.5f} ms, "
-              f"{bb[0] / x['bwd_ms']:.4f} of it; plain "
-              f"{x['plain_bwd_ms']:.4f} ms)", flush=True)
+        line = (f"gru {a}x{t}x{b}x{hdim}: forward ({kind}) {x['ms']:.4f} ms "
+                f"(bound {fb[0]:.5f} ms by {fb[1]}, {fb[0] / x['ms']:.4f} "
+                f"of it; plain {x['plain_ms']:.4f} ms){plan}")
+        if wide:
+            line += (f"; backward (stream) {x['bwd_ms']:.4f} ms (bound "
+                     f"{bb[0]:.5f} ms, {bb[0] / x['bwd_ms']:.4f} of it; "
+                     f"plain {x['plain_bwd_ms']:.4f} ms)")
+        print(line, flush=True)
         del hs, hs_p, leaves
         torch.cuda.empty_cache()
+    wide = {k: v for k, v in timed.items() if k != GRU_STREAM_SHAPE}
     key = GRU_WIDE_SHAPES[0]
     by_shape = lambda f: {"x".join(map(str, k)): f(v)
-                          for k, v in timed.items()}
+                          for k, v in wide.items()}
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/gru.cu",
-                  shape="x".join(map(str, key)), library_ms=None)
-    first = timed[key]
+                  library_ms=None)
+    first, small = timed[key], timed[GRU_STREAM_SHAPE]
     return [
-        dict(name="gru_forward_stream",
+        dict(name="gru_forward_cluster",
              replaces="src/repro/kernels/gru/kernel.py:64",
-             max_abs_err=fwd_err, ms=first["ms"],
+             max_abs_err=errs["cluster"], ms=first["ms"],
              plain_ms=first["plain_ms"], bound=first["bound"],
+             shape="x".join(map(str, key)),
              ms_by_shape=by_shape(lambda v: v["ms"]),
              bound_ms_by_shape=by_shape(lambda v: v["bound"][0]),
              plain_ms_by_shape=by_shape(lambda v: v["plain_ms"]), **common),
         dict(name="gru_backward_stream",
              replaces="src/repro/kernels/gru/kernel.py:132",
-             max_abs_err=bwd_err, ms=first["bwd_ms"],
+             max_abs_err=errs["bwd"], ms=first["bwd_ms"],
              plain_ms=first["plain_bwd_ms"], bound=first["bwd_bound"],
+             shape="x".join(map(str, key)),
              ms_by_shape=by_shape(lambda v: v["bwd_ms"]),
              bound_ms_by_shape=by_shape(lambda v: v["bwd_bound"][0]),
              plain_ms_by_shape=by_shape(lambda v: v["plain_bwd_ms"]),
              **common),
+        dict(name="gru_forward_stream",
+             replaces="src/repro/kernels/gru/kernel.py:64",
+             max_abs_err=errs["stream"], ms=small["ms"],
+             plain_ms=small["plain_ms"], bound=small["bound"],
+             shape="x".join(map(str, GRU_STREAM_SHAPE)), **common),
     ]
 
 
@@ -1022,83 +1067,98 @@ def check_flash_at_lm_shapes(gen, device):
 
 
 def check_flash_ffma(gen, device):
-    """The FFMA kernel ``flash_fwd_padded`` at the head_dims the
-    tensor-core kernel does not take (FLASH_FFMA_CASES: 16, the reduced configs'; 96;
-    512, the widest), in float32 and bf16, against the plain version in
-    float32 on the same inputs (FLASH_TOL; bf16 q scaled by
-    FLASH_Q_SCALE), each timed with CUDA events beside its bound (the true
+    """Flash attention at the head_dims outside 64/128/256
+    (FLASH_FFMA_CASES: 96 at T=4,096; 16, the reduced configs'; 512, the
+    widest; and FLASH_ODD_CASE in bf16): bf16 up to 256 on the tensor-core
+    route ``flash_fwd_sm90_padded``, float32 and bf16 at 512 on the FFMA
+    kernel ``flash_fwd_padded``, as ``route`` names them, each against the
+    plain version in float32 on the same inputs (FLASH_TOL; bf16 q scaled
+    by FLASH_Q_SCALE), timed with CUDA events beside its bound (the true
     head_dim's FLOPs over the peak of the inputs' type) and the plain
-    version; beside each, one PyTorch call for the same function:
-    ``scaled_dot_product_attention`` for the causal case, compiled
-    ``flex_attention`` (``flash_library_ms``) where a window or a softcap
-    is set, or null with the reason where it does not run. Returns the
-    kernel row, timed at the first case in bf16."""
+    version; beside each, ``scaled_dot_product_attention`` for the causal
+    case, and null where a window or softcap is set (compiled
+    ``flex_attention`` computes those:
+    ``benchmarks/torch_tree_times.py --library`` times it). Returns the
+    two kernel rows, each timed at its first case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
-    worst, timed = 0.0, {}
-    for (b, h, hkv, t, d, window, cap) in FLASH_FFMA_CASES:
+    cases = [(c, dt) for c in FLASH_FFMA_CASES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append((FLASH_ODD_CASE, torch.bfloat16))
+    by_kernel = {"flash_fwd_sm90_padded": {}, "flash_fwd_padded": {}}
+    for (b, h, hkv, t, d, window, cap), dtype in cases:
         kw = dict(causal=True, sliding_window=window, softcap=cap)
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).replace("torch.", "")
-            rnd = lambda n: torch.randn(b * n, t, d, generator=gen,
-                                        device=device)
-            q, k, v = rnd(h), rnd(hkv), rnd(hkv)
-            if dtype == torch.bfloat16:
-                q = q * FLASH_Q_SCALE
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            check(fk.route(dtype, d) == "flash_fwd_padded",
-                  f"flash {name} D={d} does not route to flash_fwd_padded")
-            got = launched(fk.LAUNCHES, "flash_fwd_padded",
-                           lambda: fk.forward(q, k, v, **kw))
-            want = torch.cat([fr.attention_bhsd(
-                q[i * h:(i + 1) * h].float(),
-                k[i * hkv:(i + 1) * hkv].float(),
-                v[i * hkv:(i + 1) * hkv].float(), **kw) for i in range(b)])
-            label = f"flash_fwd_padded {name} {b}x{h}/{hkv}x{t}xD{d}"
-            err = allclose_rel(label, got, want, *FLASH_TOL[name])
-            worst = max(worst, err)
-            del got, want
-            torch.cuda.empty_cache()
-            ms = cuda_ms(lambda: fk.forward(q, k, v, **kw), 5)
-            plain_ms = cuda_ms(lambda: torch.cat([fr.attention_bhsd(
-                q[i * h:(i + 1) * h], k[i * hkv:(i + 1) * hkv],
-                v[i * hkv:(i + 1) * hkv], **kw) for i in range(b)]), 2)
-            if window is None and cap is None:
-                qb, kb, vb = (x.view(b, -1, t, d) for x in (q, k, v))
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qb, kb, vb, is_causal=True, enable_gqa=True), 5)
-                lib_name = "scaled_dot_product_attention (causal, GQA)"
-            else:
-                lib_ms, lib_name = flash_library_ms(q, k, v, b, [kw])
-            flop = 4.0 * d * b * h * live_pairs(t, window)
-            nbytes = q.element_size() * (2 * b * h * t * d
-                                         + 2 * b * hkv * t * d)
-            bound = bound_ms(nbytes, flop, PEAK_BF16_PER_S
-                             if dtype == torch.bfloat16 else PEAK_FP32_PER_S)
-            timed[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                library=lib_name, bound_ms=bound[0],
-                                bound_by=bound[1], max_abs_err=err,
-                                bound=bound)
-            print(f"{label} (window {window}, softcap {cap}): {ms:.4f} ms, "
-                  f"{flop / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.4f} of "
-                  f"the bound {bound[0]:.5f} ms by {bound[1]}; plain "
-                  f"{plain_ms:.4f} ms; {lib_name}: "
-                  + (f"{lib_ms:.4f} ms" if lib_ms is not None else
-                     "not measured")
-                  + f"; max abs err {err:.3e}", flush=True)
-            del q, k, v
-            torch.cuda.empty_cache()
-    first = next(iter(timed))
-    row = timed[first]
-    return dict(name="flash_fwd_padded", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:95",
-                max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
-                bound=row["bound"], library_ms=row["library_ms"],
-                library=row["library"], shape=first,
-                by_shape={k: {n: x for n, x in v.items() if n != "bound"}
-                          for k, v in timed.items()})
+        name = str(dtype).replace("torch.", "")
+        rnd = lambda n: torch.randn(b * n, t, d, generator=gen,
+                                    device=device)
+        q, k, v = rnd(h), rnd(hkv), rnd(hkv)
+        if dtype == torch.bfloat16:
+            q = q * FLASH_Q_SCALE
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        kernel = fk.route(dtype, d)
+        want_kernel = ("flash_fwd_sm90_padded" if dtype == torch.bfloat16
+                       and d <= 256 else "flash_fwd_padded")
+        check(kernel == want_kernel,
+              f"flash {name} D={d} routes to {kernel}, not {want_kernel}")
+        got = launched(fk.LAUNCHES, kernel,
+                       lambda: fk.forward(q, k, v, **kw))
+        want = torch.cat([fr.attention_bhsd(
+            q[i * h:(i + 1) * h].float(),
+            k[i * hkv:(i + 1) * hkv].float(),
+            v[i * hkv:(i + 1) * hkv].float(), **kw) for i in range(b)])
+        label = f"{kernel} {name} {b}x{h}/{hkv}x{t}xD{d}"
+        err = allclose_rel(label, got, want, *FLASH_TOL[name])
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fk.forward(q, k, v, **kw), 5)
+        plain_ms = cuda_ms(lambda: torch.cat([fr.attention_bhsd(
+            q[i * h:(i + 1) * h], k[i * hkv:(i + 1) * hkv],
+            v[i * hkv:(i + 1) * hkv], **kw) for i in range(b)]), 2)
+        if window is None and cap is None:
+            qb, kb, vb = (x.view(b, -1, t, d) for x in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, is_causal=True, enable_gqa=True), 5)
+            lib_name = "scaled_dot_product_attention (causal, GQA)"
+        else:
+            lib_ms, lib_name = None, (
+                "compiled flex_attention computes it; timed by "
+                "benchmarks/torch_tree_times.py --library")
+        flop = 4.0 * d * b * h * live_pairs(t, window)
+        nbytes = q.element_size() * (2 * b * h * t * d
+                                     + 2 * b * hkv * t * d)
+        bound = bound_ms(nbytes, flop, PEAK_BF16_PER_S
+                         if dtype == torch.bfloat16 else PEAK_FP32_PER_S)
+        by_kernel[kernel][label] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
+            bound_ms=bound[0], bound_by=bound[1], max_abs_err=err,
+            bound=bound)
+        print(f"{label} (window {window}, softcap {cap}): {ms:.4f} ms, "
+              f"{flop / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.4f} of "
+              f"the bound {bound[0]:.5f} ms by {bound[1]}; plain "
+              f"{plain_ms:.4f} ms; {lib_name}"
+              + (f": {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + f"; max abs err {err:.3e}", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    sources = {"flash_fwd_sm90_padded":
+               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+               "flash_fwd_padded":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+    rows = []
+    for kernel, timed in by_kernel.items():
+        first = next(iter(timed))
+        row = timed[first]
+        rows.append(dict(
+            name=kernel, route="cuda", source=sources[kernel],
+            replaces="src/repro/kernels/flash_attention/kernel.py:95",
+            max_abs_err=max(x["max_abs_err"] for x in timed.values()),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound=row["bound"],
+            library_ms=row["library_ms"], library=row["library"],
+            shape=first,
+            by_shape={k: {n: x for n, x in v.items() if n != "bound"}
+                      for k, v in timed.items()}))
+    return rows
 
 
 def flash_library_ms(q, k, v, b, cases):
@@ -1146,9 +1206,11 @@ def kernel_resources():
     """Registers, stack and local memory (``cuobjdump -res-usage``) of
     each flash and GRU kernel in the built library, dynamic shared memory,
     and HGMMA instructions (``cuobjdump -sass``) of each flash kernel.
-    Fails unless every instantiation of the bf16 flash kernel issues HGMMA,
-    and if a GRU kernel that keeps W_h in registers spills to local
-    memory (a stack frame or local bytes)."""
+    Fails unless every instantiation of the bf16 flash kernels
+    (``flash_fwd_sm90`` at 64/128/256, ``flash_fwd_sm90_padded`` at
+    64/128/192/256) issues HGMMA, and if a GRU kernel that keeps W_h in
+    registers, or the cluster forward, spills to local memory (a stack
+    frame or local bytes)."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -1160,15 +1222,18 @@ def kernel_resources():
                                       check=True).stdout
     with ThreadPoolExecutor(2) as pool:   # the two dumps side by side
         res_usage, sass = pool.map(run, ("-res-usage", "-sass"))
-    # flash_fwd_sm90<D> and flash_fwd<DC, RQ, CK, T, PADDED> (D = 64 DC):
-    # the route flash_fwd without PADDED, flash_fwd_padded with it
-    flash = re.compile(r"(flash_fwd_sm90)ILi(\d+)EE|"
+    # flash_fwd_sm90<D>, flash_fwd_sm90_padded<DP> and flash_fwd<DC, RQ,
+    # CK, T, PADDED> (D = 64 DC): the route flash_fwd without PADDED,
+    # flash_fwd_padded with it; and the padded route's row copy
+    flash = re.compile(r"(flash_fwd_sm90(?:_padded)?)ILi(\d+)EE|"
                        r"flash_fwdILi(\d+)ELi(\d+)ELi\d+E"
-                       r"(f|13__nv_bfloat16)Lb([01])E")
+                       r"(f|13__nv_bfloat16)Lb([01])E|(flash_pad_rows)E")
 
     def flash_key(m):
+        if m.group(7):
+            return ("flash_pad_rows", 0, "bf16", "")
         if m.group(1):
-            return ("flash_fwd_sm90", int(m.group(2)), "bf16", "")
+            return (m.group(1), int(m.group(2)), "bf16", "")
         if m.group(6) == "0":
             return ("flash_fwd", 64 * int(m.group(3)), "f32", "")
         return ("flash_fwd_padded", 64 * int(m.group(3)),
@@ -1194,7 +1259,7 @@ def kernel_resources():
     for key, use in sorted(usage.items()):
         name, d, dtype, tiles = key
         smem = ext.flash_attention_sm90_smem_bytes(d) \
-            if name == "flash_fwd_sm90" else None
+            if name.startswith("flash_fwd_sm90") else None
         print(f"resources {name} D={d} {dtype}{' ' + tiles if tiles else ''}"
               f": REG {use.get('REG')} (at entry), "
               f"STACK {use.get('STACK')}, LOCAL {use.get('LOCAL')}, static "
@@ -1207,13 +1272,26 @@ def kernel_resources():
         check(hgmma.get(key, 0) > 0,
               f"flash_fwd_sm90 D={d} issues no HGMMA: not on the tensor "
               f"cores")
+    for d in (64, 128, 192, 256):
+        key = ("flash_fwd_sm90_padded", d, "bf16", "")
+        check(key in usage, f"flash_fwd_sm90_padded DP={d} not found in "
+                            f"{lib}")
+        check(hgmma.get(key, 0) > 0,
+              f"flash_fwd_sm90_padded DP={d} issues no HGMMA: not on the "
+              f"tensor cores")
+    check(("flash_pad_rows", 0, "bf16", "") in usage,
+          f"flash_pad_rows not found in {lib}")
     for d in (64, 128, 256):
         check(("flash_fwd", d, "f32", "") in usage,
               f"flash_fwd D={d} not found in {lib}")
     for d in (64, 128, 192, 256, 384, 512):
         for dtype in ("f32", "bf16"):
-            check(any(k[:3] == ("flash_fwd_padded", d, dtype) for k in usage),
-                  f"flash_fwd_padded D={d} {dtype} not found in {lib}")
+            # bf16 up to 256 runs on flash_fwd_sm90_padded, and only there
+            built = any(k[:3] == ("flash_fwd_padded", d, dtype)
+                        for k in usage)
+            check(built == (dtype == "f32" or d > 256),
+                  f"flash_fwd_padded D={d} {dtype} "
+                  f"{'not found' if not built else 'built'} in {lib}")
     ssd_resources(res_usage, sass, ext)
     gru_resources(res_usage, ext)
 
@@ -1262,8 +1340,8 @@ def gru_resources(res_usage: str, ext):
     recur = re.compile(r"(gru_fwd|gru_bwd_chain)ILi(\d+)ELi(\d+)ELi(\d+)"
                        r"ELi(\d+)ELb([01])E")
     plain = re.compile(r"(gru_bwd_weights_sum|gru_bwd_weights|"
-                       r"gru_bwd_gates)E|(gru_fwd_stream|gru_bwd_chain_stream)"
-                       r"ILi(\d+)E")
+                       r"gru_bwd_gates)E|(gru_fwd_stream|gru_bwd_chain_stream"
+                       r"|gru_fwd_cluster)ILi(\d+)E")
     found, fn = [], None
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
@@ -1271,17 +1349,40 @@ def gru_resources(res_usage: str, ext):
             fn = recur.search(m.group(1)) or plain.search(m.group(1))
         elif fn and "REG:" in line:
             groups = fn.groups()
-            if fn.re is plain:     # (name,) or (name, rows)
+            if fn.re is plain:     # (name,), (name, rows) or (name, lanes)
                 groups = ((groups[0],) if groups[0] else
-                          (f"{groups[1]} rows {groups[2]}",))
+                          (f"{groups[1]} "
+                           f"{'lanes' if 'cluster' in groups[1] else 'rows'}"
+                           f" {groups[2]}",))
             found.append((groups, dict(re.findall(r"(\w+):(\d+)",
                                                   line))))
             fn = None
     check(any(g[0] == "gru_fwd" and g[5] == "1" for g, _ in found) and
           any(g[0] == "gru_bwd_chain" and g[5] == "1" for g, _ in found),
           "the GRU kernels with W_h in registers are not in the library")
+    from repro_torch.kernels.gru import kernel as gk
+    cluster = {}    # lanes -> the widest plan of the cluster forward at them
+    for hdim in (gk.CLUSTER_HIDDEN, 256):
+        for batch in gk.CLUSTER_ROWS:
+            ctas, rows = gk.cluster_plan(hdim, batch)
+            cluster.setdefault(gk.cluster_ks(rows), (hdim, ctas, rows))
+    lanes = sorted(int(g[0].split()[-1]) for g, _ in found
+                   if g[0].startswith("gru_fwd_cluster"))
+    check(lanes == [4, 8, 16, 32], f"gru_fwd_cluster instantiations for "
+                                   f"lanes {lanes}, want [4, 8, 16, 32]")
     for groups, use in sorted(found):
         name = groups[0]
+        if name.startswith("gru_fwd_cluster"):
+            hdim, ctas, rows = cluster[int(name.split()[-1])]
+            smem = ext.gru_forward_cluster_smem_bytes(hdim, ctas, rows)
+            print(f"resources {name}: REG {use.get('REG')}, STACK "
+                  f"{use.get('STACK')}, LOCAL {use.get('LOCAL')}, dynamic "
+                  f"shared {smem} bytes at H={hdim}, {ctas} CTAs x {rows} "
+                  f"rows", flush=True)
+            check(use.get("STACK") == "0" and use.get("LOCAL") == "0",
+                  f"{name} spills to local memory: STACK "
+                  f"{use.get('STACK')}, LOCAL {use.get('LOCAL')}")
+            continue
         if len(groups) == 1:
             print(f"resources {name}: REG {use.get('REG')}, STACK "
                   f"{use.get('STACK')}, LOCAL {use.get('LOCAL')}",
@@ -3317,15 +3418,15 @@ def serve_arch(arch, device, smi, reduced=False):
 def run_lm_archs_path(device, smi):
     """The registry's other eight architectures (LM_ARCHS), then the
     reduced configs of LM_REDUCED (gemma2-9b's: head_dim 16, which
-    routes to the FFMA kernel ``flash_fwd_padded``), served on the card, each in
+    routes to ``flash_fwd_sm90_padded``), served on the card, each in
     turn and freed before the next: the prefill step with
     the flash kernel and without it, each timed after an untimed call
     (their last-position logits within
     LOGIT_TOL times max(1, max |logit|); the plain run replays the flash
     run's MoE routes, see ``RouteLog``), each self-attention block
     launching once the kernel its dtype and head_dim route to
-    (``flash_fwd_sm90``, or ``flash_fwd_padded`` for the reduced gemma2-9b;
-    LM_FLASH_LAUNCHES) and nothing else launched (no SSD kernel on any
+    (``flash_fwd_sm90``, or ``flash_fwd_sm90_padded`` for the reduced
+    gemma2-9b; LM_FLASH_LAUNCHES) and nothing else launched (no SSD kernel on any
     model path), then a greedy decode
     through ``make_serve_step`` (finite logits of the right shape).
     Returns the launch counts of the flash prefills."""
@@ -3647,18 +3748,20 @@ def check_small_against_plain(device):
 def run_wide_gru_path(device):
     """Warehouse side=2 (4 agents) at narrow widths but with the
     recurrent policy's GRU at WIDE_GRU_HIDDEN[0] and the AIP's at
-    WIDE_GRU_HIDDEN[1], both above 128 (the streaming kernels), one round
-    of F=2 through the kernels (counted: every GRU launch at those
-    widths, forward and backward), then the same round through the plain
+    WIDE_GRU_HIDDEN[1], both above 128 (the forward on the cluster
+    kernel, the backward streaming), one round of F=2 through the
+    kernels (counted: every GRU launch at those widths, forward and
+    backward, each on its route), then the same round through the plain
     versions from the same key: the AIP's and the policy's params within
     1e-4 and the AIP's CE within 1e-5, as the small-input check compares
     the AIP's. Every GRU and GAE kernel is then held to its plain version
     at each shape the round launched it (``check_at_launched_shapes``:
-    among them the streaming kernels' partial tiles, B < the tile's
-    rows). Returns (counts, counts by shape, {kernel row: errors}), the
-    GRU's under its streaming rows."""
+    among them partial tiles, B < the tile's rows). Returns (counts,
+    counts by shape, {kernel row: errors}), the GRU's under the rows of
+    its routes."""
     import torch
     from repro_torch import random as R
+    from repro_torch.kernels import build
     from repro_torch.kernels.gru import kernel as gk
     from repro_torch.tree import leaves
     out = {}
@@ -3676,14 +3779,26 @@ def run_wide_gru_path(device):
             state, hist = trainer.run(key)
             torch.cuda.synchronize()
         out[mode] = (state, hist[0])
-    for name in ("gru_forward", "gru_backward"):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    max_active = build.extension().gru_forward_cluster_max_active
+    routes = {"gru_forward": lambda shape: gk.forward_route(shape, sms,
+                                                            max_active),
+              "gru_backward": lambda shape: gk.route(shape[-1], "backward")}
+    for name, route_of in routes.items():
         widths = {int(k.split("x")[-1]) for k in by_shape[name]}
         check(widths == set(WIDE_GRU_HIDDEN),
               f"wide gru path: {name} launched at hidden {sorted(widths)}, "
               f"not at {WIDE_GRU_HIDDEN}")
-        check(counts[f"{name}_stream"] == counts[name],
-              f"wide gru path: {counts[name]} {name} launches, "
-              f"{counts[f'{name}_stream']} of them streaming")
+        want = {}
+        for k, n in by_shape[name].items():
+            kind = route_of(tuple(int(x) for x in k.split("x")))
+            want[kind] = want.get(kind, 0) + n
+        got = {kind: counts[f"{name}_{kind}"] for kind in want}
+        check(got == want and want.get("resident", 0) == 0,
+              f"wide gru path: {name} launches by route {got}, the shapes "
+              f"route {want}")
+    check(counts["gru_forward_cluster"] > 0,
+          "wide gru path: no launch of the cluster forward")
     (s_on, h_on), (s_off, h_off) = out["on"], out["off"]
     diff = lambda a, b: max(max_err(x, y)
                             for x, y in zip(leaves(a), leaves(b)))
@@ -3699,8 +3814,9 @@ def run_wide_gru_path(device):
     check(aip_err <= 1e-4 and policy_err <= 1e-4 and ce_err <= 1e-5,
           "wide gru path: kernel path and plain path disagree")
     errs = check_at_launched_shapes(device, by_shape, "the wide gru path")
-    errs = {f"{n}_stream" if n.startswith("gru") else n: e
-            for n, e in errs.items()}
+    rows_of = {"gru_forward": "gru_forward_cluster",
+               "gru_backward": "gru_backward_stream"}
+    errs = {rows_of.get(n, n): e for n, e in errs.items()}
     return counts, by_shape, errs
 
 
@@ -4664,11 +4780,9 @@ def main(argv=None) -> int:
                         r["max_abs_err"],
                         scaling_errs[r["name"]]["max_abs_err"])
         if "flash kernel vs plain" in run:
-            # after the paths: its yardsticks compile flex_attention four
-            # times, and the one run that compiled them before the SSD
-            # phase saw torch.profiler miss 3 of that phase's 22 markers
-            rows.append(phase("flash ffma kernel vs plain at other head_dims",
-                              check_flash_ffma, gen, device))
+            # the flash kernels at the other head_dims, after the paths
+            rows += phase("flash kernels vs plain at other head_dims",
+                          check_flash_ffma, gen, device)
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
@@ -4682,8 +4796,8 @@ def main(argv=None) -> int:
         if run == set(PHASES):
             for name in ("gru_forward", "gru_backward", "gae_forward",
                          "flash_attention", "ssd_intra_chunk",
-                         "gru_forward_stream", "gru_backward_stream",
-                         "flash_fwd_padded", "ssd_chunk_tiled"):
+                         "gru_forward_cluster", "gru_backward_stream",
+                         "flash_fwd_sm90_padded", "ssd_chunk_tiled"):
                 check(counts[name] > 0, f"its path never launched {name}")
         print(f"phases on {smi}: "
               f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}; "

@@ -20,6 +20,13 @@ cudaError_t launch_gru_forward(const float* gi, const float* wh,
                                const float* bh, const float* h0,
                                const float* resets, float* hs, int A, int T,
                                int B, int H, int rows, cudaStream_t stream);
+size_t gru_forward_cluster_smem_bytes(int H, int ctas, int rows);
+int gru_forward_cluster_max_active(int H, int ctas, int rows);
+cudaError_t launch_gru_forward_cluster(const float* gi, const float* wh,
+                                       const float* bh, const float* h0,
+                                       const float* resets, float* hs, int A,
+                                       int T, int B, int H, int ctas,
+                                       int rows, cudaStream_t stream);
 cudaError_t launch_gru_backward(const float* gi, const float* wh,
                                 const float* bh, const float* h0,
                                 const float* resets, const float* hs,
@@ -45,6 +52,10 @@ cudaError_t launch_flash_attention_sm90(const void* q, const void* k,
                                         int causal, int window, float softcap,
                                         float scale, cudaStream_t stream);
 size_t flash_attention_sm90_smem_bytes(int D);
+cudaError_t launch_flash_attention_sm90_padded(
+    const void* q, const void* k, const void* v, void* o, void* qp, void* kp,
+    void* vp, int BH, int BHkv, int Tq, int Tk, int d, int causal,
+    int window, float softcap, float scale, cudaStream_t stream);
 size_t ssd_smem_bytes(int L, int P, int N);
 cudaError_t launch_ssd_chunk(const void* xw, const float* la, const void* b,
                              const void* c, void* y, float* st, float* cd,
@@ -105,6 +116,19 @@ void gru_forward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
       in(gi, "gi"), in(wh, "wh"), in(bh, "bh"), in(h0, "h0"),
       in(resets, "resets"), out(hs, "hs"), A, T, B, H, (int)rows,
       c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// 128 < H <= 512: the cluster kernel at the wrapper's plan
+void gru_forward_cluster(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
+                         torch::Tensor h0, torch::Tensor resets,
+                         torch::Tensor hs, int64_t ctas, int64_t rows) {
+  const c10::cuda::CUDAGuard guard(gi.device());
+  const int A = gi.size(0), T = gi.size(1), B = gi.size(2), H = wh.size(1);
+  C10_CUDA_CHECK(launch_gru_forward_cluster(
+      in(gi, "gi"), in(wh, "wh"), in(bh, "bh"), in(h0, "h0"),
+      in(resets, "resets"), out(hs, "hs"), A, T, B, H, (int)ctas,
+      (int)rows, c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -177,6 +201,38 @@ void flash_attention_sm90(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// bf16 only, head_dim 1..256 outside 64/128/256: the tensor-core kernel
+// at the head_dim padded to 64 (flash_attention_sm90.cu); qp, kp, vp are
+// the rows padded to 8 where the head_dim is no multiple of 8 (else empty)
+void flash_attention_sm90_padded(torch::Tensor q, torch::Tensor k,
+                                 torch::Tensor v, torch::Tensor o,
+                                 torch::Tensor qp, torch::Tensor kp,
+                                 torch::Tensor vp, bool causal,
+                                 int64_t window, double softcap,
+                                 double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(half_or_float({q, k, v, o}, {"q", "k", "v", "out"}),
+              "q must be bfloat16");
+  if (q.size(2) % 8) {
+    TORCH_CHECK(half_or_float({qp, kp, vp}, {"qp", "kp", "vp"}),
+                "qp must be bfloat16");
+    const int64_t d8 = (q.size(2) + 7) / 8 * 8;
+    TORCH_CHECK(qp.sizes() == c10::IntArrayRef({q.size(0), q.size(1), d8}) &&
+                    kp.sizes() ==
+                        c10::IntArrayRef({k.size(0), k.size(1), d8}) &&
+                    vp.sizes() ==
+                        c10::IntArrayRef({v.size(0), v.size(1), d8}),
+                "qp, kp, vp must be q, k, v with rows of the head_dim "
+                "rounded up to 8");
+  }
+  C10_CUDA_CHECK(launch_flash_attention_sm90_padded(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), qp.data_ptr(),
+      kp.data_ptr(), vp.data_ptr(), q.size(0), k.size(0), q.size(1),
+      k.size(1), q.size(2), causal ? 1 : 0, (int)window, (float)softcap,
+      (float)scale, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void ssd_intra_chunk(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
                      torch::Tensor c, torch::Tensor y, torch::Tensor st,
                      torch::Tensor cd, int64_t chunk, int64_t heads_per_block) {
@@ -227,12 +283,16 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gru_backward_smem_bytes", &gru_backward_smem_bytes);
   m.def("gru_backward_part_floats", &gru_backward_part_floats);
   m.def("gru_forward", &gru_forward);
+  m.def("gru_forward_cluster_smem_bytes", &gru_forward_cluster_smem_bytes);
+  m.def("gru_forward_cluster_max_active", &gru_forward_cluster_max_active);
+  m.def("gru_forward_cluster", &gru_forward_cluster);
   m.def("gru_backward", &gru_backward);
   m.def("gae_forward", &gae_forward);
   m.def("gae_backward", &gae_backward);
   m.def("flash_attention", &flash_attention);
   m.def("flash_attention_sm90", &flash_attention_sm90);
   m.def("flash_attention_sm90_smem_bytes", &flash_attention_sm90_smem_bytes);
+  m.def("flash_attention_sm90_padded", &flash_attention_sm90_padded);
   m.def("ssd_smem_bytes", &ssd_smem_bytes);
   m.def("ssd_intra_chunk", &ssd_intra_chunk);
   m.def("ssd_tiled_smem_bytes", &ssd_tiled_smem_bytes);

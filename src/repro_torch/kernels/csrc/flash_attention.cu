@@ -36,19 +36,21 @@
 // half-warp with shuffles. Causal q tiles are launched longest first.
 //
 // Other head dims (flash_fwd_padded): the same template with PADDED set,
-// compiled for D = 64 DC, DC in {1, 2, 3, 4, 6, 8}, and for float32 or
-// bf16 loads. A head_dim between the cases is padded up to the next one:
-// its loads are masked to zero past the true D (the wrapper's 1/sqrt(D)
-// scale is the true D's), the q.k loop stops at D rounded up to 4, the
-// p.v loop skips the 64-column groups past D, and only the true D columns
-// are stored. Above D = 256 the query and key tiles drop to 32 rows
-// (RQ = CK = 2) so one block's tiles still fit: 202 KB at D = 512. float32
-// at D = 64, 128 and 256 runs the instantiation without PADDED (the route
-// flash_fwd): its masks, loads and stores are the unpadded ones, compiled
-// apart with if constexpr, and the true head_dim is the kernel's last
-// argument, unread, so the others keep their places (passed among them, it
-// cost the D = 256 case a stack frame and a few per cent). Above 512 the
-// 32-row tiles would leave no room; the wrapper refuses.
+// compiled for D = 64 DC, DC in {1, 2, 3, 4, 6, 8} with float32 loads and
+// DC in {6, 8} with bf16 ones (bf16 up to D = 256 runs on the tensor cores,
+// flash_attention_sm90.cu). A head_dim between the cases is padded up to
+// the next one: its loads are masked to zero past the true D (the
+// wrapper's 1/sqrt(D) scale is the true D's), the q.k loop stops at D
+// rounded up to 4, the p.v loop skips the 64-column groups past D, and
+// only the true D columns are stored. Above D = 256 the query and key
+// tiles drop to 32 rows (RQ = CK = 2) so one block's tiles still fit: 202
+// KB at D = 512. float32 at D = 64, 128 and 256 runs the instantiation
+// without PADDED (the route flash_fwd): its masks, loads and stores are
+// the unpadded ones, compiled apart with if constexpr, and the true
+// head_dim is the kernel's last argument, unread, so the others keep their
+// places (passed among them, it cost the D = 256 case a stack frame and a
+// few per cent). Above 512 the 32-row tiles would leave no room; the
+// wrapper refuses.
 //
 // Bound: at gemma2-9b prefill shapes the work is ~1e12 FLOP per layer and
 // the bytes ~0.2 GB, so it is bound by operations on fp32 FFMA (67 TFLOP/s
@@ -56,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -309,10 +313,12 @@ cudaError_t launch_padded(const void* q, const void* k, const void* v,
 #define FLASH_PADDED(DC, RQ)                                                  \
   return launch<DC, RQ, RQ, T, true>(q, k, v, o, BH, BHkv, Tq, Tk, D, causal, \
                                      window, softcap, scale, stream)
-  if (D <= 64) FLASH_PADDED(1, 4);
-  if (D <= 128) FLASH_PADDED(2, 4);
-  if (D <= 192) FLASH_PADDED(3, 4);
-  if (D <= 256) FLASH_PADDED(4, 4);
+  if constexpr (std::is_same<T, float>::value) {
+    if (D <= 64) FLASH_PADDED(1, 4);
+    if (D <= 128) FLASH_PADDED(2, 4);
+    if (D <= 192) FLASH_PADDED(3, 4);
+    if (D <= 256) FLASH_PADDED(4, 4);
+  }
   if (D <= 384) FLASH_PADDED(6, 2);
   FLASH_PADDED(8, 2);
 #undef FLASH_PADDED
@@ -321,14 +327,14 @@ cudaError_t launch_padded(const void* q, const void* k, const void* v,
 }  // namespace
 
 // window <= 0: no sliding window; softcap <= 0: no softcap. q, k, v and o
-// are float32, or bfloat16 when bf16 is set.
+// are float32, or bfloat16 when bf16 is set (then D > 256).
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, bool bf16, int BH,
                                    int BHkv, int Tq, int Tk, int D,
                                    int causal, int window, float softcap,
                                    float scale, cudaStream_t stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Tq <= 0 || Tk <= 0 ||
-      D < 1 || D > 512)
+      D < 1 || D > 512 || (bf16 && D <= 256))
     return cudaErrorInvalidValue;
   if (bf16)
     return launch_padded<__nv_bfloat16>(q, k, v, o, BH, BHkv, Tq, Tk, D,

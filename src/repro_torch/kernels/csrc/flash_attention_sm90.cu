@@ -68,6 +68,23 @@
 //    row sum reduce over the 4 lanes that share a row. Causal q tiles
 //    launch longest first (the q tile is the grid's slow axis).
 //  - Output: from registers to bf16, rows >= Tq not written.
+//
+// The padded route (flash_fwd_sm90_padded<DP>): bf16 at any other head_dim
+// d up to 256, in place of the FFMA kernel of flash_attention.cu, which
+// widens bf16 to float32 (0.013 of its bound at d = 96). The same body
+// at DP = d rounded up to 64 (64, 128, 192 or 256): the tensor maps keep
+// the true d as their inner dimension, so TMA reads columns d..DP-1 as
+// zeros, which add nothing to Q K^T, and the columns of O past d are not
+// stored (the output's row stride is d; 1/sqrt(d) scales the scores as
+// before). A map's row stride (2 d bytes) must be a multiple of 16: at
+// d % 8 != 0, flash_pad_rows first copies q, k and v into rows of d
+// rounded up to 8 (zeros past d), a pass of ~2 x the inputs' bytes that
+// counts in the route's time. The unpadded kernels share the body but
+// compile none of this (PADDED false), so their code stays the parent's.
+// At DP = 192: O is 96 floats a consumer thread; shared memory is Q 48 KB
+// plus 2 stages of K and V, 96 KB.
+#include <algorithm>
+
 #include "sm90.cuh"
 
 namespace {
@@ -111,14 +128,15 @@ __device__ __forceinline__ float rcp(float x) {
   return y;
 }
 
-// D = 64, 128 or 256
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
-                   const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v,
-                   __nv_bfloat16* __restrict__ o, int Tq, int Tk, int group,
-                   int causal, int window, float softcap, float scale) {
+// The body of both kernels. D = 64, 128 or 256 (flash_fwd_sm90), or the
+// padded width DP = 64, 128, 192 or 256 (flash_fwd_sm90_padded, PADDED):
+// the maps read zeros past the true head_dim d, and only the output's
+// store knows d (its row stride and the columns it writes).
+template <int D, bool PADDED>
+__device__ __forceinline__ void flash_body(
+    const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, __nv_bfloat16* __restrict__ o, int Tq, int Tk,
+    int group, int causal, int window, float softcap, float scale, int d) {
   using L = Smem<D>;
   constexpr int DC = D / 64;  // 128-byte boxes per row
   extern __shared__ uint8_t smem_raw[];
@@ -166,7 +184,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        tma_load(sq + c * BQ * 128, &map_q, 64 * c, q0, bh, q_full);
+        tma_load(sq + c * BQ * 128, map_q, 64 * c, q0, bh, q_full);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         const uint32_t ph = (it / STAGES) & 1;
@@ -175,13 +193,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_expect_tx(K_FULL(s), L::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < DC; ++c)
-          tma_load(sk + s * L::KV_BYTES + c * BK * 128, &map_k, 64 * c, k0,
+          tma_load(sk + s * L::KV_BYTES + c * BK * 128, map_k, 64 * c, k0,
                    bhkv, K_FULL(s));
         mbar_wait(V_EMPTY(s), ph ^ 1);
         mbar_expect_tx(V_FULL(s), L::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < DC; ++c)
-          tma_load(sv + s * L::KV_BYTES + c * BK * 128, &map_v, 64 * c, k0,
+          tma_load(sv + s * L::KV_BYTES + c * BK * 128, map_v, 64 * c, k0,
                    bhkv, V_FULL(s));
       }
     }
@@ -356,18 +374,71 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int qi = row0 + 8 * i;
       if (qi >= Tq) continue;
       const float den = fmaxf(l[i], 1e-30f);
-      __nv_bfloat16* orow = o + ((size_t)bh * Tq + qi) * D + col0;
+      if constexpr (PADDED) {
+        // row stride d; columns d..DP-1 of the accumulator are not stored
+        __nv_bfloat16* orow = o + ((size_t)bh * Tq + qi) * d;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-            __floats2bfloat162_rn(oacc[4 * j + 2 * i] / den,
-                                  oacc[4 * j + 2 * i + 1] / den);
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + col0 + e;
+            if (c < d)
+              orow[c] = __float2bfloat16_rn(oacc[4 * j + 2 * i + e] / den);
+          }
+      } else {
+        __nv_bfloat16* orow = o + ((size_t)bh * Tq + qi) * D + col0;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(oacc[4 * j + 2 * i] / den,
+                                    oacc[4 * j + 2 * i + 1] / den);
+      }
     }
   }
 #undef K_FULL
 #undef V_FULL
 #undef K_EMPTY
 #undef V_EMPTY
+}
+
+// D = 64, 128 or 256
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   __nv_bfloat16* __restrict__ o, int Tq, int Tk, int group,
+                   int causal, int window, float softcap, float scale) {
+  flash_body<D, false>(&map_q, &map_k, &map_v, o, Tq, Tk, group, causal,
+                       window, softcap, scale, D);
+}
+
+// DP = 64, 128, 192 or 256, the true head_dim d in (DP - 64, DP]
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_sm90_padded(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          __nv_bfloat16* __restrict__ o, int Tq, int Tk,
+                          int group, int causal, int window, float softcap,
+                          float scale, int d) {
+  flash_body<DP, true>(&map_q, &map_k, &map_v, o, Tq, Tk, group, causal,
+                       window, softcap, scale, d);
+}
+
+// rows of d bf16 -> rows of d8 (d rounded up to 8), zeros past d: the
+// copy a head_dim that is no multiple of 8 needs, since a tensor map's row
+// stride (2 d bytes) must be a multiple of 16
+__global__ void flash_pad_rows(const __nv_bfloat16* __restrict__ src,
+                               __nv_bfloat16* __restrict__ dst, size_t rows,
+                               int d, int d8) {
+  const size_t n = rows * d8;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = e / d8;
+    const int c = (int)(e - r * d8);
+    dst[e] = c < d ? src[r * d + c] : __float2bfloat16_rn(0.0f);
+  }
 }
 
 // (D, T, rows) bf16 tensor, boxes of 64 columns x box_rows rows, 128-byte
@@ -406,15 +477,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// q, k, v hold rows of w bf16 (w = d, or d padded to 8): the maps' inner
+// dimension is w, and TMA reads columns w..DP-1 as zeros
+template <int DP>
+cudaError_t launch_padded(const void* q, const void* k, const void* v,
+                          void* o, int BH, int BHkv, int Tq, int Tk, int w,
+                          int d, int causal, int window, float softcap,
+                          float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, BH, Tq, w, BQ) || !make_map(&mk, k, BHkv, Tk, w, BK) ||
+      !make_map(&mv, v, BHkv, Tk, w, BK))
+    return cudaErrorInvalidValue;
+  const int smem = Smem<DP>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_padded<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + BQ - 1) / BQ);
+  flash_fwd_sm90_padded<DP><<<grid, NTHREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Tq, Tk, BH / BHkv, causal,
+      window, softcap, scale, d);
+  return cudaGetLastError();
+}
+
+cudaError_t pad_rows(const void* src, void* dst, size_t rows, int d, int d8,
+                     cudaStream_t stream) {
+  const size_t n = rows * d8;
+  const unsigned blocks = (unsigned)std::min<size_t>((n + 255) / 256, 65535);
+  flash_pad_rows<<<blocks, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(src), static_cast<__nv_bfloat16*>(dst),
+      rows, d, d8);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dynamic shared memory of one block at head_dim D (0: D not taken)
+// dynamic shared memory of one block at head_dim D, or padded width D = 192
+// (0: D not taken)
 size_t flash_attention_sm90_smem_bytes(int D) {
   switch (D) {
     case 64:
       return Smem<64>::BYTES;
     case 128:
       return Smem<128>::BYTES;
+    case 192:
+      return Smem<192>::BYTES;
     case 256:
       return Smem<256>::BYTES;
     default:
@@ -448,5 +555,48 @@ cudaError_t launch_flash_attention_sm90(const void* q, const void* k,
                          softcap, scale, stream);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The padded route, bf16 at a head_dim d in 1..256: q (BH, Tq, d), k, v
+// (BHkv, Tk, d), o (BH, Tq, d). d % 8 == 0: q, k, v 16-byte aligned, read
+// in place. Otherwise q, k, v are first copied into qp, kp, vp (rows of d
+// rounded up to 8, zeros past d; 16-byte aligned), the maps' rows.
+cudaError_t launch_flash_attention_sm90_padded(
+    const void* q, const void* k, const void* v, void* o, void* qp, void* kp,
+    void* vp, int BH, int BHkv, int Tq, int Tk, int d, int causal,
+    int window, float softcap, float scale, cudaStream_t stream) {
+  if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Tq <= 0 || Tk <= 0 ||
+      d < 1 || d > 256 || (Tq + BQ - 1) / BQ > 65535)
+    return cudaErrorInvalidValue;
+  const int w = (d + 7) / 8 * 8;
+  if (w != d) {
+    cudaError_t err = pad_rows(q, qp, (size_t)BH * Tq, d, w, stream);
+    if (err == cudaSuccess)
+      err = pad_rows(k, kp, (size_t)BHkv * Tk, d, w, stream);
+    if (err == cudaSuccess)
+      err = pad_rows(v, vp, (size_t)BHkv * Tk, d, w, stream);
+    if (err != cudaSuccess) return err;
+    q = qp;
+    k = kp;
+    v = vp;
+  }
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const int dp = (d + 63) / 64 * 64;
+  switch (dp) {
+    case 64:
+      return launch_padded<64>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                               window, softcap, scale, stream);
+    case 128:
+      return launch_padded<128>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                                window, softcap, scale, stream);
+    case 192:
+      return launch_padded<192>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                                window, softcap, scale, stream);
+    default:
+      return launch_padded<256>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                                window, softcap, scale, stream);
   }
 }

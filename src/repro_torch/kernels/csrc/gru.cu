@@ -1,8 +1,8 @@
 // GRU recurrence kernels for Hopper (sm_90a).
 //
 // Replace the Pallas kernels of repro/kernels/gru/kernel.py:
-//   gru_fwd (H <= 128), gru_fwd_stream (H > 128)
-//                            <- _gru_forward / _gru_kernel (the recurrence)
+//   gru_fwd (H <= 128), gru_fwd_cluster (128 < H <= 512), gru_fwd_stream
+//   (H > 512)                <- _gru_forward / _gru_kernel (the recurrence)
 //   gru_bwd_gates, gru_bwd_chain (H <= 128) or gru_bwd_chain_stream
 //   (H > 128), gru_bwd_weights, gru_bwd_weights_sum
 //                            <- _gru_backward / _gru_bwd_kernel (its adjoint)
@@ -73,11 +73,22 @@
 //    lanes stride the 3H columns (coalesced), and a fixed shuffle tree
 //    sums them, so the bits repeat from run to run. This design is the
 //    simple one and has no bound on H but shared memory (2 R H floats
-//    forward, 4 R H the chain). The Hopper redesign, for later: a
-//    thread-block cluster of C CTAs, each holding 3H/C columns of W_h in
-//    its shared memory for all T steps, h exchanged over distributed
-//    shared memory once a step -- resident weights again, which the
-//    cluster makes room for above 128 (at H <= 128 it was rejected, above).
+//    forward, 4 R H the chain); the forward keeps it above 512 only.
+//  * 128 < H <= 512, the forward (gru_fwd_cluster): a thread-block cluster
+//    of C CTAs (up to 16) takes one (agent, tile of R rows), and CTA c
+//    holds the 3H/C columns of W_h of its H/C units in shared memory for
+//    all T steps -- resident weights again, which the cluster makes room
+//    for (at H <= 128 it was rejected, above). At the AIP's H=256 a CTA's
+//    slice is 98 KB (C = 8, R = 64 rows); at 512, 196 KB (C = 16, R = 8).
+//    So W_h is read from memory once a tile, not once a step, and the
+//    step's R x H x 3H FMA run from shared memory at 8 (W) and 12 (h)
+//    FMA a float loaded. Each CTA runs the gate algebra of its units and
+//    writes its slice of the new h into every CTA's copy over distributed
+//    shared memory: one cluster barrier a step. The wrapper picks C and R
+//    (kernels/gru/kernel.py, cluster_plan), and streams instead where the
+//    load of the W_h slices costs more than it saves (forward_route: a
+//    short sequence on a grid of more clusters than the card holds at
+//    once; benchmarks/torch_tree_times.py --gru-sweep measures both).
 //
 // The backward splits the serial chain from the parallel work:
 //   1. gru_bwd_gates: gh = hp.W_h + b_h for all T.B rows of an agent at
@@ -94,6 +105,7 @@
 //      atomic, so the result has the same bits from run to run.
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -595,6 +607,277 @@ gru_fwd_stream(const float* __restrict__ gi, const float* __restrict__ wh,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 128 < H <= 512: W_h resident in the shared memory of a thread-block cluster
+// ---------------------------------------------------------------------------
+constexpr int CLUSTER_THREADS = 256;
+constexpr int CLUSTER_RT = 8;      // rows of a thread's tile (a row group)
+constexpr int CLUSTER_UT = 4;      // units of a thread's tile
+constexpr int CLUSTER_UNITS = 32;  // hidden units a CTA of the cluster owns
+constexpr int MAX_CLUSTER = 16;    // CTAs of a cluster (above 8: non-portable)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// 4- and 16-byte copies from global to shared memory, in flight until
+// cp_wait_all
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the cluster barrier, every thread of every CTA: writes before a thread's
+// arrive (to any CTA's shared memory) are seen by every thread after its
+// wait; between the two a thread may work on what the barrier does not
+// guard
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// x into the shared memory of CTA `rank` of the cluster, at the place that
+// `addr` (an address of this CTA's shared memory) has there
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t rank,
+                                           float4 x) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   remote),
+               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+               : "memory");
+}
+
+// One cluster of C CTAs per (agent, tile of R rows); CTA c (its rank in the
+// cluster) owns hidden units [c U, (c + 1) U), U = CLUSTER_UNITS: their 3U
+// columns of W_h (r, z and n) stay in its shared memory for all T steps.
+// Each CTA keeps the whole h of the tile, double-buffered: a step computes
+// gh = h.W_h for its columns and R rows, runs the gate algebra of its
+// units, and writes its slice of the new h into every CTA's other buffer
+// (distributed shared memory), then one cluster barrier. Thread (v, s, grp)
+// owns units c U + 4 v .. + 3 and rows 8 grp .. + 7, and float4 chunks
+// s, s + KS, s + 2 KS, ... of the reduction axis; KS partial sums are
+// folded by shuffles that scatter the rows (Fold), so the sums run in a
+// fixed order and the bits repeat from run to run. A float of W_h loaded
+// feeds 8 FMA (the rows), a float of h 12 (the units' three gates).
+// Shared memory: W_h's rows of the CTA's 3U columns as in global memory
+// (so they load as 16-byte asynchronous copies), their float4 chunks
+// swizzled by the row (w_chunk) so that the eight lanes of a quarter-warp,
+// which read eight rows, hit eight bank groups; h 2 x R x HP floats; HP =
+// H rounded up to 4 KS rows of W_h and columns of h, zeros past H.
+template <int KS>
+__device__ __forceinline__ int w_chunk(int k, int g, int v) {
+  // rows k of one float4 chunk of the reduction axis, lanes s of it; at 4
+  // lanes a quarter-warp holds two unit groups, hence the factor 2
+  constexpr int M = KS == 4 ? 2 : 1;
+  return 8 * g + (v ^ (((k >> 2) * M) & 7));
+}
+
+template <int KS>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+gru_fwd_cluster(const float* __restrict__ gi, const float* __restrict__ wh,
+                const float* __restrict__ bh, const float* __restrict__ h0,
+                const float* __restrict__ resets, float* __restrict__ hs,
+                int T, int B, int H, int C, int R, int HP) {
+  constexpr int RT = CLUSTER_RT, UT = CLUSTER_UT, G = 3 * UT;
+  constexpr int U = CLUSTER_UNITS, NV = U / UT, WS = 3 * U;
+  static_assert(NV == 8, "a gate's units of a CTA are 8 float4 chunks");
+  constexpr int RL = Rows<RT, KS>::RL, DUP = Rows<RT, KS>::DUP;
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                  // HP x WS: this CTA's columns of W_h
+  float* h_s = smem + HP * WS;        // 2 x R x HP
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int s = tid % KS, v = (tid / KS) % NV, grp = tid / (KS * NV);
+  const int rank = (int)cluster_rank();
+  const int a = blockIdx.y, b0 = (blockIdx.x / C) * R, H3 = 3 * H;
+  const int unit0 = rank * U, u0 = unit0 + UT * v;   // this thread's units
+  const bool live = u0 < H;
+  const int base = grp * RT + (s / DUP) * RL;   // its rows after the fold
+  const bool lead = s % DUP == 0;
+  const float* wa = wh + (size_t)a * H * H3;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // W_h's rows k < H: 16-byte asynchronous copies of the chunks of 4 units
+  // that lie wholly below H (all in flight at once) where the hidden is a
+  // multiple of 4 and the tensor starts 16-byte aligned (then so does every
+  // chunk), else 4-byte ones; zeros past H. h0 likewise.
+  const bool wide_w = H % 4 == 0 && reinterpret_cast<uintptr_t>(wh) % 16 == 0;
+  const bool wide_h = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0;
+  for (int e = tid; e < H * 3 * NV; e += nthr) {
+    const int k = e / (3 * NV), gc = e - k * 3 * NV, g = gc / NV,
+              c = gc - g * NV, u = unit0 + UT * c;
+    float* dst = w_s + k * WS + 4 * w_chunk<KS>(k, g, c);
+    const float* src = wa + (size_t)k * H3 + g * H + u;
+    if (wide_w && u + UT <= H) {
+      cp_async16(dst, src);
+    } else {
+      for (int p = 0; p < UT; ++p) {
+        if (u + p < H)
+          cp_async4(dst + p, src + p);
+        else
+          dst[p] = 0.0f;
+      }
+    }
+  }
+  // zeros: W_h's rows H..HP-1, the second h buffer, the first's rows past B
+  const int w_end = HP * WS, h1 = w_end + R * HP;
+  for (int e = H * WS + 4 * tid; e < h1 + R * HP; e += 4 * nthr) {
+    const int r = (e - w_end) / HP;
+    if (e < w_end || e >= h1 || b0 + r >= B)
+      *reinterpret_cast<float4*>(smem + e) = zero4;
+  }
+  // h0 masked by the first step's reset, zeros past H
+  for (int e = tid; e < R * (HP / 4); e += nthr) {
+    const int r = e / (HP / 4), k = 4 * (e - r * (HP / 4)), b = b0 + r;
+    if (b >= B) continue;
+    const float keep = 1.0f - resets[(size_t)a * T * B + b];
+    const float* src = h0 + ((size_t)a * B + b) * H + k;
+    float4 x = zero4;
+    if (wide_h && k < H) {
+      x = ld4(src);
+    } else if (k < H) {
+      x.x = src[0];
+      x.y = k + 1 < H ? src[1] : 0.0f;
+      x.z = k + 2 < H ? src[2] : 0.0f;
+      x.w = k + 3 < H ? src[3] : 0.0f;
+    }
+    *reinterpret_cast<float4*>(h_s + r * HP + k) =
+        make_float4(x.x * keep, x.y * keep, x.z * keep, x.w * keep);
+  }
+  cp_wait_all();
+  float bias[3][UT];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int p = 0; p < UT; ++p)
+      bias[g][p] = u0 + p < H ? bh[(size_t)a * H3 + g * H + u0 + p] : 0.0f;
+
+  // a step's inputs for the rows and units this lane holds after the fold,
+  // raw, from addresses clamped into the tensors: gi, and the next step's
+  // reset (h is masked by it as the next step reads it)
+  float in_gi[RL][UT][3], reset_next[RL];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int b = min(b0 + base + i, B - 1);
+      const size_t row = ((size_t)a * T + t) * B + b;
+      reset_next[i] = resets[((size_t)a * T + min(t + 1, T - 1)) * B + b];
+#pragma unroll
+      for (int p = 0; p < UT; ++p)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          in_gi[i][p][g] = gi[row * H3 + g * H + min(u0 + p, H - 1)];
+    }
+  };
+  load(0);
+  cluster_arrive();   // every CTA's zeros, W_h and h0 are in place
+  cluster_wait();
+
+  for (int t = 0; t < T; ++t) {
+    const float* hc = h_s + (t & 1) * R * HP;
+    const uint32_t hn = smem_addr(h_s + ((t + 1) & 1) * R * HP);
+    float acc[RT][G];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int c = 0; c < G; ++c) acc[r][c] = 0.0f;
+    const float* hrow = hc + grp * RT * HP;
+    const int nq = HP / (4 * KS);
+    for (int q = 0; q < nq; ++q) {
+      const int k = 4 * (q * KS + s);
+      // W_h rows k .. k + 3 of the three gates' 4 units (one chunk each)
+      float4 w4[4][3];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          w4[j][g] = ld4(w_s + (k + j) * WS + 4 * w_chunk<KS>(k, g, v));
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float4 hv = ld4(hrow + r * HP + k);
+        const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            acc[r][g * UT] = fmaf(h4[j], w4[j][g].x, acc[r][g * UT]);
+            acc[r][g * UT + 1] = fmaf(h4[j], w4[j][g].y, acc[r][g * UT + 1]);
+            acc[r][g * UT + 2] = fmaf(h4[j], w4[j][g].z, acc[r][g * UT + 2]);
+            acc[r][g * UT + 3] = fmaf(h4[j], w4[j][g].w, acc[r][g * UT + 3]);
+          }
+      }
+    }
+    Fold<RT, KS / 2, G, RT>::run(acc, s);
+    float hnew[RL][UT];
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int r = base + i, b = b0 + r;
+      if (!live) continue;
+      const float4 hp4 = ld4(hc + r * HP + u0);
+      const float hprev[UT] = {hp4.x, hp4.y, hp4.z, hp4.w};
+      const float keep_next =
+          (b < B && t + 1 < T) ? 1.0f - reset_next[i] : 0.0f;
+      float out[UT];
+#pragma unroll
+      for (int p = 0; p < UT; ++p) {
+        const float rg =
+            sigmoid_f32(in_gi[i][p][0] + (acc[i][p] + bias[0][p]));
+        const float z =
+            sigmoid_f32(in_gi[i][p][1] + (acc[i][UT + p] + bias[1][p]));
+        const float n = tanhf(in_gi[i][p][2] +
+                              rg * (acc[i][2 * UT + p] + bias[2][p]));
+        hnew[i][p] = (1.0f - z) * n + z * hprev[p];
+        // masked as step t + 1 reads it
+        out[p] = u0 + p < H ? hnew[i][p] * keep_next : 0.0f;
+      }
+      if (lead) {
+        const float4 x = make_float4(out[0], out[1], out[2], out[3]);
+        for (int c = 0; c < C; ++c)
+          st_cluster(hn + (uint32_t)(r * HP + u0) * 4u, (uint32_t)c, x);
+      }
+    }
+    // the new h is in every CTA after the barrier; its release waits for
+    // this thread's writes, so the outputs and the next step's loads go
+    // between its arrive and its wait
+    cluster_arrive();
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const int b = b0 + base + i;
+      if (!live || !lead || b >= B) continue;
+      float* out = hs + (((size_t)a * T + t) * B + b) * H + u0;
+#pragma unroll
+      for (int p = 0; p < UT; ++p)
+        if (u0 + p < H) out[p] = hnew[i][p];
+    }
+    if (t + 1 < T) load(t + 1);
+    cluster_wait();
+  }
+}
+
 // backward, phase 2: per step, (A) the gate algebra of every (row, unit)
 // of the tile, which writes dgi, r and the dgh row into shared memory and
 // the direct path d z onto the adjoint; (B) dh_{t-1} = (d z + dgh.W_h^T)
@@ -1046,6 +1329,79 @@ cudaError_t chain_rows(const float* gi, const float* wh, const float* gh,
                                 dh0, A, T, B, H, stream);
 }
 
+// the cluster forward: lanes a unit group over the reduction axis, so that
+// a CTA has CLUSTER_THREADS threads
+int cluster_ks(int rows) {
+  return CLUSTER_THREADS * CLUSTER_RT * CLUSTER_UT / (CLUSTER_UNITS * rows);
+}
+
+int cluster_hp(int H, int ks) { return (H + 4 * ks - 1) / (4 * ks) * (4 * ks); }
+
+size_t cluster_smem(int H, int rows) {
+  return ((size_t)3 * CLUSTER_UNITS + 2 * rows) *
+         cluster_hp(H, cluster_ks(rows)) * sizeof(float);
+}
+
+bool cluster_plan_ok(int H, int ctas, int rows) {
+  return H > RESIDENT_HIDDEN && ctas <= MAX_CLUSTER &&
+         ctas == (H + CLUSTER_UNITS - 1) / CLUSTER_UNITS &&
+         (rows == 8 || rows == 16 || rows == 32 || rows == 64) &&
+         cluster_smem(H, rows) <= 232448;
+}
+
+template <int KS>
+cudaError_t cluster_config(int A, int B, int H, int ctas, int rows,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  auto fn = gru_fwd_cluster<KS>;
+  const size_t smem = cluster_smem(H, rows);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err == cudaSuccess && ctas > 8)
+    err = cudaFuncSetAttribute((const void*)fn,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(ctas * ((B + rows - 1) / rows), A);
+  cfg->blockDim = dim3(CLUSTER_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int KS>
+cudaError_t cluster_at(const float* gi, const float* wh, const float* bh,
+                       const float* h0, const float* resets, float* hs, int A,
+                       int T, int B, int H, int ctas, int rows,
+                       cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_config<KS>(A, B, H, ctas, rows, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, gru_fwd_cluster<KS>, gi, wh, bh, h0, resets,
+                           hs, T, B, H, ctas, rows, cluster_hp(H, KS));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int KS>
+int cluster_occupancy(int H, int ctas, int rows) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (cluster_config<KS>(1, rows, H, ctas, rows, 0, &cfg, &attr) !=
+      cudaSuccess)
+    return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, (const void*)gru_fwd_cluster<KS>,
+                                        &cfg) == cudaSuccess ? n : -1;
+}
+
 bool supported(int H, int rows) {
   return H >= 1 && (rows == 2 || rows == 4 || rows == 8);
 }
@@ -1075,6 +1431,47 @@ cudaError_t launch_gru_forward(const float* gi, const float* wh,
     case 4: return fwd_rows<4>(gi, wh, bh, h0, resets, hs, A, T, B, H, stream);
     default: return fwd_rows<8>(gi, wh, bh, h0, resets, hs, A, T, B, H,
                                 stream);
+  }
+}
+
+// dynamic shared memory of the cluster forward's CTA, 0 for a plan it
+// does not take
+size_t gru_forward_cluster_smem_bytes(int H, int ctas, int rows) {
+  return cluster_plan_ok(H, ctas, rows) ? cluster_smem(H, rows) : 0;
+}
+
+// clusters of this plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot run one, -1: an error)
+int gru_forward_cluster_max_active(int H, int ctas, int rows) {
+  if (!cluster_plan_ok(H, ctas, rows)) return -1;
+  switch (cluster_ks(rows)) {
+    case 4: return cluster_occupancy<4>(H, ctas, rows);
+    case 8: return cluster_occupancy<8>(H, ctas, rows);
+    case 16: return cluster_occupancy<16>(H, ctas, rows);
+    default: return cluster_occupancy<32>(H, ctas, rows);
+  }
+}
+
+// The cluster forward at a plan of the wrapper's (kernels/gru/kernel.py,
+// cluster_plan): `ctas` CTAs a cluster (H / CLUSTER_UNITS, rounded up),
+// `rows` batch rows a tile. A plan the card refuses returns its error.
+cudaError_t launch_gru_forward_cluster(const float* gi, const float* wh,
+                                       const float* bh, const float* h0,
+                                       const float* resets, float* hs, int A,
+                                       int T, int B, int H, int ctas,
+                                       int rows, cudaStream_t stream) {
+  if (!cluster_plan_ok(H, ctas, rows) || A < 1 || A > 65535 || T < 1 ||
+      B < 1)
+    return cudaErrorInvalidValue;
+  switch (cluster_ks(rows)) {
+    case 4: return cluster_at<4>(gi, wh, bh, h0, resets, hs, A, T, B, H,
+                                 ctas, rows, stream);
+    case 8: return cluster_at<8>(gi, wh, bh, h0, resets, hs, A, T, B, H,
+                                 ctas, rows, stream);
+    case 16: return cluster_at<16>(gi, wh, bh, h0, resets, hs, A, T, B, H,
+                                   ctas, rows, stream);
+    default: return cluster_at<32>(gi, wh, bh, h0, resets, hs, A, T, B, H,
+                                   ctas, rows, stream);
   }
 }
 

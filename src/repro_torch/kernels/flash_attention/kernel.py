@@ -9,16 +9,21 @@ the reference (it has no VJP).
 
 The kernel is chosen by dtype and head_dim (:func:`route`). bfloat16
 q/k/v at head_dim 64, 128 or 256 go to ``flash_fwd_sm90``, on the tensor
-cores (``wgmma``, bf16 products summed in float32, p rounded to bf16 for
-p·v); float32 q/k/v go to fp32 FFMA, since the tensor cores would need
-TF32 for them: ``flash_fwd`` at head_dim 64, 128 or 256,
+cores (``wgmma``, bf16 products summed in float32, p split into two bf16
+terms for p·v); bfloat16 at any other head_dim up to 256 goes to
+``flash_fwd_sm90_padded``, the same kernel at the head_dim rounded up to
+64 (its tensor maps read zeros past the true head_dim; a head_dim that is
+no multiple of 8 is first copied into rows padded to 8, scratch the
+wrapper allocates). float32 q/k/v go to fp32 FFMA, since the tensor cores
+would need TF32 for them: ``flash_fwd`` at head_dim 64, 128 or 256,
 ``flash_fwd_padded`` at any other head_dim up to 512, padded up to the
-next of 64, 128, 192, 256, 384, 512; bfloat16 at those other head_dims
-goes to ``flash_fwd_padded`` too, widened to float32 as it is loaded.
-Above 512 the padded kernel's smallest tiles leave no room in a block's
-shared memory and the wrapper raises. The output is in q's dtype. A failed build or launch
-raises: there is no fallback. ``LAUNCHES["flash_attention"]`` counts
-every launch, ``LAUNCHES[route]`` each kernel's. The reference's ``block_q``/``block_k``/``interpret``
+next of 64, 128, 192, 256, 384, 512; bfloat16 above 256 goes to
+``flash_fwd_padded`` too, widened to float32 as it is loaded. Above 512
+the padded kernel's smallest tiles leave no room in a block's shared
+memory and the wrapper raises. The output is in q's dtype. A failed
+build or launch raises: there is no fallback.
+``LAUNCHES["flash_attention"]`` counts every launch, ``LAUNCHES[route]``
+each kernel's. The reference's ``block_q``/``block_k``/``interpret``
 arguments are gone: the kernels fix their tiles and there is no
 interpreter on the card.
 """
@@ -33,10 +38,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.flash_attention import ref
 
-ROUTES = ("flash_fwd_sm90", "flash_fwd", "flash_fwd_padded")
+ROUTES = ("flash_fwd_sm90", "flash_fwd_sm90_padded", "flash_fwd",
+          "flash_fwd_padded")
 LAUNCHES = {"flash_attention": 0, **{r: 0 for r in ROUTES}}
 DTYPES = (torch.float32, torch.bfloat16)
 SM90_HEAD_DIMS = (64, 128, 256)  # flash_fwd_sm90 (bf16), flash_fwd (f32)
+SM90_PADDED_MAX = 256            # flash_fwd_sm90_padded: bf16 up to here
 FFMA_HEAD_DIMS = (64, 128, 192, 256, 384, 512)  # flash_fwd_padded's
 MAX_HEAD_DIM = FFMA_HEAD_DIMS[-1]
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
@@ -44,11 +51,15 @@ MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
 
 def route(dtype, d: int) -> str:
     """The kernel a launch goes to: at head_dim 64, 128 or 256
-    ``"flash_fwd_sm90"`` for bf16 and ``"flash_fwd"`` for float32,
-    ``"flash_fwd_padded"`` at the other head_dims."""
-    if d not in SM90_HEAD_DIMS:
-        return "flash_fwd_padded"
-    return "flash_fwd_sm90" if dtype == torch.bfloat16 else "flash_fwd"
+    ``"flash_fwd_sm90"`` for bf16 and ``"flash_fwd"`` for float32; bf16
+    at the other head_dims up to SM90_PADDED_MAX
+    ``"flash_fwd_sm90_padded"``; ``"flash_fwd_padded"`` for the rest."""
+    bf16 = dtype == torch.bfloat16
+    if d in SM90_HEAD_DIMS:
+        return "flash_fwd_sm90" if bf16 else "flash_fwd"
+    if bf16 and d <= SM90_PADDED_MAX:
+        return "flash_fwd_sm90_padded"
+    return "flash_fwd_padded"
 
 
 def ffma_smem_bytes(d: int) -> int:
@@ -74,6 +85,19 @@ def check_head_dim(d: int) -> None:
             f"{MAX_SMEM_BYTES} bytes of shared memory a block has")
 
 
+def _pad_scratch(q, k, v):
+    """The rows ``flash_fwd_sm90_padded`` reads when the head_dim is no
+    multiple of 8 (a tensor map's rows are 16-byte strides): q, k and v
+    copied into rows of the head_dim rounded up to 8; empty otherwise."""
+    d = q.shape[-1]
+    d8 = -(-d // 8) * 8
+    if d8 == d:
+        return (q.new_empty(0),) * 3
+    new = lambda x: torch.empty((*x.shape[:-1], d8), dtype=x.dtype,
+                                device=x.device)
+    return new(q), new(k), new(v)
+
+
 def forward(q, k, v, *, causal: bool = True,
             sliding_window: Optional[int] = None,
             softcap: Optional[float] = None):
@@ -97,12 +121,16 @@ def forward(q, k, v, *, causal: bool = True,
     args = (q, k, v, out, bool(causal), int(sliding_window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(d))
     kernel = route(q.dtype, d)
-    if kernel == "flash_fwd_sm90":
-        # the tensor maps of its loads need 16-byte aligned rows
+    if kernel.startswith("flash_fwd_sm90") and d % 8 == 0:
+        # the tensor maps of its loads read q, k, v in place
         for name, x in (("q", q), ("k", k), ("v", v)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
+    if kernel == "flash_fwd_sm90":
         ext.flash_attention_sm90(*args)
+    elif kernel == "flash_fwd_sm90_padded":
+        ext.flash_attention_sm90_padded(q, k, v, out, *_pad_scratch(q, k, v),
+                                        *args[4:])
     else:
         ext.flash_attention(*args)
     LAUNCHES[kernel] += 1

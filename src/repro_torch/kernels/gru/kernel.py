@@ -9,14 +9,18 @@ phases (the gate recompute ``gru_bwd_gates``, the serial adjoint chain
 are recomputed in the backward, not stored; resets get no gradient.
 Any hidden width whose tile fits a block's shared memory: up to
 ``RESIDENT_HIDDEN`` W_h stays in registers or shared memory for all T
-steps (``gru_fwd``, ``gru_bwd_chain``); above it W_h is streamed from
-L2 every step (``gru_fwd_stream``, ``gru_bwd_chain_stream``), with the
-rows of a tile halved (down to 2) until h (and the chain's dgh) fit:
-up to H=7,264 both ways.
+steps (``gru_fwd``, ``gru_bwd_chain``); above it the forward keeps W_h
+resident across a thread-block cluster up to ``CLUSTER_HIDDEN``
+(``gru_fwd_cluster``: each CTA holds its units' columns, at the plan of
+:func:`cluster_plan`), and otherwise W_h is streamed from L2 every step
+(``gru_fwd_stream``, ``gru_bwd_chain_stream``), with the rows of a tile
+halved (down to 2) until h (and the chain's dgh) fit: up to H=7,264
+both ways.
 
 Every tensor carries a leading agent axis A (the reference vmaps the
 scan over agents), so each agent has its own W_h. ``LAUNCHES`` counts
-the launches of each wrapper, and under ``gru_forward_stream`` and
+the launches of each wrapper, under ``gru_forward_cluster`` those that
+ran the cluster kernel and under ``gru_forward_stream`` and
 ``gru_backward_stream`` those that ran the streaming kernels
 (:func:`route`); ``SHAPE_LAUNCHES`` counts the same launches by
 (A, T, B, H) and ``STREAM_LAUNCHES`` by the CUDA stream they were queued
@@ -37,13 +41,29 @@ from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.gru import ref
 
 LAUNCHES = {"gru_forward": 0, "gru_backward": 0, "gru_forward_stream": 0,
-            "gru_backward_stream": 0}
+            "gru_backward_stream": 0, "gru_forward_cluster": 0}
 SHAPE_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
 STREAM_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
 _count_lock = threading.Lock()
+_MAX_ACTIVE = {}                 # (device, hidden, CTAs, rows) -> clusters
 RESIDENT_HIDDEN = 128            # csrc/gru.cu's RESIDENT_HIDDEN
 MAX_TILE_ROWS = 8                # batch rows a block carries through T
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
+# csrc/gru.cu's cluster forward: CTAs of 32 units, tiles of 64 down to 8
+# rows, threads of 8 rows x 4 units, 256 a CTA, clusters of up to 16
+CLUSTER_UNITS = 32
+CLUSTER_ROWS = (64, 32, 16, 8)
+CLUSTER_THREADS, CLUSTER_RT, CLUSTER_UT = 256, 8, 4
+MAX_CLUSTER = 16
+CLUSTER_HIDDEN = 512             # the widest hidden with a cluster plan
+# the fewest steps at which the cluster forward beats the streaming one on
+# a grid of more clusters than the card holds at once, by the most CTAs a
+# cluster: it first loads the CTAs' W_h slices, which the streaming kernel
+# reads as it goes. Measured at one width a band (NVIDIA H100 80GB HBM3,
+# benchmarks/torch_tree_times.py --gru-sweep): hidden 160 (5 CTAs) and
+# 256 (8) from T=2, 384 (12) from T=4, 512 (16) from T=8; the widths
+# between take their band's value unmeasured.
+CLUSTER_MIN_STEPS = {8: 2, 12: 4, MAX_CLUSTER: 8}
 
 
 def tile_rows(batch: int, agents: int = 1, min_blocks: int = 1) -> int:
@@ -77,19 +97,97 @@ def _check_inputs(gi, wh, bh, h0, resets):
     return a, t, b, hdim
 
 
-def route(hdim: int) -> str:
-    """The kernels a launch at hidden ``hdim`` runs, as ``csrc/gru.cu``
-    picks them: ``"resident"`` (``gru_fwd``, ``gru_bwd_chain``, W_h held
-    for all T steps) up to RESIDENT_HIDDEN, ``"stream"``
-    (``gru_fwd_stream``, ``gru_bwd_chain_stream``) above."""
-    return "stream" if hdim > RESIDENT_HIDDEN else "resident"
+def route(hdim: int, direction: str = "forward") -> str:
+    """The kernel a launch at hidden ``hdim`` runs in ``direction``
+    (``"forward"`` or ``"backward"``): ``"resident"`` (``gru_fwd``,
+    ``gru_bwd_chain``, W_h held by one block for all T steps) up to
+    RESIDENT_HIDDEN; above it the forward's ``"cluster"``
+    (``gru_fwd_cluster``) up to CLUSTER_HIDDEN, and ``"stream"``
+    (``gru_fwd_stream``, ``gru_bwd_chain_stream``) for the rest: the
+    route of a long sequence; :func:`forward_route` gives a launch's."""
+    if hdim <= RESIDENT_HIDDEN:
+        return "resident"
+    if direction == "forward" and hdim <= CLUSTER_HIDDEN:
+        return "cluster"
+    return "stream"
+
+
+def forward_route(shape, sm_count: int, max_active) -> str:
+    """The kernel the forward launches at shape (A, T, B, H) on a card of
+    ``sm_count`` SMs that holds ``max_active(hdim, ctas, rows)`` clusters
+    of a plan at once (``gru_forward_cluster_max_active``):
+    :func:`route`'s, except that a cluster launch of fewer than
+    CLUSTER_MIN_STEPS steps whose A x tiles clusters do not all fit on
+    the card at once streams. A pure function of the shape and the
+    card."""
+    a, t, b, hdim = shape
+    kind = route(hdim)
+    if kind != "cluster":
+        return kind
+    ctas, rows = cluster_plan(hdim, b, a, sm_count)
+    min_steps = next(n for c, n in sorted(CLUSTER_MIN_STEPS.items())
+                     if ctas <= c)
+    one_wave = a * -(-b // rows) <= max_active(hdim, ctas, rows)
+    return "cluster" if one_wave or t >= min_steps else "stream"
+
+
+def _max_active(ext, device):
+    """``max_active`` of :func:`forward_route` for ``device``, each plan
+    asked of the card once."""
+    def ask(hdim, ctas, rows):
+        key = (device.index, hdim, ctas, rows)
+        if key not in _MAX_ACTIVE:
+            with torch.cuda.device(device):
+                _MAX_ACTIVE[key] = ext.gru_forward_cluster_max_active(
+                    hdim, ctas, rows)
+        return _MAX_ACTIVE[key]
+    return ask
+
+
+def cluster_ks(rows: int) -> int:
+    """Lanes of a unit group over the reduction axis in the cluster
+    forward: as many as keep a CTA at CLUSTER_THREADS threads."""
+    return CLUSTER_THREADS * CLUSTER_RT * CLUSTER_UT // (CLUSTER_UNITS * rows)
+
+
+def cluster_smem_bytes(hdim: int, rows: int) -> int:
+    """Shared memory of one CTA of the cluster forward, as ``csrc/gru.cu``
+    lays it out: HP rows of its 3 x CLUSTER_UNITS columns of W_h, and h
+    double-buffered, ``rows`` rows of HP floats (HP: hidden rounded up to
+    4 x the lanes, zeros past it)."""
+    ks = cluster_ks(rows)
+    hp = -(-hdim // (4 * ks)) * (4 * ks)
+    return 4 * (3 * CLUSTER_UNITS + 2 * rows) * hp
+
+
+def cluster_plan(hdim: int, batch: int = CLUSTER_ROWS[0], agents: int = 1,
+                 min_ctas: int = 1):
+    """(CTAs a cluster, rows a tile) of the cluster forward at hidden
+    ``hdim``, or None where it takes no plan (hidden above CLUSTER_HIDDEN
+    or not above RESIDENT_HIDDEN). A CTA takes CLUSTER_UNITS units, so
+    hidden/32 CTAs, rounded up, up to MAX_CLUSTER. The rows: the batch's
+    (a power of two from 8 to 64), halved while a CTA's shared memory
+    does not fit a block or the grid of agents x tiles x CTAs has fewer
+    than ``min_ctas`` CTAs; at 8 rows any hidden up to 512 fits. A pure
+    function of the shape."""
+    ctas = -(-hdim // CLUSTER_UNITS)
+    if hdim <= RESIDENT_HIDDEN or ctas > MAX_CLUSTER:
+        return None
+    rows = CLUSTER_ROWS[-1]
+    while rows < min(batch, CLUSTER_ROWS[0]):
+        rows *= 2
+    while rows > CLUSTER_ROWS[-1] and (
+            cluster_smem_bytes(hdim, rows) > MAX_SMEM_BYTES or
+            agents * -(-batch // rows) * ctas < min_ctas):
+        rows //= 2
+    return ctas, rows
 
 
 def fit_rows(rows: int, hdim: int, smem_bytes) -> int:
     """``rows`` halved (down to 2) while ``smem_bytes(hdim, rows)`` is
     more than a block's shared memory; only the streaming kernels
-    shrink, the resident ones fit at any rows."""
-    while rows > 2 and route(hdim) == "stream" and \
+    (above RESIDENT_HIDDEN) shrink, the resident ones fit at any rows."""
+    while rows > 2 and hdim > RESIDENT_HIDDEN and \
             smem_bytes(hdim, rows) > MAX_SMEM_BYTES:
         rows //= 2
     return rows
@@ -102,12 +200,17 @@ def _check_smem(nbytes: int, what: str, hdim: int):
             f"hidden {hdim}; a block has {MAX_SMEM_BYTES}")
 
 
-def _count(name: str, shape, device) -> None:
+def _count(name: str, shape, device, kind: str = None) -> None:
+    """Count one launch of wrapper ``name`` at ``shape`` on route ``kind``
+    (by default :func:`route`'s at its hidden width)."""
+    if kind is None:
+        kind = route(shape[-1], "forward" if name == "gru_forward"
+                     else "backward")
     stream = torch.cuda.current_stream(device).cuda_stream
     with _count_lock:
         LAUNCHES[name] += 1
-        if route(shape[-1]) == "stream":
-            LAUNCHES[f"{name}_stream"] += 1
+        if kind != "resident":
+            LAUNCHES[f"{name}_{kind}"] += 1
         for table, k in ((SHAPE_LAUNCHES, shape), (STREAM_LAUNCHES, stream)):
             table[name][k] = table[name].get(k, 0) + 1
 
@@ -119,12 +222,18 @@ def forward(gi, wh, bh, h0, resets):
     if hs.numel() == 0:
         return hs
     ext = build.extension()
-    # smaller tiles while agents x tiles leaves SMs idle
-    rows = fit_rows(tile_rows(b, a, _sm_count(gi.device)), hdim,
-                    ext.gru_forward_smem_bytes)
-    _check_smem(ext.gru_forward_smem_bytes(hdim, rows), "forward", hdim)
-    ext.gru_forward(gi, wh, bh, h0, resets, hs, rows)
-    _count("gru_forward", (a, t, b, hdim), gi.device)
+    sms = _sm_count(gi.device)
+    kind = forward_route((a, t, b, hdim), sms, _max_active(ext, gi.device))
+    if kind == "cluster":
+        ext.gru_forward_cluster(gi, wh, bh, h0, resets, hs,
+                                *cluster_plan(hdim, b, a, sms))
+    else:
+        # smaller tiles while agents x tiles leaves SMs idle
+        rows = fit_rows(tile_rows(b, a, sms), hdim,
+                        ext.gru_forward_smem_bytes)
+        _check_smem(ext.gru_forward_smem_bytes(hdim, rows), "forward", hdim)
+        ext.gru_forward(gi, wh, bh, h0, resets, hs, rows)
+    _count("gru_forward", (a, t, b, hdim), gi.device, kind)
     return hs
 
 
@@ -151,7 +260,8 @@ def backward(gi, wh, bh, h0, resets, hs, g):
     part = new(ext.gru_backward_part_floats(a, t, b, hdim))
     ext.gru_backward(gi, wh, bh, h0, resets, hs, g, gh, rgate, part, dgi,
                      dwh, dbh, dh0, rows)
-    _count("gru_backward", (a, t, b, hdim), gi.device)
+    _count("gru_backward", (a, t, b, hdim), gi.device,
+           route(hdim, "backward"))
     return dgi, dwh, dbh, dh0
 
 

@@ -99,6 +99,12 @@ def _gru_inputs(device, a, t, b, h, seed, reset_p=0.2):
     return ins, resets, rnd(a, t, b, h)
 
 
+def _max_active():
+    """The card's ``max_active`` for ``gru_kernel.forward_route``."""
+    from repro_torch.kernels import build
+    return build.extension().gru_forward_cluster_max_active
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("a,t,b,h", [
     (3, 17, 5, 16), (2, 9, 21, 64), (4, 1, 16, 64), (100, 128, 7, 64),
@@ -114,11 +120,21 @@ def _gru_inputs(device, a, t, b, h, seed, reset_p=0.2):
     (2, 6, 3, 256),
     (2, 9, 21, 512),      # three tiles at H=512
     (3, 4, 2, 300),       # a streaming width no warp multiple
-    (100, 7, 128, 256)])  # full width: 100 agents, 16 tiles each
+    (100, 7, 128, 256),   # full width: 100 agents, 16 tiles each
+    (100, 1, 16, 256),    # the rollout cell (T=1) of 100 agents: streamed
+    (4, 1, 9, 512),       # T=1, 8 clusters of 16 CTAs: more than fit
+    (3, 1, 9, 512),       # T=1 in 16-CTA clusters, 6 fit at once
+    (4, 1, 8, 256),       # the rollout cell on the cluster route
+    (16, 16, 64, 512),    # the policy-like wide shape
+    (2, 5, 3, 640),       # above the cluster's widest: streamed
+    (3, 6, 70, 129)])     # the narrowest cluster: 5 CTAs, 2 tiles of 64
 def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
     """Forward and backward, with resets, over one and several batch
     tiles (b=21 spans three tiles of 8) and at the main path's shapes;
-    above hidden 128 each launch is counted on the streaming route."""
+    each launch is counted under the route ``route`` names for its
+    direction (above hidden 128: the forward's cluster route up to 512
+    where ``forward_route`` takes it, streaming otherwise; the backward
+    streaming)."""
     ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=0)
     k_leaves = [x.clone().requires_grad_() for x in ins]
     p_leaves = [x.clone().requires_grad_() for x in ins]
@@ -129,10 +145,63 @@ def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
     for gk, gp in zip(torch.autograd.grad(hs_k, k_leaves, g),
                       torch.autograd.grad(hs_p, p_leaves, g)):
         assert_close_scaled(gk, gp, GRU_TOL)
-    stream = int(h > 128)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    fwd = gru_kernel.forward_route((a, t, b, h), sms, _max_active())
+    bwd = gru_kernel.route(h, "backward")
     assert {k: gru_kernel.LAUNCHES[k] - before[k] for k in before} == {
         "gru_forward": 1, "gru_backward": 1,
-        "gru_forward_stream": stream, "gru_backward_stream": stream}
+        "gru_forward_stream": int(fwd == "stream"),
+        "gru_forward_cluster": int(fwd == "cluster"),
+        "gru_backward_stream": int(bwd == "stream")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,t,b,h", [(3, 9, 20, 256), (2, 8, 8, 512),
+                                     (100, 7, 128, 256), (3, 1, 16, 384)])
+def test_gru_cluster_forward_is_deterministic(cuda_device, a, t, b, h):
+    """The cluster forward sums each gate in a fixed order (a lane's
+    chunks in turn, then a fixed shuffle tree), so two runs give the same
+    bits; its plan fits a block and the card holds at least one cluster
+    of it at once."""
+    from repro_torch.kernels import build
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert gru_kernel.forward_route((a, t, b, h), sms,
+                                    _max_active()) == "cluster"
+    ins, resets, _ = _gru_inputs(cuda_device, a, t, b, h, seed=5)
+    first = gru_kernel.forward(*ins, resets)
+    second = gru_kernel.forward(*ins, resets)
+    assert torch.equal(first, second)
+    ctas, rows = gru_kernel.cluster_plan(h, b, a, sms)
+    ext = build.extension()
+    assert ext.gru_forward_cluster_smem_bytes(h, ctas, rows) == \
+        gru_kernel.cluster_smem_bytes(h, rows)
+    assert ext.gru_forward_cluster_max_active(h, ctas, rows) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,t,b,h", [(3, 9, 20, 256), (2, 8, 8, 512),
+                                     (2, 4, 5, 160)])
+def test_gru_cluster_forward_takes_unaligned_views(cuda_device, a, t, b, h):
+    """The cluster forward reads W_h and h0 with 16-byte copies only where
+    the tensor starts 16-byte aligned: contiguous views at an odd float
+    offset give the same bits as aligned copies of them, and match the
+    plain version."""
+    ins, resets, _ = _gru_inputs(cuda_device, a, t, b, h, seed=6)
+
+    def odd(x):
+        flat = torch.empty(x.numel() + 1, device=cuda_device)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        return view
+
+    gi, wh, bh, h0 = ins
+    before = gru_kernel.LAUNCHES["gru_forward_cluster"]
+    got = gru_kernel.forward(gi, odd(wh), bh, odd(h0), resets)
+    assert gru_kernel.LAUNCHES["gru_forward_cluster"] == before + 1
+    assert torch.equal(got, gru_kernel.forward(gi, wh, bh, h0, resets))
+    assert_close_scaled(got, gru_ref.gru_scan(gi, wh, bh, h0, resets),
+                        GRU_TOL)
 
 
 @pytest.mark.cuda
@@ -740,29 +809,37 @@ def test_flash_bf16_kernel_matches_plain_in_float32(
         f"{bad.any(-1).nonzero()[:4].tolist()}"
 
 
+def _launched(kernel):
+    """The launch counts' change that one launch on ``kernel`` makes."""
+    return {"flash_attention": 1,
+            **{r: int(r == kernel) for r in fa_kernel.ROUTES}}
+
+
 @pytest.mark.cuda
 def test_flash_routes_by_dtype(cuda_device):
     """bf16 goes to the tensor-core kernel and float32 to the FFMA kernel,
-    which still holds the reference's 2e-5; each launch counts once in
-    ``flash_attention`` and once under its kernel."""
+    which still holds the reference's 2e-5, as ``route`` names them;
+    each launch counts once in ``flash_attention`` and once under its
+    kernel."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(4, 192, 128, generator=gen, device=cuda_device)
                for _ in range(3))
     kw = dict(causal=True, sliding_window=70, softcap=50.0)
+    f32, bf16 = (fa_kernel.route(dt, 128)
+                 for dt in (torch.float32, torch.bfloat16))
+    assert (f32, bf16) == ("flash_fwd", "flash_fwd_sm90")
     counts = dict(fa_kernel.LAUNCHES)
     out = fa_kernel.forward(q, k, v, **kw)
     assert_allclose(out, fa_ref.attention_bhsd(q, k, v, **kw),
                     FLASH_TOL[torch.float32])
-    assert fa_kernel.LAUNCHES["flash_fwd"] == counts["flash_fwd"] + 1
-    assert fa_kernel.LAUNCHES["flash_fwd_sm90"] == counts["flash_fwd_sm90"]
+    assert {k: fa_kernel.LAUNCHES[k] - counts[k] for k in counts} == \
+        _launched(f32)
+    counts = dict(fa_kernel.LAUNCHES)
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out = fa_kernel.forward(qb, kb, vb, **kw)
     assert out.dtype == torch.bfloat16
-    assert fa_kernel.LAUNCHES["flash_fwd_sm90"] == \
-        counts["flash_fwd_sm90"] + 1
-    assert fa_kernel.LAUNCHES["flash_fwd"] == counts["flash_fwd"] + 1
-    assert fa_kernel.LAUNCHES["flash_attention"] == \
-        counts["flash_attention"] + 2
+    assert {k: fa_kernel.LAUNCHES[k] - counts[k] for k in counts} == \
+        _launched(bf16)
     # a view that is not 16-byte aligned cannot feed the tensor maps
     flat = torch.zeros(4 * 192 * 128 + 1, device=cuda_device,
                        dtype=torch.bfloat16)
@@ -784,24 +861,26 @@ def test_flash_routes_by_dtype(cuda_device):
 ])
 def test_flash_ffma_head_dims_match_plain(cuda_device, dtype, bh, bhkv, t,
                                           d, window, softcap, causal):
-    """The FFMA kernel ``flash_fwd_padded`` at head_dims outside the
-    tensor-core kernel's 64/128/256, float32 and bf16 (widened as it
-    loads), against
-    the plain version in float32 on the same inputs: FLASH_TOL in float32;
-    in bf16 only the output's rounding (2^-8 relative) and the order of
-    float32 sums differ, FLASH_BF16_F32_TOL."""
+    """Head_dims outside the tensor-core kernel's 64/128/256: float32
+    and bf16 above 256 on the FFMA kernel ``flash_fwd_padded`` (bf16
+    widened as it loads), bf16 up to 256 on ``flash_fwd_sm90_padded``, as
+    ``route`` names them, against the plain version in float32 on the
+    same inputs: FLASH_TOL in float32; in bf16 only p's split, the
+    output's rounding (2^-8 relative) and the order of float32 sums
+    differ, FLASH_BF16_F32_TOL."""
     gen = torch.Generator(device=cuda_device).manual_seed(d)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
     q, k, v = (rnd(bh, t, d) * 3).to(dtype), (rnd(bhkv, t, d) * 3).to(dtype), \
         rnd(bhkv, t, d).to(dtype)
     kw = dict(causal=causal, sliding_window=window, softcap=softcap)
-    assert fa_kernel.route(dtype, d) == "flash_fwd_padded"
+    kernel = fa_kernel.route(dtype, d)
+    assert kernel == ("flash_fwd_sm90_padded" if dtype == torch.bfloat16
+                      and d <= 256 else "flash_fwd_padded")
     before = dict(fa_kernel.LAUNCHES)
     out = fa_kernel.forward(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert {k: fa_kernel.LAUNCHES[k] - before[k] for k in before} == {
-        "flash_attention": 1, "flash_fwd_padded": 1, "flash_fwd": 0,
-        "flash_fwd_sm90": 0}
+    assert {k: fa_kernel.LAUNCHES[k] - before[k] for k in before} == \
+        _launched(kernel)
     assert out.dtype == dtype and out.shape == q.shape
     want = fa_ref.attention_bhsd(q.float(), k.float(), v.float(), **kw)
     if dtype == torch.float32:
@@ -823,9 +902,10 @@ def test_flash_head_dim_96_at_t4096(cuda_device, dtype):
     q, k, v = (rnd(1, 4096, 8, 96) * 3).to(dtype), \
         (rnd(1, 4096, 2, 96) * 3).to(dtype), rnd(1, 4096, 2, 96).to(dtype)
     kw = dict(causal=True, sliding_window=1024, softcap=50.0)
-    before = fa_kernel.LAUNCHES["flash_fwd_padded"]
+    kernel = fa_kernel.route(dtype, 96)
+    before = fa_kernel.LAUNCHES[kernel]
     out = fa_ops.flash_attention(q, k, v, **kw)
-    assert fa_kernel.LAUNCHES["flash_fwd_padded"] == before + 1
+    assert fa_kernel.LAUNCHES[kernel] == before + 1
     want = fa_ref.attention(q.float(), k.float(), v.float(), **kw)
     if dtype == torch.float32:
         assert_allclose(out, want, FLASH_TOL[dtype])
@@ -834,6 +914,82 @@ def test_flash_head_dim_96_at_t4096(cuda_device, dtype):
         diff = (out.double() - want.double()).abs()
         assert not bool((diff > atol + rtol * want.double().abs()).any()), \
             f"max abs err {float(diff.max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,bhkv,t,d,window,softcap,causal", [
+    (4, 2, 300, 20, 64, 50.0, True),       # d % 8 != 0: rows padded to 24
+    (2, 1, 129, 1, None, None, True),      # a head_dim of one, MQA
+    (4, 2, 200, 100, None, 30.0, False),   # d % 8 != 0, padded to 128
+    (4, 2, 257, 200, 100, 50.0, True),     # DP 256, window
+    (4, 4, 190, 250, 17, 50.0, True),      # d % 8 != 0 at DP 256
+    (8, 2, 4100, 16, 32, 50.0, True),      # the reduced configs', long
+    (4, 2, 330, 136, None, None, True),    # DP 192, causal only
+])
+def test_flash_sm90_padded_matches_plain_in_float32(
+        cuda_device, bh, bhkv, t, d, window, softcap, causal):
+    """``flash_fwd_sm90_padded`` on bf16 inputs, q scaled by 8 so a few
+    keys lead each softmax and the scores reach the softcap, against the
+    plain version in float32 on the same inputs (FLASH_BF16_F32_TOL): the
+    zero columns past d, the rows padded to 8 and the output's row stride
+    d move no output."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    q = (rnd(bh, t, d) * 8).bfloat16()
+    k, v = rnd(bhkv, t, d).bfloat16(), rnd(bhkv, t, d).bfloat16()
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    assert fa_kernel.route(torch.bfloat16, d) == "flash_fwd_sm90_padded"
+    before = dict(fa_kernel.LAUNCHES)
+    out = fa_kernel.forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {k: fa_kernel.LAUNCHES[k] - before[k] for k in before} == \
+        _launched("flash_fwd_sm90_padded")
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    want = fa_ref.attention_bhsd(q.float(), k.float(), v.float(), **kw)
+    atol, rtol = FLASH_BF16_F32_TOL
+    diff = (out.double() - want.double()).abs()
+    bad = diff > atol + rtol * want.double().abs()
+    assert not bool(bad.any()), \
+        f"max abs err {float(diff.max()):.3e} at rows " \
+        f"{bad.any(-1).nonzero()[:4].tolist()}"
+
+
+@pytest.mark.cuda
+def test_flash_sm90_padded_alignment(cuda_device):
+    """At d % 8 == 0 the tensor maps read q, k, v in place, so a view
+    that is not 16-byte aligned raises; at d % 8 != 0 the rows are copied
+    into aligned scratch first, and the same view runs."""
+    kw = dict(causal=True, sliding_window=70, softcap=50.0)
+    for d in (96, 36):
+        flat = torch.randn(4 * 192 * d + 1, device=cuda_device).bfloat16()
+        odd = flat[1:].view(4, 192, d)
+        k, v = odd[:2].clone(), odd[2:].clone()
+        if d % 8 == 0:
+            with pytest.raises(ValueError, match="aligned"):
+                fa_kernel.forward(odd, k, v, **kw)
+            continue
+        out = fa_kernel.forward(odd, k, v, **kw)
+        want = fa_ref.attention_bhsd(odd.float(), k.float(), v.float(), **kw)
+        atol, rtol = FLASH_BF16_F32_TOL
+        diff = (out.double() - want.double()).abs()
+        assert not bool((diff > atol + rtol * want.double().abs()).any())
+
+
+@pytest.mark.cuda
+def test_flash_extension_refuses_what_no_route_sends(cuda_device):
+    """The FFMA kernel has no bf16 instantiation at head_dim <= 256 (the
+    tensor-core route takes those), and the padded tensor-core binding
+    refuses scratch rows that are not q, k, v's padded to 8."""
+    from repro_torch.kernels import build
+    ext = build.extension()
+    q = torch.randn(2, 64, 96, device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError):
+        ext.flash_attention(q, q, q, torch.empty_like(q), True, 0, 0.0, 0.1)
+    q = torch.randn(2, 64, 36, device=cuda_device).bfloat16()
+    short = torch.empty(2, 64, 36, device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError, match="rounded up to 8"):
+        ext.flash_attention_sm90_padded(q, q, q, torch.empty_like(q), short,
+                                        short, short, True, 0, 0.0, 0.1)
 
 
 def _ragged_heads(device, b, t, chunk):
@@ -1062,7 +1218,7 @@ def test_moe_and_hybrid_prefill_flash_matches_plain(cuda_device, arch,
     other = "flash_fwd_sm90" if dtype == torch.float32 else "flash_fwd"
     assert {k: after[k] - counts[k] for k in counts} == {
         "flash_attention": launches, kernel: launches, other: 0,
-        "flash_fwd_padded": 0}
+        "flash_fwd_padded": 0, "flash_fwd_sm90_padded": 0}
     assert fa_kernel.LAUNCHES == after      # the plain prefill: none
     assert got.dtype == torch.float32
     assert tuple(got.shape) == (2, 1, cfg.vocab)

@@ -2,11 +2,12 @@
 numpy-seeded inputs through the JAX package's Pallas kernel in interpret
 mode and through the port's plain version (the kernel's CPU path and its
 oracle on the card), at shapes the wide routes take: the GRU at hidden
-192 and 256 (``gru_fwd_stream``/``gru_bwd_chain_stream``), flash
-attention at head_dim 16, 80 and 320 (``flash_fwd_padded``, float32 and
-bfloat16), the SSD block at chunk 256 with head_dim and state 6
-(``ssd_chunk_tiled``); and the wrappers' range checks and routes, which
-are decided before any launch, without a card. ``test_torch_cuda.py``
+192 and 256 (``gru_fwd_cluster``/``gru_bwd_chain_stream``), flash
+attention at head_dim 16, 80 and 320 (``flash_fwd_sm90_padded`` in
+bfloat16 up to 256, ``flash_fwd_padded`` otherwise), the SSD block at
+chunk 256 with head_dim and state 6 (``ssd_chunk_tiled``); and the
+wrappers' range checks, routes and the GRU cluster's plan, which are
+decided before any launch, without a card. ``test_torch_cuda.py``
 holds each new route to its plain version on the card.
 
 Tolerances: the GRU 1e-5 (``tests/test_kernels.py``'s), absolute at
@@ -107,13 +108,17 @@ def test_gru_fit_rows(hdim, rows, want):
     assert gru_kernel.fit_rows(rows, hdim, fwd) == want
 
 
-@pytest.mark.parametrize("hdim,want", [(1, "resident"), (128, "resident"),
-                                       (129, "stream"), (512, "stream")])
-def test_gru_route_is_counted_at_launch(hdim, want, monkeypatch):
-    """``route`` names the kernels a width runs; a launch's count (what a
-    wrapper records after its kernel) adds to ``{name}_stream`` only on
-    the streaming route."""
+@pytest.mark.parametrize("hdim,want,want_bwd", [
+    (1, "resident", "resident"), (128, "resident", "resident"),
+    (129, "cluster", "stream"), (256, "cluster", "stream"),
+    (512, "cluster", "stream"), (513, "stream", "stream"),
+    (7264, "stream", "stream")])
+def test_gru_route_is_counted_at_launch(hdim, want, want_bwd, monkeypatch):
+    """``route`` names the kernel a width runs in each direction; a
+    launch's count (what a wrapper records after its kernel) adds to
+    ``{name}_{route}`` on the cluster and streaming routes only."""
     assert gru_kernel.route(hdim) == want
+    assert gru_kernel.route(hdim, "backward") == want_bwd
     monkeypatch.setattr(gru_kernel, "LAUNCHES", dict.fromkeys(
         gru_kernel.LAUNCHES, 0))
     monkeypatch.setattr(gru_kernel, "SHAPE_LAUNCHES",
@@ -124,10 +129,83 @@ def test_gru_route_is_counted_at_launch(hdim, want, monkeypatch):
                         lambda device: type("S", (), {"cuda_stream": 0}))
     for name in ("gru_forward", "gru_backward"):
         gru_kernel._count(name, (2, 3, 4, hdim), "cuda:0")
-    stream = int(want == "stream")
     assert gru_kernel.LAUNCHES == {
         "gru_forward": 1, "gru_backward": 1,
-        "gru_forward_stream": stream, "gru_backward_stream": stream}
+        "gru_forward_stream": int(want == "stream"),
+        "gru_forward_cluster": int(want == "cluster"),
+        "gru_backward_stream": int(want_bwd == "stream")}
+
+
+@pytest.mark.parametrize("hdim,batch,agents,plan", [
+    (129, 128, 100, (5, 64)),     # the narrowest: 5 CTAs of 32 units
+    (256, 128, 100, (8, 64)),     # the AIP's: 98,304 B of W_h a CTA
+    (256, 128, 4, (8, 16)),       # rows halved until 132 CTAs run
+    (256, 3, 1, (8, 8)),          # a small batch: the smallest tile
+    (384, 64, 16, (12, 16)),      # 147,456 B of W_h: 16 rows fit
+    (512, 64, 16, (16, 8))])      # 16 CTAs of 196,608 B: 8 rows fit
+def test_gru_cluster_plan_fits_a_block(hdim, batch, agents, plan):
+    """The cluster forward's plan (CTAs, rows): a CTA's W_h columns and
+    its double-buffered h fit a block's shared memory (12 H^2 / C bytes
+    of weights at 32 units a CTA, 8 R H of h), at most 16 CTAs."""
+    got = gru_kernel.cluster_plan(hdim, batch, agents, 132)
+    assert got == plan
+    ctas, rows = got
+    assert ctas <= gru_kernel.MAX_CLUSTER
+    assert 12 * 32 * hdim + 8 * rows * hdim <= \
+        gru_kernel.cluster_smem_bytes(hdim, rows) <= \
+        gru_kernel.MAX_SMEM_BYTES
+    if rows < 64:    # twice the rows would not fit, or leave SMs idle
+        assert gru_kernel.cluster_smem_bytes(hdim, 2 * rows) > \
+            gru_kernel.MAX_SMEM_BYTES or min(batch, 64) <= rows or \
+            agents * -(-batch // (2 * rows)) * ctas < 132
+
+
+# clusters of a plan an NVIDIA H100 80GB HBM3 holds at once, by CTAs a
+# cluster (gru_forward_cluster_max_active, at one CTA an SM)
+H100_CLUSTERS = {5: 22, 8: 15, 12: 7, 16: 7}
+
+
+def _h100_clusters(hdim, ctas, rows):
+    return H100_CLUSTERS[ctas]
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((100, 128, 7, 64), "resident"),
+    ((100, 7, 128, 256), "cluster"),    # the AIP's training batch
+    ((100, 2, 128, 256), "cluster"),    # clusters of 8 from T=2
+    ((100, 1, 16, 256), "stream"),      # the rollout cell of 100 agents
+    ((4, 1, 8, 256), "cluster"),        # ... of 4: 32 CTAs, one wave
+    ((4, 1, 8, 512), "cluster"),        # 64 CTAs, one wave
+    ((15, 1, 8, 256), "cluster"),       # 15 clusters of 8 fit at once
+    ((16, 1, 8, 256), "stream"),        # 16 do not, though 128 CTAs < 132
+    ((7, 1, 8, 512), "cluster"),        # 7 clusters of 16 fit at once
+    ((8, 1, 8, 512), "stream"),         # 8 do not, though 128 CTAs < 132
+    ((100, 1, 128, 160), "stream"),     # clusters of 5 from T=2
+    ((100, 2, 128, 160), "cluster"),
+    ((16, 2, 64, 384), "stream"),       # clusters of 12 from T=4
+    ((16, 4, 64, 384), "cluster"),
+    ((7, 1, 8, 384), "cluster"),        # 7 clusters of 12 fit at once
+    ((8, 2, 8, 384), "stream"),         # 8 do not
+    ((16, 4, 64, 512), "stream"),       # clusters of 16 from T=8
+    ((16, 16, 64, 512), "cluster"),
+    ((2, 5, 3, 640), "stream")])        # above the cluster's widest
+def test_gru_forward_route_by_shape(shape, want):
+    """The forward's launch route on a card of 132 SMs that holds
+    H100_CLUSTERS clusters of a plan at once: the cluster kernel above
+    hidden 128 where it is no slower than the streaming one, on a long
+    enough sequence or a grid whose clusters all fit at once."""
+    assert gru_kernel.forward_route(shape, 132, _h100_clusters) == want
+
+
+def test_gru_cluster_plan_ends_at_its_widest_hidden():
+    """Every width from 129 to CLUSTER_HIDDEN has a plan, the next has
+    none (17 CTAs), and ``route`` names ``"stream"`` there."""
+    widths = range(gru_kernel.RESIDENT_HIDDEN + 1,
+                   gru_kernel.CLUSTER_HIDDEN + 1)
+    assert all(gru_kernel.cluster_plan(h, 8) is not None for h in widths)
+    assert gru_kernel.cluster_plan(gru_kernel.CLUSTER_HIDDEN + 1, 8) is None
+    assert gru_kernel.cluster_plan(gru_kernel.RESIDENT_HIDDEN, 8) is None
+    assert gru_kernel.route(gru_kernel.CLUSTER_HIDDEN + 1) == "stream"
 
 
 def test_gru_range_checks_without_a_card():
@@ -170,17 +248,25 @@ def test_flash_head_dims_match_reference_kernel(d, dtype):
     (torch.bfloat16, 64, "flash_fwd_sm90"),
     (torch.bfloat16, 128, "flash_fwd_sm90"),
     (torch.bfloat16, 256, "flash_fwd_sm90"),
-    (torch.bfloat16, 16, "flash_fwd_padded"),   # the reduced gemma2-9b
-    (torch.bfloat16, 96, "flash_fwd_padded"),
+    (torch.bfloat16, 16, "flash_fwd_sm90_padded"),   # the reduced gemma2-9b
+    (torch.bfloat16, 96, "flash_fwd_sm90_padded"),
     (torch.bfloat16, 512, "flash_fwd_padded"),
     (torch.float32, 64, "flash_fwd"),
     (torch.float32, 256, "flash_fwd"),
-    (torch.float32, 320, "flash_fwd_padded")])
+    (torch.float32, 320, "flash_fwd_padded"),
+    (torch.bfloat16, 1, "flash_fwd_sm90_padded"),
+    (torch.bfloat16, 20, "flash_fwd_sm90_padded"),   # rows padded to 24
+    (torch.bfloat16, 200, "flash_fwd_sm90_padded"),  # DP 256
+    (torch.bfloat16, 257, "flash_fwd_padded"),
+    (torch.float32, 16, "flash_fwd_padded"),
+    (torch.float32, 96, "flash_fwd_padded")])
 def test_flash_route(dtype, d, kernel):
     """At 64, 128 or 256 bf16 stays on the tensor-core kernel and float32
-    on the FFMA kernel ``flash_fwd``; the other head_dims, in either
-    dtype, go to ``flash_fwd_padded``."""
+    on the FFMA kernel ``flash_fwd``; bf16 at the other head_dims up to
+    256 goes to ``flash_fwd_sm90_padded``, and the rest (float32, bf16
+    above 256) to ``flash_fwd_padded``."""
     assert fa_kernel.route(dtype, d) == kernel
+    assert kernel in fa_kernel.ROUTES
 
 
 def test_flash_range_checks_without_a_card():

@@ -100,9 +100,11 @@ def test_sharded_row_keeps_its_ranks_launches(sweep):
     assert len(ranks) == 2
     wrappers = ("gru_forward", "gru_backward", "gae_forward", "gae_backward")
     for got in ranks:
-        # the GRU wrappers also count their streaming route's launches
+        # the GRU wrappers also count their cluster and streaming
+        # routes' launches
         assert set(got["launches"]) == {
-            *wrappers, "gru_forward_stream", "gru_backward_stream"}
+            *wrappers, "gru_forward_stream", "gru_backward_stream",
+            "gru_forward_cluster"}
         assert set(got["launches"].values()) == {0}
         assert got["by_shape"] == {k: {} for k in wrappers}
 
