@@ -17,8 +17,8 @@ It
      instructions of each flash kernel (the bf16 one must have HGMMA), and
      registers, stack and local memory of each GRU kernel (those that keep
      W_h in registers must not spill), and the same with HGMMA for each
-     instantiation of the bf16 SSD kernel ``ssd_chunk_sm90`` (each must
-     have HGMMA);
+     instantiation of the bf16 SSD kernels ``ssd_chunk_sm90`` and
+     ``ssd_chunk_sm90_long`` (each must have HGMMA);
   3. holds every kernel against its plain torch version on the card at
      the shapes its path gives it and times kernel, plain version and,
      where one exists, the one PyTorch call for the same function, with
@@ -30,9 +30,11 @@ It
      times per launch and per step at each; the GRU above hidden 128 the
      same way at GRU_WIDE_SHAPES (100x7x128 at hidden 256, 16x16x64 at
      512: the forward on the cluster kernel ``gru_fwd_cluster``, twice for
-     its bits, the backward on ``gru_bwd_chain_stream``) and at
-     GRU_STREAM_SHAPE (hidden 640: ``gru_fwd_stream`` too), each beside
-     its bound and the plain version's time; GAE forward (bit for bit) and
+     its bits, the backward's chain on the cluster chain
+     ``gru_bwd_chain_cluster``, each plan printed) and at GRU_STREAM_SHAPE
+     (hidden 640: ``gru_fwd_stream`` and ``gru_bwd_chain_stream``), each
+     beside its bound and the plain version's time; GAE forward (bit for
+     bit) and
      backward (1e-6), each with its device time per launch
      (``torch.profiler``) beside its host-inclusive time per call; flash
      attention at gemma2-9b's prefill
@@ -56,8 +58,10 @@ It
      ``ssd_chunk`` on the same inputs), both bf16 routes timed, and at
      zamba2-1.2b's width (64 heads, state 64); the tiled pair
      ``ssd_chunk_tiled`` (any chunk, P, N) at chunk 256 at mamba2's width
-     in bf16 and float32 and at P = N = 6 (SSD_TILED_CASES), timed beside
-     its bound and the plain version;
+     in float32 and at P = N = 6 in both dtypes (SSD_TILED_CASES), and bf16
+     at chunk 256 on the tensor cores (``ssd_chunk_sm90_long``, at
+     mamba2's and zamba2's widths: SSD_LONG_CASES), each timed beside its
+     bound and the plain version;
   4. drives the DIALS paths at side=10 (100 agents) at the library's
      default widths with the GRU AIP, ``use_kernels="on"``, checking every
      round record and printing each round's phase seconds: warehouse with
@@ -106,8 +110,8 @@ It
      kernel path against the plain path on a small input (one round,
      warehouse side=2); the same small warehouse with the recurrent
      policy's GRU at hidden 512 and the AIP's at 256 (WIDE_GRU_HIDDEN: the
-     cluster forward and the streaming backward, counted as the ``dials
-     wide gru`` path), kernels against plain (AIP and policy params 1e-4)
+     cluster forward and the cluster chain, counted as the ``dials wide
+     gru`` path), kernels against plain (AIP and policy params 1e-4)
      and every GRU and GAE kernel held to plain at each shape the round
      launched it; then the paper's experiment harness
      (``benchmarks/torch_run.py``): the ``fig3_learning`` cell of
@@ -151,7 +155,7 @@ It
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
      (2, 8192, 1536) bf16 activations (one launch of ``ssd_chunk_sm90``)
      against ``use_kernel=False``, and at chunk 256 (one launch of
-     ``ssd_chunk_tiled``) likewise, then times the first both warm (median
+     ``ssd_chunk_sm90_long``) likewise, then times the first both warm (median
      of 7) and
      profiles the kernel call the same way (the SSD kernel's share of its
      device time; one traced ``ssd_chunk_sm90`` launch a kept call);
@@ -231,10 +235,10 @@ PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 GRU_TOL = 1e-5
 GAE_TOL = 1e-6
-# the GRU above hidden 128 (the forward on the cluster kernel, the
-# backward streaming W_h): the paper's 100 agents at the AIP training's
-# T=7 over 128 rows at 256, and a policy-like 512; and one small shape
-# above the cluster's widest hidden, where the forward streams W_h too
+# the GRU above hidden 128 (the forward and the backward's chain on the
+# cluster kernels): the paper's 100 agents at the AIP training's T=7 over
+# 128 rows at 256, and a policy-like 512; and one small shape above the
+# cluster's widest hidden, where both directions stream W_h
 GRU_WIDE_SHAPES = ((100, 7, 128, 256), (16, 16, 64, 512))
 GRU_STREAM_SHAPE = (2, 5, 8, 640)
 # flash: |err| <= atol + rtol*|plain|. float32: the reference's 2e-5. bf16
@@ -356,10 +360,16 @@ MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
 ZAMBA2 = dict(heads=64, state=64)
 SSM_INPUT = (2, 8192)
 # the tiled SSD kernels (any chunk, P, N): chunk 256 at mamba2-780m's
-# layer width (B, T, heads, P, N, chunk, dtype), and P = N = 6
-SSD_TILED_CASES = ((2, 8192, 48, 64, 128, 256, "bfloat16"),
-                   (2, 8192, 48, 64, 128, 256, "float32"),
-                   (2, 8192, 48, 6, 6, 256, "float32"))
+# layer width in float32 (B, T, heads, P, N, chunk, dtype), and P = N = 6
+# in both dtypes (bf16 at P 64 and chunk 256 goes to the long tensor-core
+# route)
+SSD_TILED_CASES = ((2, 8192, 48, 64, 128, 256, "float32"),
+                   (2, 8192, 48, 6, 6, 256, "float32"),
+                   (2, 8192, 48, 6, 6, 256, "bfloat16"))
+# ssd_chunk_sm90_long (bf16, P 64, chunk 256): mamba2-780m's layer width
+# (N 128) and zamba2-1.2b's (64 heads, N 64)
+SSD_LONG_CASES = ((2, 8192, 48, 64, 128, 256, "bfloat16"),
+                  (2, 8192, 64, 64, 64, 256, "bfloat16"))
 SSM_TILED_CHUNK = 256
 SSM_TIMED = 7
 
@@ -721,62 +731,72 @@ def check_gru(gen, device, shapes):
 
 def check_gru_wide(gen, device):
     """The GRU above hidden 128: at GRU_WIDE_SHAPES the forward on the
-    cluster kernel (``gru_fwd_cluster``, its plan and the clusters the card
-    holds at once printed) and the backward on ``gru_bwd_chain_stream``,
-    at GRU_STREAM_SHAPE (above the cluster's widest hidden) both
-    streaming; each held to the plain version forward and backward
-    (GRU_TOL), the backward twice for its bits and the cluster forward
-    twice, and timed with CUDA events beside its bound and the plain
-    version's time. Returns the kernel rows of the cluster forward and
-    the streaming backward, timed at the first wide shape, and of the
-    streaming forward at GRU_STREAM_SHAPE."""
+    cluster kernel (``gru_fwd_cluster``) and the backward's chain on the
+    cluster chain (``gru_bwd_chain_cluster``), each plan and the clusters
+    the card holds of it at once printed; at GRU_STREAM_SHAPE (above the
+    cluster's widest hidden) both streaming (``gru_fwd_stream``,
+    ``gru_bwd_chain_stream``); each held to the plain version forward and
+    backward (GRU_TOL), the backward twice for its bits and the cluster
+    forward twice, and timed with CUDA events beside its bound and the
+    plain version's time. Returns the kernel rows of the cluster forward
+    and the cluster backward, timed at the first wide shape, and of the
+    streaming forward and backward at GRU_STREAM_SHAPE."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.gru import kernel as gk, ref as gref
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    max_active = build.extension().gru_forward_cluster_max_active
-    errs = {"cluster": 0.0, "stream": 0.0, "bwd": 0.0}
+    ext = build.extension()
+    max_active = {"forward": ext.gru_forward_cluster_max_active,
+                  "backward": ext.gru_backward_cluster_max_active}
+    errs = {"cluster": 0.0, "stream": 0.0, "bwd_cluster": 0.0,
+            "bwd_stream": 0.0}
     timed = {}
     for a, t, b, hdim in GRU_WIDE_SHAPES + (GRU_STREAM_SHAPE,):
-        kind = gk.forward_route((a, t, b, hdim), sms, max_active)
-        want = "stream" if (a, t, b, hdim) == GRU_STREAM_SHAPE else "cluster"
-        check(kind == want and gk.route(hdim, "backward") == "stream",
-              f"gru {a}x{t}x{b}x{hdim}: forward route {kind}, want {want}")
+        shape = (a, t, b, hdim)
+        kind = gk.forward_route(shape, sms, max_active["forward"])
+        bwd = gk.backward_route(shape, sms, max_active["backward"])
+        want = "stream" if shape == GRU_STREAM_SHAPE else "cluster"
+        check(kind == want and bwd == want,
+              f"gru {a}x{t}x{b}x{hdim}: forward route {kind}, backward "
+              f"route {bwd}, want {want}")
         fe, be, ins, g = gru_case(gen, device, a, t, b, hdim)
-        errs[kind], errs["bwd"] = max(errs[kind], fe), max(errs["bwd"], be)
+        errs[kind] = max(errs[kind], fe)
+        errs[f"bwd_{bwd}"] = max(errs[f"bwd_{bwd}"], be)
         hs = gk.forward(*ins)
         plan = ""
         if kind == "cluster":
-            ctas, rows = gk.cluster_plan(hdim, b, a, sms)
-            active = max_active(hdim, ctas, rows)
-            check(active >= 1, f"gru_fwd_cluster {ctas} CTAs x {rows} rows "
-                               f"at hidden {hdim}: the card holds {active}")
+            for direction in ("forward", "backward"):
+                ctas, rows = gk.cluster_plan(hdim, b, a, sms, direction)
+                active = max_active[direction](hdim, ctas, rows)
+                check(active >= 1, f"gru {direction} cluster {ctas} CTAs x "
+                                   f"{rows} rows at hidden {hdim}: the card "
+                                   f"holds {active}")
+                smem = (gk.cluster_smem_bytes(hdim, rows)
+                        if direction == "forward" else
+                        gk.cluster_chain_smem_bytes(hdim, ctas, rows))
+                plan += (f" [{direction}: cluster of {ctas} CTAs x {rows} "
+                         f"rows, {smem} B of shared memory a CTA, {active} "
+                         f"clusters at once]")
             check(torch.equal(hs, gk.forward(*ins)),
                   f"gru_fwd_cluster {a}x{t}x{b}x{hdim}: two calls differ in "
                   f"their bits")
-            plan = (f" [cluster of {ctas} CTAs x {rows} rows, "
-                    f"{gk.cluster_smem_bytes(hdim, rows)} B of shared memory "
-                    f"a CTA, {active} clusters at once; bitwise repeatable]")
+            plan += " both bitwise repeatable"
         leaves = [x.clone().requires_grad_() for x in ins[:4]]
         hs_p = gref.gru_scan(*leaves, ins[4])
         fb, bb = gru_bounds(a, t, b, hdim)
-        wide = (a, t, b, hdim) != GRU_STREAM_SHAPE
-        timed[(a, t, b, hdim)] = x = dict(
+        timed[shape] = x = dict(
             ms=cuda_ms(lambda: gk.forward(*ins), 10),
-            bwd_ms=cuda_ms(lambda: gk.backward(*ins, hs, g), 10)
-            if wide else None,
+            bwd_ms=cuda_ms(lambda: gk.backward(*ins, hs, g), 10),
             plain_ms=cuda_ms(lambda: gref.gru_scan(*ins), 3),
             plain_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
-                hs_p, leaves, g, retain_graph=True), 3) if wide else None,
+                hs_p, leaves, g, retain_graph=True), 3),
             bound=fb, bwd_bound=bb)
-        line = (f"gru {a}x{t}x{b}x{hdim}: forward ({kind}) {x['ms']:.4f} ms "
-                f"(bound {fb[0]:.5f} ms by {fb[1]}, {fb[0] / x['ms']:.4f} "
-                f"of it; plain {x['plain_ms']:.4f} ms){plan}")
-        if wide:
-            line += (f"; backward (stream) {x['bwd_ms']:.4f} ms (bound "
-                     f"{bb[0]:.5f} ms, {bb[0] / x['bwd_ms']:.4f} of it; "
-                     f"plain {x['plain_bwd_ms']:.4f} ms)")
-        print(line, flush=True)
+        print(f"gru {a}x{t}x{b}x{hdim}: forward ({kind}) {x['ms']:.4f} ms "
+              f"(bound {fb[0]:.5f} ms by {fb[1]}, {fb[0] / x['ms']:.4f} "
+              f"of it; plain {x['plain_ms']:.4f} ms); backward ({bwd}) "
+              f"{x['bwd_ms']:.4f} ms (bound {bb[0]:.5f} ms by {bb[1]}, "
+              f"{bb[0] / x['bwd_ms']:.4f} of it; plain "
+              f"{x['plain_bwd_ms']:.4f} ms){plan}", flush=True)
         del hs, hs_p, leaves
         torch.cuda.empty_cache()
     wide = {k: v for k, v in timed.items() if k != GRU_STREAM_SHAPE}
@@ -795,9 +815,9 @@ def check_gru_wide(gen, device):
              ms_by_shape=by_shape(lambda v: v["ms"]),
              bound_ms_by_shape=by_shape(lambda v: v["bound"][0]),
              plain_ms_by_shape=by_shape(lambda v: v["plain_ms"]), **common),
-        dict(name="gru_backward_stream",
+        dict(name="gru_backward_cluster",
              replaces="src/repro/kernels/gru/kernel.py:132",
-             max_abs_err=errs["bwd"], ms=first["bwd_ms"],
+             max_abs_err=errs["bwd_cluster"], ms=first["bwd_ms"],
              plain_ms=first["plain_bwd_ms"], bound=first["bwd_bound"],
              shape="x".join(map(str, key)),
              ms_by_shape=by_shape(lambda v: v["bwd_ms"]),
@@ -808,6 +828,11 @@ def check_gru_wide(gen, device):
              replaces="src/repro/kernels/gru/kernel.py:64",
              max_abs_err=errs["stream"], ms=small["ms"],
              plain_ms=small["plain_ms"], bound=small["bound"],
+             shape="x".join(map(str, GRU_STREAM_SHAPE)), **common),
+        dict(name="gru_backward_stream",
+             replaces="src/repro/kernels/gru/kernel.py:132",
+             max_abs_err=errs["bwd_stream"], ms=small["bwd_ms"],
+             plain_ms=small["plain_bwd_ms"], bound=small["bwd_bound"],
              shape="x".join(map(str, GRU_STREAM_SHAPE)), **common),
     ]
 
@@ -1298,36 +1323,44 @@ def kernel_resources():
 
 def ssd_resources(res_usage: str, sass: str, ext):
     """Registers, stack, local memory, dynamic shared memory and HGMMA
-    count of each instantiation (chunk L, state N) of ``ssd_chunk_sm90``;
-    fails unless all four are built and every one issues HGMMA."""
+    count of each instantiation (chunk L, state N) of ``ssd_chunk_sm90``
+    and of ``ssd_chunk_sm90_long`` (L 256); fails unless all six are built
+    and every one issues HGMMA."""
     import re
-    pat = re.compile(r"ssd_chunk_sm90ILi(\d+)ELi(\d+)E")
+    pat = re.compile(r"ssd_chunk_sm90ILi(\d+)ELi(\d+)E|"
+                     r"ssd_chunk_sm90_longILi(\d+)E")
+    key = lambda m: (("ssd_chunk_sm90", m.group(1), m.group(2))
+                     if m.group(1) else
+                     ("ssd_chunk_sm90_long", "256", m.group(3)))
     usage, hgmma, fn = {}, {}, None
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
             fn = pat.search(m.group(1))
         elif fn and "REG:" in line:
-            usage[fn.groups()] = dict(re.findall(r"(\w+):(\d+)", line))
+            usage[key(fn)] = dict(re.findall(r"(\w+):(\d+)", line))
             fn = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = pat.search(m.group(1))
         elif fn and "HGMMA" in line:
-            hgmma[fn.groups()] = hgmma.get(fn.groups(), 0) + 1
-    for (lc, nc), use in sorted(usage.items()):
-        print(f"resources ssd_chunk_sm90 L={lc} N={nc}: REG {use.get('REG')}"
+            hgmma[key(fn)] = hgmma.get(key(fn), 0) + 1
+    smem = {"ssd_chunk_sm90": ext.ssd_sm90_smem_bytes,
+            "ssd_chunk_sm90_long": ext.ssd_sm90_long_smem_bytes}
+    for (name, lc, nc), use in sorted(usage.items()):
+        print(f"resources {name} L={lc} N={nc}: REG {use.get('REG')}"
               f" (at entry), STACK {use.get('STACK')}, LOCAL "
               f"{use.get('LOCAL')}, dynamic shared "
-              f"{ext.ssd_sm90_smem_bytes(int(lc), 64, int(nc))}, HGMMA "
-              f"{hgmma.get((lc, nc), 0)}", flush=True)
-    for lc in ("64", "128"):
-        for nc in ("64", "128"):
-            check((lc, nc) in usage,
-                  f"ssd_chunk_sm90 L={lc} N={nc} not in the library")
-            check(hgmma.get((lc, nc), 0) > 0,
-                  f"ssd_chunk_sm90 L={lc} N={nc} issues no HGMMA")
+              f"{smem[name](int(lc), 64, int(nc))}, HGMMA "
+              f"{hgmma.get((name, lc, nc), 0)}", flush=True)
+    for name, lc, nc in [("ssd_chunk_sm90", lc, nc) for lc in ("64", "128")
+                         for nc in ("64", "128")] + [
+            ("ssd_chunk_sm90_long", "256", nc) for nc in ("64", "128")]:
+        check((name, lc, nc) in usage,
+              f"{name} L={lc} N={nc} not in the library")
+        check(hgmma.get((name, lc, nc), 0) > 0,
+              f"{name} L={lc} N={nc} issues no HGMMA")
 
 
 def gru_resources(res_usage: str, ext):
@@ -1342,11 +1375,13 @@ def gru_resources(res_usage: str, ext):
     plain = re.compile(r"(gru_bwd_weights_sum|gru_bwd_weights|"
                        r"gru_bwd_gates)E|(gru_fwd_stream|gru_bwd_chain_stream"
                        r"|gru_fwd_cluster)ILi(\d+)E")
+    chain = re.compile(r"gru_bwd_chain_clusterILi(\d+)ELi(\d+)E")
     found, fn = [], None
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            fn = recur.search(m.group(1)) or plain.search(m.group(1))
+            fn = (recur.search(m.group(1)) or plain.search(m.group(1))
+                  or chain.search(m.group(1)))
         elif fn and "REG:" in line:
             groups = fn.groups()
             if fn.re is plain:     # (name,), (name, rows) or (name, lanes)
@@ -1354,6 +1389,9 @@ def gru_resources(res_usage: str, ext):
                           (f"{groups[1]} "
                            f"{'lanes' if 'cluster' in groups[1] else 'rows'}"
                            f" {groups[2]}",))
+            elif fn.re is chain:   # lanes a tile, rows a thread
+                groups = (f"gru_bwd_chain_cluster lanes {groups[0]} rows "
+                          f"{8 * int(groups[1])}",)
             found.append((groups, dict(re.findall(r"(\w+):(\d+)",
                                                   line))))
             fn = None
@@ -1370,6 +1408,10 @@ def gru_resources(res_usage: str, ext):
                    if g[0].startswith("gru_fwd_cluster"))
     check(lanes == [4, 8, 16, 32], f"gru_fwd_cluster instantiations for "
                                    f"lanes {lanes}, want [4, 8, 16, 32]")
+    chains = sorted(g[0] for g, _ in found
+                    if g[0].startswith("gru_bwd_chain_cluster"))
+    check(len(chains) == 6, f"gru_bwd_chain_cluster instantiations "
+                            f"{chains}, want 6 (lanes x rows of the plans)")
     for groups, use in sorted(found):
         name = groups[0]
         if name.startswith("gru_fwd_cluster"):
@@ -1541,17 +1583,20 @@ def check_ssd(gen, device):
                             ffma_ms=zffma, bound_ms=zbound[0]))
 
 
-def check_ssd_tiled(gen, device):
+def check_ssd_tiled(gen, device, cases=SSD_TILED_CASES,
+                    key="ssd_chunk_tiled", source="ssd.cu"):
     """``ssd_chunk_tiled`` (any chunk, P, N) at SSD_TILED_CASES: chunk 256
-    at mamba2-780m's layer width in bf16 and float32, and chunk 256 with
-    head_dim and state 6; each output against the plain intra-chunk block
-    in float32 on the same inputs (SSD_TOL), timed with CUDA events beside
-    its bound (the shape's FLOPs over the peak of its inputs' type) and the
-    plain version. Returns the kernel row, timed at the first case."""
+    at mamba2-780m's layer width in float32, and chunk 256 with head_dim
+    and state 6 in both dtypes (or, with ``cases``, ``key`` and
+    ``source``, another route at its cases); each output against the
+    plain intra-chunk block in float32 on the same inputs (SSD_TOL), timed
+    with CUDA events beside its bound (the shape's FLOPs over the peak of
+    its inputs' type) and the plain version. Returns the kernel row,
+    timed at the first case."""
     import torch
     from repro_torch.kernels.ssd import kernel as sk, ref as sr
     worst, timed = 0.0, {}
-    for bsz, t, h, p, n, chunk, name in SSD_TILED_CASES:
+    for bsz, t, h, p, n, chunk, name in cases:
         dtype = getattr(torch, name)
         rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
         dt = torch.nn.functional.softplus(rnd(bsz, t, h) - 3.0)
@@ -1559,10 +1604,10 @@ def check_ssd_tiled(gen, device):
         xw = (rnd(bsz, t, h, p) * dt[..., None]).to(dtype).contiguous()
         bm, c = rnd(bsz, t, n).to(dtype), rnd(bsz, t, n).to(dtype)
         la = (dt * a).contiguous()
-        check(sk.route(dtype, p, n, chunk) == "ssd_chunk_tiled",
-              f"ssd {name} P={p} N={n} L={chunk} not on ssd_chunk_tiled")
-        label = f"ssd_chunk_tiled {name} {bsz}x{t}x{h}x{p} N {n} L {chunk}"
-        got = launched(sk.LAUNCHES, "ssd_chunk_tiled",
+        check(sk.route(dtype, p, n, chunk) == key,
+              f"ssd {name} P={p} N={n} L={chunk} not on {key}")
+        label = f"{key} {name} {bsz}x{t}x{h}x{p} N {n} L {chunk}"
+        got = launched(sk.LAUNCHES, key,
                        lambda: sk.forward(xw, la, bm, c, chunk=chunk))
         want = sr.intra_chunk(xw, la, bm, c, chunk=chunk)
         err = 0.0
@@ -1589,13 +1634,20 @@ def check_ssd_tiled(gen, device):
         torch.cuda.empty_cache()
     first = next(iter(timed))
     row = timed[first]
-    return dict(name="ssd_chunk_tiled", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd.cu",
+    return dict(name=key, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{source}",
                 replaces="src/repro/kernels/ssd/kernel.py:65",
                 max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound=row["bound"], library_ms=None, shape=first,
                 by_shape={k: {n: x for n, x in v.items() if n != "bound"}
                           for k, v in timed.items()})
+
+
+def check_ssd_long(gen, device):
+    """``ssd_chunk_sm90_long`` (bf16, P 64, chunk 256, on the tensor cores)
+    at SSD_LONG_CASES, as :func:`check_ssd_tiled` holds the tiled pair."""
+    return check_ssd_tiled(gen, device, SSD_LONG_CASES,
+                           "ssd_chunk_sm90_long", "ssd_sm90.cu")
 
 
 # ---------------------------------------------------------------------------
@@ -3448,7 +3500,7 @@ def run_ssm_path(device):
     each, then the kernel call traced as ``traced_calls`` takes it (its
     one ``ssd_chunk_sm90`` launch a call checked against the wrapper's
     count) for the SSD kernel's share of the layer's device time; the same
-    layer at chunk SSM_TILED_CHUNK (one launch of ``ssd_chunk_tiled``)
+    layer at chunk SSM_TILED_CHUNK (one launch of ``ssd_chunk_sm90_long``)
     against its plain call. Returns the launch counts of the two counted
     calls."""
     import dataclasses
@@ -3473,8 +3525,8 @@ def run_ssm_path(device):
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
-    # the same layer at chunk SSM_TILED_CHUNK: past ssd_chunk_sm90's and
-    # ssd_chunk's chunks, on ssd_chunk_tiled
+    # the same layer at chunk SSM_TILED_CHUNK: past ssd_chunk_sm90's
+    # chunks, on ssd_chunk_sm90_long
     tiled = dataclasses.replace(cfg, chunk=SSM_TILED_CHUNK)
     tiled_layer = {k: (lambda k=k: ssm.ssm_layer(params, x, tiled,
                                                  use_kernel=k))
@@ -3495,12 +3547,15 @@ def run_ssm_path(device):
             traced_calls(layer[True], PROFILE_ITERS, "ssd_chunk_sm90",
                          "ssd_chunk_sm90"), "ssd_chunk_sm90")
     check(counts["ssd_intra_chunk"] == 2 and counts["ssd_chunk_sm90"] == 1
-          and counts["ssd_chunk_tiled"] == 1 and counts["ssd_chunk"] == 0,
+          and counts["ssd_chunk_sm90_long"] == 1
+          and counts["ssd_chunk_tiled"] == 0 and counts["ssd_chunk"] == 0,
           f"ssm_layer launched the SSD kernels {counts['ssd_intra_chunk']} "
           f"times ({counts['ssd_chunk_sm90']} ssd_chunk_sm90, "
+          f"{counts['ssd_chunk_sm90_long']} ssd_chunk_sm90_long, "
           f"{counts['ssd_chunk_tiled']} ssd_chunk_tiled, "
           f"{counts['ssd_chunk']} ssd_chunk), not ssd_chunk_sm90 once at "
-          f"chunk {cfg.chunk} and ssd_chunk_tiled once at {tiled.chunk}")
+          f"chunk {cfg.chunk} and ssd_chunk_sm90_long once at "
+          f"{tiled.chunk}")
     for y in (y_k, y_kt):
         check(tuple(y.shape) == (b, t, cfg.d_model) and y.dtype == cfg.dtype,
               f"ssm_layer output {tuple(y.shape)} {y.dtype}")
@@ -3508,7 +3563,7 @@ def run_ssm_path(device):
                        SSM_LAYER_TOL)
     err_t = allclose_err([(f"ssm_layer at chunk {tiled.chunk}, kernel vs "
                            f"plain", y_kt, y_pt)], SSM_LAYER_TOL)
-    print(f"ssm layer at chunk {tiled.chunk} (ssd_chunk_tiled): cold "
+    print(f"ssm layer at chunk {tiled.chunk} (ssd_chunk_sm90_long): cold "
           f"{tiled_s:.4f} s with the kernel, {tiled_plain_s:.4f} s plain; "
           f"max abs diff {err_t:.4e} (max |y| "
           f"{float(y_pt.abs().max()):.4f})", flush=True)
@@ -3749,7 +3804,8 @@ def run_wide_gru_path(device):
     """Warehouse side=2 (4 agents) at narrow widths but with the
     recurrent policy's GRU at WIDE_GRU_HIDDEN[0] and the AIP's at
     WIDE_GRU_HIDDEN[1], both above 128 (the forward on the cluster
-    kernel, the backward streaming), one round of F=2 through the
+    kernel, the backward on the cluster chain, each where its route
+    takes it), one round of F=2 through the
     kernels (counted: every GRU launch at those widths, forward and
     backward, each on its route), then the same round through the plain
     versions from the same key: the AIP's and the policy's params within
@@ -3780,10 +3836,11 @@ def run_wide_gru_path(device):
             torch.cuda.synchronize()
         out[mode] = (state, hist[0])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    max_active = build.extension().gru_forward_cluster_max_active
-    routes = {"gru_forward": lambda shape: gk.forward_route(shape, sms,
-                                                            max_active),
-              "gru_backward": lambda shape: gk.route(shape[-1], "backward")}
+    ext = build.extension()
+    routes = {"gru_forward": lambda shape: gk.forward_route(
+                  shape, sms, ext.gru_forward_cluster_max_active),
+              "gru_backward": lambda shape: gk.backward_route(
+                  shape, sms, ext.gru_backward_cluster_max_active)}
     for name, route_of in routes.items():
         widths = {int(k.split("x")[-1]) for k in by_shape[name]}
         check(widths == set(WIDE_GRU_HIDDEN),
@@ -3797,8 +3854,8 @@ def run_wide_gru_path(device):
         check(got == want and want.get("resident", 0) == 0,
               f"wide gru path: {name} launches by route {got}, the shapes "
               f"route {want}")
-    check(counts["gru_forward_cluster"] > 0,
-          "wide gru path: no launch of the cluster forward")
+    for name in ("gru_forward_cluster", "gru_backward_cluster"):
+        check(counts[name] > 0, f"wide gru path: no launch of {name}")
     (s_on, h_on), (s_off, h_off) = out["on"], out["off"]
     diff = lambda a, b: max(max_err(x, y)
                             for x, y in zip(leaves(a), leaves(b)))
@@ -3815,7 +3872,7 @@ def run_wide_gru_path(device):
           "wide gru path: kernel path and plain path disagree")
     errs = check_at_launched_shapes(device, by_shape, "the wide gru path")
     rows_of = {"gru_forward": "gru_forward_cluster",
-               "gru_backward": "gru_backward_stream"}
+               "gru_backward": "gru_backward_cluster"}
     errs = {rows_of.get(n, n): e for n, e in errs.items()}
     return counts, by_shape, errs
 
@@ -4668,6 +4725,8 @@ def main(argv=None) -> int:
             rows.append(phase("ssd kernel vs plain", check_ssd, gen, device))
             rows.append(phase("ssd tiled kernel vs plain", check_ssd_tiled,
                               gen, device))
+            rows.append(phase("ssd long-chunk kernel vs plain",
+                              check_ssd_long, gen, device))
         for row in rows:
             print(f"kernel {row['name']}: max abs err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
@@ -4796,8 +4855,8 @@ def main(argv=None) -> int:
         if run == set(PHASES):
             for name in ("gru_forward", "gru_backward", "gae_forward",
                          "flash_attention", "ssd_intra_chunk",
-                         "gru_forward_cluster", "gru_backward_stream",
-                         "flash_fwd_sm90_padded", "ssd_chunk_tiled"):
+                         "gru_forward_cluster", "gru_backward_cluster",
+                         "flash_fwd_sm90_padded", "ssd_chunk_sm90_long"):
                 check(counts[name] > 0, f"its path never launched {name}")
         print(f"phases on {smi}: "
               f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}; "

@@ -33,7 +33,10 @@ cudaError_t launch_gru_backward(const float* gi, const float* wh,
                                 const float* g, float* gh, float* rgate,
                                 float* part, float* dgi, float* dwh,
                                 float* dbh, float* dh0, int A, int T, int B,
-                                int H, int rows, cudaStream_t stream);
+                                int H, int rows, int ctas,
+                                cudaStream_t stream);
+size_t gru_backward_cluster_smem_bytes(int H, int ctas, int rows);
+int gru_backward_cluster_max_active(int H, int ctas, int rows);
 cudaError_t launch_gae_forward(const float* r, const float* v,
                                const float* nv, const float* d, float* adv,
                                int T, int B, float gamma, float gamma_lam,
@@ -68,6 +71,12 @@ cudaError_t launch_ssd_chunk_tiled(const void* xw, const float* la,
                                    int T, int H, int P, int N, int L,
                                    cudaStream_t stream);
 size_t ssd_sm90_smem_bytes(int L, int P, int N);
+size_t ssd_sm90_long_smem_bytes(int L, int P, int N);
+cudaError_t launch_ssd_chunk_sm90_long(const void* xw, const float* la,
+                                       const void* b, const void* c, void* y,
+                                       float* st, float* cd, int B, int T,
+                                       int H, int P, int N, int L, int G,
+                                       cudaStream_t stream);
 cudaError_t launch_ssd_chunk_sm90(const void* xw, const float* la,
                                   const void* b, const void* c, void* y,
                                   float* st, float* cd, int B, int T, int H,
@@ -132,13 +141,16 @@ void gru_forward_cluster(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// four kernels: the gate recompute, the adjoint chain, the dW_h/db_h
-// partial sums over slices of rows and their sum in slice order
+// four kernels: the gate recompute, the adjoint chain (ctas 0: the
+// resident or streaming chain at `rows`; above 0: the cluster chain at the
+// plan (ctas, rows)), the dW_h/db_h partial sums over slices of rows and
+// their sum in slice order
 void gru_backward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
                   torch::Tensor h0, torch::Tensor resets, torch::Tensor hs,
                   torch::Tensor g, torch::Tensor gh, torch::Tensor rgate,
                   torch::Tensor part, torch::Tensor dgi, torch::Tensor dwh,
-                  torch::Tensor dbh, torch::Tensor dh0, int64_t rows) {
+                  torch::Tensor dbh, torch::Tensor dh0, int64_t rows,
+                  int64_t ctas) {
   const c10::cuda::CUDAGuard guard(gi.device());
   const int A = gi.size(0), T = gi.size(1), B = gi.size(2), H = wh.size(1);
   C10_CUDA_CHECK(launch_gru_backward(
@@ -146,8 +158,7 @@ void gru_backward(torch::Tensor gi, torch::Tensor wh, torch::Tensor bh,
       in(resets, "resets"), in(hs, "hs"), in(g, "g"), out(gh, "gh"),
       out(rgate, "rgate"), out(part, "part"), out(dgi, "dgi"),
       out(dwh, "dwh"), out(dbh, "dbh"), out(dh0, "dh0"), A, T, B, H,
-      (int)rows,
-      c10::cuda::getCurrentCUDAStream()));
+      (int)rows, (int)ctas, c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -276,6 +287,24 @@ void ssd_intra_chunk_sm90(torch::Tensor xw, torch::Tensor la, torch::Tensor b,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// bf16 only, P 64, L 256, N 64 or 128: the long-chunk tensor-core kernel
+// (ssd_sm90.cu)
+void ssd_intra_chunk_sm90_long(torch::Tensor xw, torch::Tensor la,
+                               torch::Tensor b, torch::Tensor c,
+                               torch::Tensor y, torch::Tensor st,
+                               torch::Tensor cd, int64_t chunk,
+                               int64_t heads_per_block) {
+  const c10::cuda::CUDAGuard guard(xw.device());
+  TORCH_CHECK(half_or_float({xw, b, c, y}, {"xw", "b", "c", "y"}),
+              "xw must be bfloat16");
+  C10_CUDA_CHECK(launch_ssd_chunk_sm90_long(
+      xw.data_ptr(), in(la, "la"), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+      out(st, "states"), out(cd, "chunk_decay"), xw.size(0), xw.size(1),
+      xw.size(2), xw.size(3), b.size(2), (int)chunk, (int)heads_per_block,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -287,6 +316,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gru_forward_cluster_max_active", &gru_forward_cluster_max_active);
   m.def("gru_forward_cluster", &gru_forward_cluster);
   m.def("gru_backward", &gru_backward);
+  m.def("gru_backward_cluster_smem_bytes", &gru_backward_cluster_smem_bytes);
+  m.def("gru_backward_cluster_max_active", &gru_backward_cluster_max_active);
   m.def("gae_forward", &gae_forward);
   m.def("gae_backward", &gae_backward);
   m.def("flash_attention", &flash_attention);
@@ -299,4 +330,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ssd_intra_chunk_tiled", &ssd_intra_chunk_tiled);
   m.def("ssd_sm90_smem_bytes", &ssd_sm90_smem_bytes);
   m.def("ssd_intra_chunk_sm90", &ssd_intra_chunk_sm90);
+  m.def("ssd_sm90_long_smem_bytes", &ssd_sm90_long_smem_bytes);
+  m.def("ssd_intra_chunk_sm90_long", &ssd_intra_chunk_sm90_long);
 }

@@ -3,8 +3,9 @@
 // Replace the Pallas kernels of repro/kernels/gru/kernel.py:
 //   gru_fwd (H <= 128), gru_fwd_cluster (128 < H <= 512), gru_fwd_stream
 //   (H > 512)                <- _gru_forward / _gru_kernel (the recurrence)
-//   gru_bwd_gates, gru_bwd_chain (H <= 128) or gru_bwd_chain_stream
-//   (H > 128), gru_bwd_weights, gru_bwd_weights_sum
+//   gru_bwd_gates, gru_bwd_chain (H <= 128), gru_bwd_chain_cluster
+//   (128 < H <= 512) or gru_bwd_chain_stream (H > 512), gru_bwd_weights,
+//   gru_bwd_weights_sum
 //                            <- _gru_backward / _gru_bwd_kernel (its adjoint)
 //
 // Layout (leading agent axis A; the reference vmaps the scan over agents):
@@ -73,7 +74,9 @@
 //    lanes stride the 3H columns (coalesced), and a fixed shuffle tree
 //    sums them, so the bits repeat from run to run. This design is the
 //    simple one and has no bound on H but shared memory (2 R H floats
-//    forward, 4 R H the chain); the forward keeps it above 512 only.
+//    forward, 4 R H the chain); both directions keep it above 512 only,
+//    and for short sequences on grids of more clusters than the card
+//    holds at once (kernels/gru/kernel.py, forward_route, backward_route).
 //  * 128 < H <= 512, the forward (gru_fwd_cluster): a thread-block cluster
 //    of C CTAs (up to 16) takes one (agent, tile of R rows), and CTA c
 //    holds the 3H/C columns of W_h of its H/C units in shared memory for
@@ -89,6 +92,9 @@
 //    load of the W_h slices costs more than it saves (forward_route: a
 //    short sequence on a grid of more clusters than the card holds at
 //    once; benchmarks/torch_tree_times.py --gru-sweep measures both).
+//  * 128 < H <= 512, the backward's chain (gru_bwd_chain_cluster): the
+//    forward's plan and W_h slices, dh_{t-1} reduce-scattered over the
+//    cluster once a step (see the kernel).
 //
 // The backward splits the serial chain from the parallel work:
 //   1. gru_bwd_gates: gh = hp.W_h + b_h for all T.B rows of an agent at
@@ -131,8 +137,9 @@ __device__ __forceinline__ int slot(int x) {
 
 // One exchange of the reduce-scatter over lanes s and s ^ M: rows [0, N)
 // of v become [0, N/2), this lane's half, summed over both lanes; with one
-// row left (N == 1) both lanes keep the whole sum.
-template <int N, int M, int G, int R>
+// row left (N == 1) both lanes keep the whole sum. Lane s sits at lane
+// STRIDE * s of its group (the shuffle goes STRIDE * M lanes away).
+template <int N, int M, int G, int R, int STRIDE = 1>
 struct Fold {
   static __device__ __forceinline__ void run(float (&v)[R][G], int s) {
     if constexpr (N >= 2) {
@@ -143,18 +150,18 @@ struct Fold {
         for (int g = 0; g < G; ++g) {
           const float send = up ? v[i][g] : v[i + N / 2][g];
           const float keep = up ? v[i + N / 2][g] : v[i][g];
-          v[i][g] = keep + __shfl_xor_sync(FULL_MASK, send, M);
+          v[i][g] = keep + __shfl_xor_sync(FULL_MASK, send, M * STRIDE);
         }
     } else {
 #pragma unroll
       for (int g = 0; g < G; ++g)
-        v[0][g] += __shfl_xor_sync(FULL_MASK, v[0][g], M);
+        v[0][g] += __shfl_xor_sync(FULL_MASK, v[0][g], M * STRIDE);
     }
-    Fold<(N >= 2 ? N / 2 : 1), M / 2, G, R>::run(v, s);
+    Fold<(N >= 2 ? N / 2 : 1), M / 2, G, R, STRIDE>::run(v, s);
   }
 };
-template <int N, int G, int R>
-struct Fold<N, 0, G, R> {
+template <int N, int G, int R, int STRIDE>
+struct Fold<N, 0, G, R, STRIDE> {
   static __device__ __forceinline__ void run(float (&)[R][G], int) {}
 };
 
@@ -974,6 +981,236 @@ gru_bwd_chain_stream(const float* __restrict__ gi,
 }
 
 // ---------------------------------------------------------------------------
+// 128 < H <= 512, the backward chain: W_h resident across a cluster
+// ---------------------------------------------------------------------------
+constexpr int CHAIN_KB = 64;   // rows of W_h (outputs k) of a product block
+
+// Where float4 chunk (gate g, units 4v .. 4v + 3 of the CTA's 32) of row k
+// of the chain's W_h slice is kept: swizzled within its gate by k / 8, so
+// that the 8 lanes of a quarter-warp, which read rows 8 apart, hit 8 bank
+// groups.
+__device__ __forceinline__ int chain_chunk(int k, int g, int v) {
+  return 8 * g + (v ^ ((k >> 3) & 7));
+}
+
+// One cluster of C CTAs per (agent, tile of R = 8 RPT rows), as the cluster
+// forward; CTA c (its rank) owns units [c U, (c + 1) U), U = CLUSTER_UNITS,
+// and keeps the same slice of W_h as the forward: the 3U columns of its
+// units' gates, for all KP rows (H rounded up to CHAIN_KB, zeros past H),
+// in shared memory for all T steps. A step t (T-1 -> 0) is a reduce-scatter
+// of dh_{t-1} = (d z + dgh.W_h^T) (1 - reset_t) over the cluster:
+//  (A) thread (warp w, lane) runs the gate algebra of unit c U + lane for
+//      rows w, w + 8, ... (RPT of them), with the carried adjoint in its
+//      registers: dgi and r (kept for the global stores), the direct path
+//      d z, and the CTA's 3U columns of dgh into shared memory;
+//  (B) the CTA's partial product P = dgh[:, its 3U] . W_h[:, its 3U]^T for
+//      all R rows and all KP outputs k: thread (kl, s, grp) takes tiles of
+//      8 rows x 8 outputs (k = 64 kb + 8 kl .. + 7) over slice s (of KS) of
+//      the 3U columns, read as float4s (4 FMA a float loaded), and folds
+//      the KS slices by shuffles (Fold, lanes 8 apart). The 32 outputs of
+//      CTA c' go as float4s into slot c of c''s buffer over distributed
+//      shared memory; then one cluster barrier, whose arrive is followed by
+//      the step's global stores and the next step's loads (the arrive
+//      compiles to a fence that would wait for earlier global stores);
+//  (C) each thread adds the C slots of its (row, unit) in the order
+//      c = 0 .. C-1 to d z, masked by the reset: the carried adjoint.
+// Every sum runs in a fixed order, so the bits repeat from run to run. The
+// slots are double-buffered by the step's parity; the CTA's dgh lives in
+// the buffer its own (C) read the step before (gate g, row r, unit lane at
+// slot g: the thread that wrote it is the one that read those slots), which
+// nobody writes again before the next barrier. Shared memory: KP x 3U
+// floats of W_h and 2 x C x R x U of slots; at H = 512 (C = 16, R = 8) and
+// at 256 (C = 8, R = 64) 229,376 bytes.
+template <int KS, int RPT>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+gru_bwd_chain_cluster(const float* __restrict__ gi,
+                      const float* __restrict__ wh,
+                      const float* __restrict__ gh,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ resets,
+                      const float* __restrict__ hs,
+                      const float* __restrict__ g, float* __restrict__ dgi,
+                      float* __restrict__ rgate, float* __restrict__ dh0,
+                      int T, int B, int H, int C, int KP) {
+  constexpr int U = CLUSTER_UNITS, WS = 3 * U, R = 8 * RPT;
+  constexpr int RL = 8 / KS;            // rows of a tile a lane ends with
+  constexpr int QN = WS / 4 / KS;       // float4 chunks a lane sums
+  constexpr int NGRP = CLUSTER_THREADS / (8 * KS);
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                    // KP x WS
+  float* slots = smem + KP * WS;        // 2 x C x R x U
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)cluster_rank();
+  const int a = blockIdx.y, b0 = (blockIdx.x / C) * R, H3 = 3 * H;
+  const int unit0 = rank * U, u = unit0 + lane, uc = min(u, H - 1);
+  const bool live = u < H;
+  const int kl = tid & 7, s = (tid >> 3) & (KS - 1), grp = tid / (8 * KS);
+  const int ntiles = RPT * (KP / CHAIN_KB);   // (row group, k block)
+  const int buf = C * R * U;
+  const float* wa = wh + (size_t)a * H * H3;
+
+  // W_h's rows k < H: 16-byte asynchronous copies of the chunks of 4 units
+  // that lie wholly below H where the hidden is a multiple of 4 and the
+  // tensor is 16-byte aligned, else 4-byte ones; zeros elsewhere
+  const bool wide_w = H % 4 == 0 && reinterpret_cast<uintptr_t>(wh) % 16 == 0;
+  for (int e = tid; e < KP * 3 * 8; e += CLUSTER_THREADS) {
+    const int k = e / 24, gc = e - k * 24, gg = gc / 8, v = gc - gg * 8,
+              u4 = unit0 + 4 * v;
+    float* dst = w_s + k * WS + 4 * chain_chunk(k, gg, v);
+    if (k < H && wide_w && u4 + 4 <= H) {
+      cp_async16(dst, wa + (size_t)k * H3 + gg * H + u4);
+    } else {
+      for (int p = 0; p < 4; ++p) {
+        if (k < H && u4 + p < H)
+          cp_async4(dst + p, wa + (size_t)k * H3 + gg * H + u4 + p);
+        else
+          dst[p] = 0.0f;
+      }
+    }
+  }
+
+  // step t's inputs for this thread's rows and unit: raw loads from
+  // addresses clamped into the tensors, used only when the step runs
+  struct In {
+    float reset[RPT], hprev[RPT], gout[RPT], gh[RPT][3], gi[RPT][3];
+  };
+  auto load = [&](int t, In& in) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int b = min(b0 + warp + 8 * i, B - 1);
+      const size_t row = ((size_t)a * T + t) * B + b;
+      in.reset[i] = resets[row];
+      in.hprev[i] = t > 0 ? hs[(row - B) * H + uc]
+                          : h0[((size_t)a * B + b) * H + uc];
+      in.gout[i] = g[row * H + uc];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        in.gh[i][q] = gh[row * H3 + q * H + uc];
+        in.gi[i][q] = gi[row * H3 + q * H + uc];
+      }
+    }
+  };
+  In in;
+  load(T - 1, in);
+  float dh[RPT];   // the adjoint carried onto h_t
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) dh[i] = 0.0f;
+  cp_wait_all();
+  cluster_arrive();   // every CTA's W_h slice is in place
+  cluster_wait();
+
+  for (int t = T - 1; t >= 0; --t) {
+    float* cur = slots + (t & 1) * buf;          // this step's partial sums
+    float* dg = slots + ((t + 1) & 1) * buf;     // this CTA's dgh
+    // (A) the gate algebra
+    float dz_h[RPT], keep[RPT], out[RPT][4];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = warp + 8 * i;
+      const bool valid = b0 + r < B;
+      keep[i] = valid ? 1.0f - in.reset[i] : 0.0f;
+      const float gh_n = in.gh[i][2];
+      const float rg = sigmoid_f32(in.gi[i][0] + in.gh[i][0]);
+      const float z = sigmoid_f32(in.gi[i][1] + in.gh[i][1]);
+      const float n = tanhf(in.gi[i][2] + rg * gh_n);
+      const float d = in.gout[i] + dh[i];   // total adjoint on h_t
+      const float dn = d * (1.0f - z);
+      const float dz = d * (in.hprev[i] * keep[i] - n);
+      dz_h[i] = d * z;
+      const float da_n = dn * (1.0f - n * n);
+      const float da_z = dz * z * (1.0f - z);
+      const float da_r = da_n * gh_n * rg * (1.0f - rg);
+      out[i][0] = da_r;
+      out[i][1] = da_z;
+      out[i][2] = da_n;
+      out[i][3] = rg;
+      const bool on = valid && live;
+      dg[r * U + lane] = on ? da_r : 0.0f;
+      dg[(R + r) * U + lane] = on ? da_z : 0.0f;
+      dg[(2 * R + r) * U + lane] = on ? da_n * rg : 0.0f;
+    }
+    __syncthreads();   // the CTA's dgh (and, once, W_h) is in shared memory
+
+    // (B) the partial product, tile by tile; every lane of a warp takes
+    // part in each round (the fold's shuffles), lanes past the last tile
+    // on a repeat of it whose sums they drop
+    for (int t0 = 0; t0 < ntiles; t0 += NGRP) {
+      const int tile = min(t0 + grp, ntiles - 1);
+      const int rg = tile % RPT, k0 = (tile / RPT) * CHAIN_KB + 8 * kl;
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int m = 0; m < 8; ++m) acc[r][m] = 0.0f;
+      const float* wrow = w_s + k0 * WS;
+      const float* drow = dg + 8 * rg * U;
+#pragma unroll 1
+      for (int q = 0; q < QN; ++q) {
+        const int jc = q * KS + s, gg = jc >> 3, v = jc & 7;
+        const int col = 4 * chain_chunk(k0, gg, v);   // rows k0 .. k0 + 7
+        float4 w4[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) w4[m] = ld4(wrow + m * WS + col);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 dv = ld4(drow + (gg * R + r) * U + 4 * v);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            float& c = acc[r][m];
+            c = fmaf(dv.x, w4[m].x, c);
+            c = fmaf(dv.y, w4[m].y, c);
+            c = fmaf(dv.z, w4[m].z, c);
+            c = fmaf(dv.w, w4[m].w, c);
+          }
+        }
+      }
+      Fold<8, KS / 2, 8, 8, 8>::run(acc, s);
+      if (t0 + grp < ntiles && k0 < C * U) {
+        // rows 8 rg + s RL + i, outputs k0 .. k0 + 7 of CTA k0 / U
+        const uint32_t dst = smem_addr(
+            cur + (rank * R + 8 * rg + s * RL) * U + (k0 & (U - 1)));
+        const uint32_t to = (uint32_t)(k0 / U);
+#pragma unroll
+        for (int i = 0; i < RL; ++i) {
+          st_cluster(dst + i * U * 4, to,
+                     make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+          st_cluster(dst + i * U * 4 + 16, to,
+                     make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+        }
+      }
+    }
+    cluster_arrive();
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int b = b0 + warp + 8 * i;
+      if (!live || b >= B) continue;
+      const size_t row = ((size_t)a * T + t) * B + b;
+      float* dgo = dgi + row * H3;
+      dgo[u] = out[i][0];
+      dgo[H + u] = out[i][1];
+      dgo[2 * H + u] = out[i][2];
+      rgate[row * H + u] = out[i][3];
+    }
+    if (t > 0) load(t - 1, in);
+    cluster_wait();
+
+    // (C) the carried adjoint: the cluster's slots in rank order
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = warp + 8 * i;
+      float sum = 0.0f;
+      for (int c = 0; c < C; ++c) sum += cur[(c * R + r) * U + lane];
+      dh[i] = (dz_h[i] + sum) * keep[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int b = b0 + warp + 8 * i;
+    if (live && b < B) dh0[((size_t)a * B + b) * H + u] = dh[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward, phases 1 and 3: tiled FFMA products over all T.B rows
 // ---------------------------------------------------------------------------
 constexpr int GEMM_THREADS = 256;       // 16 x 16
@@ -1406,6 +1643,112 @@ bool supported(int H, int rows) {
   return H >= 1 && (rows == 2 || rows == 4 || rows == 8);
 }
 
+// the cluster chain: rows of W_h rounded up to a product block, shared
+// memory, and lanes a product tile (as many as keep a CTA's threads busy)
+int chain_kp(int H) { return (H + CHAIN_KB - 1) / CHAIN_KB * CHAIN_KB; }
+
+size_t chain_cluster_smem(int H, int ctas, int rows) {
+  return ((size_t)chain_kp(H) * 3 * CLUSTER_UNITS +
+          (size_t)2 * ctas * rows * CLUSTER_UNITS) * sizeof(float);
+}
+
+int chain_cluster_ks(int H, int rows) {
+  const int tiles = rows / 8 * (chain_kp(H) / CHAIN_KB);
+  return tiles <= 8 ? 4 : tiles <= 16 ? 2 : 1;
+}
+
+bool chain_plan_ok(int H, int ctas, int rows) {
+  return H > RESIDENT_HIDDEN && ctas <= MAX_CLUSTER &&
+         ctas == (H + CLUSTER_UNITS - 1) / CLUSTER_UNITS &&
+         (rows == 8 || rows == 16 || rows == 32 || rows == 64) &&
+         chain_cluster_smem(H, ctas, rows) <= 232448;
+}
+
+template <int KS, int RPT>
+cudaError_t chain_cluster_config(int A, int B, int H, int ctas,
+                                 cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                                 cudaLaunchAttribute* attr) {
+  auto fn = gru_bwd_chain_cluster<KS, RPT>;
+  const int rows = 8 * RPT;
+  const size_t smem = chain_cluster_smem(H, ctas, rows);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err == cudaSuccess && ctas > 8)
+    err = cudaFuncSetAttribute((const void*)fn,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(ctas * ((B + rows - 1) / rows), A);
+  cfg->blockDim = dim3(CLUSTER_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int KS, int RPT>
+cudaError_t chain_cluster_at(const float* gi, const float* wh, const float* gh,
+                             const float* h0, const float* resets,
+                             const float* hs, const float* g, float* dgi,
+                             float* rgate, float* dh0, int A, int T, int B,
+                             int H, int ctas, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      chain_cluster_config<KS, RPT>(A, B, H, ctas, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_chain_cluster<KS, RPT>, gi, wh, gh,
+                           h0, resets, hs, g, dgi, rgate, dh0, T, B, H, ctas,
+                           chain_kp(H));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int KS, int RPT>
+int chain_cluster_occupancy(int H, int ctas) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (chain_cluster_config<KS, RPT>(1, 8 * RPT, H, ctas, 0, &cfg, &attr) !=
+      cudaSuccess)
+    return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(
+             &n, (const void*)gru_bwd_chain_cluster<KS, RPT>, &cfg) ==
+                 cudaSuccess ? n : -1;
+}
+
+// The instantiations the plans reach (chain_cluster_ks of rows 8..64 at
+// hidden 129..512), by (lanes, rows): the cluster chain at a plan, or the
+// clusters the card holds at once (launch false)
+cudaError_t chain_cluster(bool launch, int* active, const float* gi,
+                          const float* wh, const float* gh, const float* h0,
+                          const float* resets, const float* hs,
+                          const float* g, float* dgi, float* rgate,
+                          float* dh0, int A, int T, int B, int H, int ctas,
+                          int rows, cudaStream_t stream) {
+#define CHAIN_CASE(KS, RPT)                                                   \
+  if (chain_cluster_ks(H, rows) == KS && rows == 8 * RPT) {                   \
+    if (!launch) {                                                            \
+      *active = chain_cluster_occupancy<KS, RPT>(H, ctas);                    \
+      return cudaSuccess;                                                     \
+    }                                                                         \
+    return chain_cluster_at<KS, RPT>(gi, wh, gh, h0, resets, hs, g, dgi,      \
+                                     rgate, dh0, A, T, B, H, ctas, stream);   \
+  }
+  CHAIN_CASE(4, 1)
+  CHAIN_CASE(4, 2)
+  CHAIN_CASE(2, 2)
+  CHAIN_CASE(2, 4)
+  CHAIN_CASE(1, 4)
+  CHAIN_CASE(1, 8)
+#undef CHAIN_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 size_t gru_forward_smem_bytes(int H, int rows) { return fwd_smem(H, rows); }
@@ -1475,17 +1818,41 @@ cudaError_t launch_gru_forward_cluster(const float* gi, const float* wh,
   }
 }
 
+// dynamic shared memory of the cluster chain's CTA, 0 for a plan it does
+// not take
+size_t gru_backward_cluster_smem_bytes(int H, int ctas, int rows) {
+  return chain_plan_ok(H, ctas, rows) ? chain_cluster_smem(H, ctas, rows) : 0;
+}
+
+// clusters of the cluster chain's plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot run one, -1: an error)
+int gru_backward_cluster_max_active(int H, int ctas, int rows) {
+  if (!chain_plan_ok(H, ctas, rows)) return -1;
+  int active = -1;
+  const cudaError_t err =
+      chain_cluster(false, &active, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
+                    1, rows, H, ctas, rows, 0);
+  return err == cudaSuccess ? active : -1;
+}
+
 // Scratch: gh (A,T,B,3H), written by phase 1 for phase 2; rgate
 // (A,T,B,H), the r gate, written by phase 2 for phase 3; part
-// (gru_backward_part_floats), phase 3's partial sums.
+// (gru_backward_part_floats), phase 3's partial sums. ctas 0: the chain is
+// gru_bwd_chain (H <= 128) or gru_bwd_chain_stream at `rows` (2, 4 or 8);
+// ctas > 0: gru_bwd_chain_cluster at the plan (ctas, rows) of the
+// wrapper's (kernels/gru/kernel.py, cluster_plan).
 cudaError_t launch_gru_backward(const float* gi, const float* wh,
                                 const float* bh, const float* h0,
                                 const float* resets, const float* hs,
                                 const float* g, float* gh, float* rgate,
                                 float* part, float* dgi, float* dwh,
                                 float* dbh, float* dh0, int A, int T, int B,
-                                int H, int rows, cudaStream_t stream) {
-  if (!supported(H, rows)) return cudaErrorInvalidValue;
+                                int H, int rows, int ctas,
+                                cudaStream_t stream) {
+  if (ctas > 0 ? !chain_plan_ok(H, ctas, rows) || A > 65535
+               : !supported(H, rows))
+    return cudaErrorInvalidValue;
   const int M = T * B, H3 = 3 * H, n_tiles = (H3 + TN - 1) / TN;
   const dim3 gates_grid(A, (M + TM - 1) / TM, n_tiles);
   gru_bwd_gates<<<gates_grid, GEMM_THREADS,
@@ -1493,7 +1860,10 @@ cudaError_t launch_gru_backward(const float* gi, const float* wh,
       wh, bh, h0, resets, hs, gh, T, B, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  switch (rows) {
+  if (ctas > 0) {
+    err = chain_cluster(true, nullptr, gi, wh, gh, h0, resets, hs, g, dgi,
+                        rgate, dh0, A, T, B, H, ctas, rows, stream);
+  } else switch (rows) {
     case 2: err = chain_rows<2>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,
                                 dh0, A, T, B, H, stream); break;
     case 4: err = chain_rows<4>(gi, wh, gh, h0, resets, hs, g, dgi, rgate,

@@ -9,20 +9,21 @@ phases (the gate recompute ``gru_bwd_gates``, the serial adjoint chain
 are recomputed in the backward, not stored; resets get no gradient.
 Any hidden width whose tile fits a block's shared memory: up to
 ``RESIDENT_HIDDEN`` W_h stays in registers or shared memory for all T
-steps (``gru_fwd``, ``gru_bwd_chain``); above it the forward keeps W_h
-resident across a thread-block cluster up to ``CLUSTER_HIDDEN``
-(``gru_fwd_cluster``: each CTA holds its units' columns, at the plan of
-:func:`cluster_plan`), and otherwise W_h is streamed from L2 every step
-(``gru_fwd_stream``, ``gru_bwd_chain_stream``), with the rows of a tile
-halved (down to 2) until h (and the chain's dgh) fit: up to H=7,264
-both ways.
+steps (``gru_fwd``, ``gru_bwd_chain``); above it both directions keep
+W_h resident across a thread-block cluster up to ``CLUSTER_HIDDEN``
+(``gru_fwd_cluster``, ``gru_bwd_chain_cluster``: each CTA holds its
+units' columns, at the plan of :func:`cluster_plan`), and otherwise W_h
+is streamed from L2 every step (``gru_fwd_stream``,
+``gru_bwd_chain_stream``), with the rows of a tile halved (down to 2)
+until h (and the chain's dgh) fit: up to H=7,264 both ways.
 
 Every tensor carries a leading agent axis A (the reference vmaps the
 scan over agents), so each agent has its own W_h. ``LAUNCHES`` counts
-the launches of each wrapper, under ``gru_forward_cluster`` those that
-ran the cluster kernel and under ``gru_forward_stream`` and
-``gru_backward_stream`` those that ran the streaming kernels
-(:func:`route`); ``SHAPE_LAUNCHES`` counts the same launches by
+the launches of each wrapper, under ``gru_forward_cluster`` and
+``gru_backward_cluster`` those that ran the cluster kernels and under
+``gru_forward_stream`` and ``gru_backward_stream`` those that ran the
+streaming kernels (:func:`forward_route`, :func:`backward_route`);
+``SHAPE_LAUNCHES`` counts the same launches by
 (A, T, B, H) and ``STREAM_LAUNCHES`` by the CUDA stream they were queued
 on (its ``cuda_stream`` handle), for the chip run to show that the main
 path went through the kernels, at which shapes, and that the overlapped
@@ -41,11 +42,12 @@ from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.gru import ref
 
 LAUNCHES = {"gru_forward": 0, "gru_backward": 0, "gru_forward_stream": 0,
-            "gru_backward_stream": 0, "gru_forward_cluster": 0}
+            "gru_backward_stream": 0, "gru_forward_cluster": 0,
+            "gru_backward_cluster": 0}
 SHAPE_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
 STREAM_LAUNCHES = {"gru_forward": {}, "gru_backward": {}}
 _count_lock = threading.Lock()
-_MAX_ACTIVE = {}                 # (device, hidden, CTAs, rows) -> clusters
+_MAX_ACTIVE = {}     # (device, direction, hidden, CTAs, rows) -> clusters
 RESIDENT_HIDDEN = 128            # csrc/gru.cu's RESIDENT_HIDDEN
 MAX_TILE_ROWS = 8                # batch rows a block carries through T
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
@@ -64,6 +66,13 @@ CLUSTER_HIDDEN = 512             # the widest hidden with a cluster plan
 # 256 (8) from T=2, 384 (12) from T=4, 512 (16) from T=8; the widths
 # between take their band's value unmeasured.
 CLUSTER_MIN_STEPS = {8: 2, 12: 4, MAX_CLUSTER: 8}
+# the same edge for the backward's chain (the whole backward timed with
+# gru_bwd_chain_cluster and with gru_bwd_chain_stream, --gru-sweep, same
+# card): on grids of many waves the cluster chain was faster from T=1 at
+# hidden 160 (0.757 of the stream's time), 256 (0.696) and 384 (0.927),
+# and at 512 from T=2 (1.034 at T=1, 0.890 at T=2)
+CLUSTER_MIN_STEPS_BWD = {12: 1, MAX_CLUSTER: 2}
+CHAIN_KB = 64                    # csrc/gru.cu's CHAIN_KB
 
 
 def tile_rows(batch: int, agents: int = 1, min_blocks: int = 1) -> int:
@@ -101,15 +110,30 @@ def route(hdim: int, direction: str = "forward") -> str:
     """The kernel a launch at hidden ``hdim`` runs in ``direction``
     (``"forward"`` or ``"backward"``): ``"resident"`` (``gru_fwd``,
     ``gru_bwd_chain``, W_h held by one block for all T steps) up to
-    RESIDENT_HIDDEN; above it the forward's ``"cluster"``
-    (``gru_fwd_cluster``) up to CLUSTER_HIDDEN, and ``"stream"``
+    RESIDENT_HIDDEN; above it ``"cluster"`` (``gru_fwd_cluster``,
+    ``gru_bwd_chain_cluster``) up to CLUSTER_HIDDEN, and ``"stream"``
     (``gru_fwd_stream``, ``gru_bwd_chain_stream``) for the rest: the
-    route of a long sequence; :func:`forward_route` gives a launch's."""
+    route of a long sequence; :func:`forward_route` and
+    :func:`backward_route` give a launch's."""
     if hdim <= RESIDENT_HIDDEN:
         return "resident"
-    if direction == "forward" and hdim <= CLUSTER_HIDDEN:
+    if hdim <= CLUSTER_HIDDEN:
         return "cluster"
     return "stream"
+
+
+def _launch_route(shape, sm_count, max_active, direction, min_steps):
+    """:func:`route`'s kernel, except that a cluster launch of fewer than
+    ``min_steps`` steps (by the most CTAs a cluster) whose A x tiles
+    clusters do not all fit on the card at once streams."""
+    a, t, b, hdim = shape
+    kind = route(hdim, direction)
+    if kind != "cluster":
+        return kind
+    ctas, rows = cluster_plan(hdim, b, a, sm_count, direction)
+    fewest = next(n for c, n in sorted(min_steps.items()) if ctas <= c)
+    one_wave = a * -(-b // rows) <= max_active(hdim, ctas, rows)
+    return "cluster" if one_wave or t >= fewest else "stream"
 
 
 def forward_route(shape, sm_count: int, max_active) -> str:
@@ -120,26 +144,30 @@ def forward_route(shape, sm_count: int, max_active) -> str:
     CLUSTER_MIN_STEPS steps whose A x tiles clusters do not all fit on
     the card at once streams. A pure function of the shape and the
     card."""
-    a, t, b, hdim = shape
-    kind = route(hdim)
-    if kind != "cluster":
-        return kind
-    ctas, rows = cluster_plan(hdim, b, a, sm_count)
-    min_steps = next(n for c, n in sorted(CLUSTER_MIN_STEPS.items())
-                     if ctas <= c)
-    one_wave = a * -(-b // rows) <= max_active(hdim, ctas, rows)
-    return "cluster" if one_wave or t >= min_steps else "stream"
+    return _launch_route(shape, sm_count, max_active, "forward",
+                         CLUSTER_MIN_STEPS)
 
 
-def _max_active(ext, device):
-    """``max_active`` of :func:`forward_route` for ``device``, each plan
-    asked of the card once."""
+def backward_route(shape, sm_count: int, max_active) -> str:
+    """The chain the backward launches at shape (A, T, B, H), as
+    :func:`forward_route` decides the forward's, at the backward's plan
+    (``gru_backward_cluster_max_active``) and CLUSTER_MIN_STEPS_BWD."""
+    return _launch_route(shape, sm_count, max_active, "backward",
+                         CLUSTER_MIN_STEPS_BWD)
+
+
+def _max_active(ext, device, direction: str = "forward"):
+    """``max_active`` of :func:`forward_route` (or of
+    :func:`backward_route`) for ``device``, each plan asked of the card
+    once."""
+    query = (ext.gru_forward_cluster_max_active if direction == "forward"
+             else ext.gru_backward_cluster_max_active)
+
     def ask(hdim, ctas, rows):
-        key = (device.index, hdim, ctas, rows)
+        key = (device.index, direction, hdim, ctas, rows)
         if key not in _MAX_ACTIVE:
             with torch.cuda.device(device):
-                _MAX_ACTIVE[key] = ext.gru_forward_cluster_max_active(
-                    hdim, ctas, rows)
+                _MAX_ACTIVE[key] = query(hdim, ctas, rows)
         return _MAX_ACTIVE[key]
     return ask
 
@@ -160,24 +188,36 @@ def cluster_smem_bytes(hdim: int, rows: int) -> int:
     return 4 * (3 * CLUSTER_UNITS + 2 * rows) * hp
 
 
+def cluster_chain_smem_bytes(hdim: int, ctas: int, rows: int) -> int:
+    """Shared memory of one CTA of the cluster chain, as ``csrc/gru.cu``
+    lays it out: KP rows (hidden rounded up to CHAIN_KB, zeros past it)
+    of its 3 x CLUSTER_UNITS columns of W_h, and two buffers of ``ctas``
+    slots of ``rows`` x CLUSTER_UNITS partial sums."""
+    kp = -(-hdim // CHAIN_KB) * CHAIN_KB
+    return 4 * (3 * CLUSTER_UNITS * kp + 2 * ctas * rows * CLUSTER_UNITS)
+
+
 def cluster_plan(hdim: int, batch: int = CLUSTER_ROWS[0], agents: int = 1,
-                 min_ctas: int = 1):
-    """(CTAs a cluster, rows a tile) of the cluster forward at hidden
-    ``hdim``, or None where it takes no plan (hidden above CLUSTER_HIDDEN
-    or not above RESIDENT_HIDDEN). A CTA takes CLUSTER_UNITS units, so
+                 min_ctas: int = 1, direction: str = "forward"):
+    """(CTAs a cluster, rows a tile) of the cluster forward (or, with
+    ``direction="backward"``, of the cluster chain) at hidden ``hdim``,
+    or None where it takes no plan (hidden above CLUSTER_HIDDEN or not
+    above RESIDENT_HIDDEN). A CTA takes CLUSTER_UNITS units, so
     hidden/32 CTAs, rounded up, up to MAX_CLUSTER. The rows: the batch's
     (a power of two from 8 to 64), halved while a CTA's shared memory
     does not fit a block or the grid of agents x tiles x CTAs has fewer
-    than ``min_ctas`` CTAs; at 8 rows any hidden up to 512 fits. A pure
-    function of the shape."""
+    than ``min_ctas`` CTAs; at 8 rows any hidden up to 512 fits both
+    ways. A pure function of the shape."""
     ctas = -(-hdim // CLUSTER_UNITS)
     if hdim <= RESIDENT_HIDDEN or ctas > MAX_CLUSTER:
         return None
+    smem = (lambda r: cluster_smem_bytes(hdim, r)) if direction == \
+        "forward" else (lambda r: cluster_chain_smem_bytes(hdim, ctas, r))
     rows = CLUSTER_ROWS[-1]
     while rows < min(batch, CLUSTER_ROWS[0]):
         rows *= 2
     while rows > CLUSTER_ROWS[-1] and (
-            cluster_smem_bytes(hdim, rows) > MAX_SMEM_BYTES or
+            smem(rows) > MAX_SMEM_BYTES or
             agents * -(-batch // rows) * ctas < min_ctas):
         rows //= 2
     return ctas, rows
@@ -249,19 +289,26 @@ def backward(gi, wh, bh, h0, resets, hs, g):
     if a * t * b == 0:   # no step: no gradient reaches the weights or h0
         return dgi, dwh.zero_(), dbh.zero_(), dh0.zero_()
     ext = build.extension()
-    # the chain's 8 lanes a unit own a row each at 8 rows a tile; fewer
-    # rows repeat its gate algebra, worth it only on a card half idle
-    rows = fit_rows(tile_rows(b, a, _sm_count(gi.device) // 2), hdim,
-                    ext.gru_backward_smem_bytes)
-    _check_smem(ext.gru_backward_smem_bytes(hdim, rows), "backward", hdim)
+    sms = _sm_count(gi.device)
+    kind = backward_route((a, t, b, hdim), sms,
+                          _max_active(ext, gi.device, "backward"))
+    if kind == "cluster":
+        ctas, rows = cluster_plan(hdim, b, a, sms, "backward")
+    else:
+        # the chain's 8 lanes a unit own a row each at 8 rows a tile;
+        # fewer rows repeat its gate algebra, worth it only on a card half
+        # idle
+        ctas, rows = 0, fit_rows(tile_rows(b, a, sms // 2), hdim,
+                                 ext.gru_backward_smem_bytes)
+        _check_smem(ext.gru_backward_smem_bytes(hdim, rows), "backward",
+                    hdim)
     # scratch: the recomputed gh for the chain, its r gate and the partial
     # sums over slices of rows for dW_h/db_h
     gh, rgate = new(a, t, b, 3 * hdim), new(a, t, b, hdim)
     part = new(ext.gru_backward_part_floats(a, t, b, hdim))
     ext.gru_backward(gi, wh, bh, h0, resets, hs, g, gh, rgate, part, dgi,
-                     dwh, dbh, dh0, rows)
-    _count("gru_backward", (a, t, b, hdim), gi.device,
-           route(hdim, "backward"))
+                     dwh, dbh, dh0, rows, ctas)
+    _count("gru_backward", (a, t, b, hdim), gi.device, kind)
     return dgi, dwh, dbh, dh0
 
 

@@ -12,7 +12,9 @@ chunk_decay)``; the fourth output its docstring promises
 dtype and shape (:func:`route`): bfloat16 inputs at head_dim 64, chunk 64
 or 128 and state 64 or 128 (mamba2-780m's and zamba2-1.2b's layers) go to
 ``ssd_chunk_sm90``, on the tensor cores (bf16 products summed in float32,
-M and X·w split into bf16 hi + lo); float32 inputs and the other shapes go
+M and X·w split into bf16 hi + lo), and at chunk 256 to
+``ssd_chunk_sm90_long`` (the same products, C·Bᵀ recomputed a 64 x 64
+tile at a time for each head); float32 inputs and the other shapes go
 to fp32 FFMA, since the tensor cores would need TF32 for float32:
 ``ssd_chunk`` where its whole-chunk tiles fit (chunk a multiple of 16 up
 to 128, head_dim and state multiples of 4 up to 128, within a block's
@@ -32,11 +34,13 @@ from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.ssd import ref
 
 LAUNCHES = {"ssd_intra_chunk": 0, "ssd_chunk_sm90": 0, "ssd_chunk": 0,
-            "ssd_chunk_tiled": 0}
+            "ssd_chunk_tiled": 0, "ssd_chunk_sm90_long": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
 SM90_HEAD_DIMS, SM90_CHUNKS, SM90_STATES = (64,), (64, 128), (64, 128)
 SM90_MAX_HEADS = 16              # heads a block of ssd_chunk_sm90
+SM90_LONG_CHUNKS = (256,)        # ssd_chunk_sm90_long's chunks
+SM90_LONG_MAX_HEADS = 8          # heads a block of ssd_chunk_sm90_long
 
 
 def ffma_smem_bytes(chunk: int, p: int, n: int) -> int:
@@ -47,12 +51,15 @@ def ffma_smem_bytes(chunk: int, p: int, n: int) -> int:
 
 
 def route(dtype, p: int, n: int, chunk: int) -> str:
-    """The kernel a launch goes to: ``"ssd_chunk_sm90"`` for bf16 at the
-    shapes it takes, ``"ssd_chunk"`` where its whole-chunk tiles fit,
-    ``"ssd_chunk_tiled"`` otherwise."""
-    if (dtype == torch.bfloat16 and p in SM90_HEAD_DIMS
-            and n in SM90_STATES and chunk in SM90_CHUNKS):
-        return "ssd_chunk_sm90"
+    """The kernel a launch goes to: ``"ssd_chunk_sm90"`` and
+    ``"ssd_chunk_sm90_long"`` for bf16 at the shapes they take,
+    ``"ssd_chunk"`` where its whole-chunk tiles fit, ``"ssd_chunk_tiled"``
+    otherwise."""
+    if dtype == torch.bfloat16 and p in SM90_HEAD_DIMS and n in SM90_STATES:
+        if chunk in SM90_CHUNKS:
+            return "ssd_chunk_sm90"
+        if chunk in SM90_LONG_CHUNKS:
+            return "ssd_chunk_sm90_long"
     if (chunk % 16 == 0 and chunk <= 128 and p % 4 == 0 and p <= 128
             and n % 4 == 0 and n <= 128
             and ffma_smem_bytes(chunk, p, n) <= MAX_SMEM_BYTES):
@@ -85,6 +92,12 @@ def heads_per_block_sm90(bsz: int, nc: int, h: int, sms: int) -> int:
     return max(1, min(SM90_MAX_HEADS, bsz * nc * h // sms))
 
 
+def heads_per_block_long(bsz: int, nc: int, h: int, sms: int) -> int:
+    """``ssd_chunk_sm90_long``: as :func:`heads_per_block_sm90`, up to 8
+    heads a block (its shared memory holds their cs and w)."""
+    return max(1, min(SM90_LONG_MAX_HEADS, bsz * nc * h // sms))
+
+
 def forward(xw, la, b, c, *, chunk: int):
     """Launch the kernel; see :func:`ssd_intra_chunk` for the contract."""
     bsz, t, h, p = xw.shape
@@ -97,6 +110,8 @@ def forward(xw, la, b, c, *, chunk: int):
     kernel = route(xw.dtype, p, n, chunk)
     ext = build.extension()
     smem = {"ssd_chunk_sm90": lambda: ext.ssd_sm90_smem_bytes(chunk, p, n),
+            "ssd_chunk_sm90_long":
+                lambda: ext.ssd_sm90_long_smem_bytes(chunk, p, n),
             "ssd_chunk": lambda: ext.ssd_smem_bytes(chunk, p, n),
             "ssd_chunk_tiled": lambda: ext.ssd_tiled_smem_bytes(chunk, p)
             }[kernel]()
@@ -111,13 +126,19 @@ def forward(xw, la, b, c, *, chunk: int):
                          device=xw.device)
     chunk_decay = torch.empty((bsz, nc, h), dtype=torch.float32,
                               device=xw.device)
-    if kernel == "ssd_chunk_sm90":
+    if kernel in ("ssd_chunk_sm90", "ssd_chunk_sm90_long"):
         # the tensor maps of its loads and stores need 16-byte alignment
         for name, x in (("xw", xw), ("b", b), ("c", c)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
-        ext.ssd_intra_chunk_sm90(xw, la, b, c, y, states, chunk_decay, chunk,
-                                 heads_per_block_sm90(bsz, nc, h, sms))
+        if kernel == "ssd_chunk_sm90":
+            ext.ssd_intra_chunk_sm90(xw, la, b, c, y, states, chunk_decay,
+                                     chunk,
+                                     heads_per_block_sm90(bsz, nc, h, sms))
+        else:
+            ext.ssd_intra_chunk_sm90_long(
+                xw, la, b, c, y, states, chunk_decay, chunk,
+                heads_per_block_long(bsz, nc, h, sms))
     elif kernel == "ssd_chunk_tiled":
         ext.ssd_intra_chunk_tiled(xw, la, b, c, y, states, chunk_decay, chunk)
     else:

@@ -99,10 +99,13 @@ def _gru_inputs(device, a, t, b, h, seed, reset_p=0.2):
     return ins, resets, rnd(a, t, b, h)
 
 
-def _max_active():
-    """The card's ``max_active`` for ``gru_kernel.forward_route``."""
+def _max_active(direction="forward"):
+    """The card's ``max_active`` for ``gru_kernel.forward_route`` (or
+    ``backward_route``)."""
     from repro_torch.kernels import build
-    return build.extension().gru_forward_cluster_max_active
+    ext = build.extension()
+    return (ext.gru_forward_cluster_max_active if direction == "forward"
+            else ext.gru_backward_cluster_max_active)
 
 
 @pytest.mark.cuda
@@ -132,9 +135,9 @@ def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
     """Forward and backward, with resets, over one and several batch
     tiles (b=21 spans three tiles of 8) and at the main path's shapes;
     each launch is counted under the route ``route`` names for its
-    direction (above hidden 128: the forward's cluster route up to 512
-    where ``forward_route`` takes it, streaming otherwise; the backward
-    streaming)."""
+    direction (above hidden 128: the cluster routes up to 512 where
+    ``forward_route`` and ``backward_route`` take them, streaming
+    otherwise)."""
     ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=0)
     k_leaves = [x.clone().requires_grad_() for x in ins]
     p_leaves = [x.clone().requires_grad_() for x in ins]
@@ -147,12 +150,101 @@ def test_gru_kernels_match_plain(cuda_device, a, t, b, h):
         assert_close_scaled(gk, gp, GRU_TOL)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     fwd = gru_kernel.forward_route((a, t, b, h), sms, _max_active())
-    bwd = gru_kernel.route(h, "backward")
+    bwd = gru_kernel.backward_route((a, t, b, h), sms,
+                                    _max_active("backward"))
     assert {k: gru_kernel.LAUNCHES[k] - before[k] for k in before} == {
         "gru_forward": 1, "gru_backward": 1,
         "gru_forward_stream": int(fwd == "stream"),
         "gru_forward_cluster": int(fwd == "cluster"),
-        "gru_backward_stream": int(bwd == "stream")}
+        "gru_backward_stream": int(bwd == "stream"),
+        "gru_backward_cluster": int(bwd == "cluster")}
+
+
+def _odd(x):
+    """A contiguous copy of x at an odd float offset (not 16-byte
+    aligned)."""
+    flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resets_on", [False, True])
+@pytest.mark.parametrize("a,t,b,h", [
+    (3, 6, 70, 160),      # 5 CTAs, two tiles of 64 rows, the last ragged
+    (2, 7, 37, 256),      # 8 CTAs, 37 rows in a tile of 64
+    (100, 7, 128, 256),   # the AIP's training batch
+    (2, 5, 19, 384),      # 12 CTAs, tiles of 16 rows
+    (2, 9, 13, 512),      # 16 CTAs, tiles of 8 rows
+    (3, 4, 21, 200),      # 7 CTAs, units past the hidden in the last
+    (16, 16, 64, 512)])   # the policy-like wide shape
+def test_gru_cluster_chain_matches_plain(cuda_device, a, t, b, h,
+                                         resets_on):
+    """The backward on ``gru_bwd_chain_cluster`` against the plain
+    version's autograd, with resets on and off, batches no multiple of
+    the tile; one launch counted on the cluster route."""
+    ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=7,
+                                 reset_p=0.2 if resets_on else 0.0)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert gru_kernel.backward_route((a, t, b, h), sms,
+                                     _max_active("backward")) == "cluster"
+    hs = gru_kernel.forward(*ins, resets)
+    before = gru_kernel.LAUNCHES["gru_backward_cluster"]
+    got = gru_kernel.backward(*ins, resets, hs, g)
+    assert gru_kernel.LAUNCHES["gru_backward_cluster"] == before + 1
+    leaves = [x.clone().requires_grad_() for x in ins]
+    want = torch.autograd.grad(gru_ref.gru_scan(*leaves, resets), leaves, g)
+    for k, p in zip(got, want):
+        assert_close_scaled(k, p, GRU_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,t,b,h", [(3, 9, 20, 256), (2, 8, 8, 512),
+                                     (100, 7, 128, 256), (3, 5, 16, 384),
+                                     (2, 4, 5, 160)])
+def test_gru_cluster_chain_is_deterministic(cuda_device, a, t, b, h):
+    """The cluster chain sums in a fixed order (a lane's columns, the
+    fold's shuffle tree, the slots in rank order): two runs give the same
+    bits; its plan's shared memory is the wrapper's and the card holds at
+    least one cluster of it at once."""
+    from repro_torch.kernels import build
+    ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=8)
+    hs = gru_kernel.forward(*ins, resets)
+    first = gru_kernel.backward(*ins, resets, hs, g)
+    second = gru_kernel.backward(*ins, resets, hs, g)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ctas, rows = gru_kernel.cluster_plan(h, b, a, sms, "backward")
+    ext = build.extension()
+    assert ext.gru_backward_cluster_smem_bytes(h, ctas, rows) == \
+        gru_kernel.cluster_chain_smem_bytes(h, ctas, rows)
+    assert ext.gru_backward_cluster_max_active(h, ctas, rows) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,t,b,h", [(3, 9, 20, 256), (2, 8, 8, 512),
+                                     (2, 4, 5, 160), (2, 5, 7, 300),
+                                     (2, 5, 19, 384)])
+def test_gru_cluster_chain_takes_unaligned_views(cuda_device, a, t, b, h):
+    """The cluster chain copies W_h with 16-byte copies only where the
+    tensor starts 16-byte aligned: views at an odd float offset give the
+    same bits as aligned copies, and match the plain version."""
+    ins, resets, g = _gru_inputs(cuda_device, a, t, b, h, seed=9)
+    hs = gru_kernel.forward(*ins, resets)
+    gi, wh, bh, h0 = ins
+    before = gru_kernel.LAUNCHES["gru_backward_cluster"]
+    got = gru_kernel.backward(_odd(gi), _odd(wh), bh, _odd(h0), resets,
+                              _odd(hs), _odd(g))
+    assert gru_kernel.LAUNCHES["gru_backward_cluster"] == before + 1
+    for x, y in zip(got, gru_kernel.backward(*ins, resets, hs, g)):
+        assert torch.equal(x, y)
+    leaves = [x.clone().requires_grad_() for x in ins]
+    want = torch.autograd.grad(gru_ref.gru_scan(*leaves, resets), leaves, g)
+    for k, p in zip(got, want):
+        assert_close_scaled(k, p, GRU_TOL)
 
 
 @pytest.mark.cuda
@@ -1078,12 +1170,14 @@ def test_ssd_tiled_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
     x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, p, n, dtype)
     xw = (x * dt[..., None].to(dtype)).contiguous()
     la = (dt * a).contiguous()
-    assert ssd_kernel.route(dtype, p, n, chunk) == "ssd_chunk_tiled"
+    # bf16 at P 64, N 64/128, chunk 256 goes to the long tensor-core route
+    key = ("ssd_chunk_sm90_long" if dtype == torch.bfloat16 and p == 64
+           and n in (64, 128) and chunk == 256 else "ssd_chunk_tiled")
+    assert ssd_kernel.route(dtype, p, n, chunk) == key
     before = dict(ssd_kernel.LAUNCHES)
     got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_kernel.LAUNCHES["ssd_chunk_tiled"] == \
-        before["ssd_chunk_tiled"] + 1
+    assert ssd_kernel.LAUNCHES[key] == before[key] + 1
     want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
     tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
     assert got[0].dtype == dtype
@@ -1095,6 +1189,46 @@ def test_ssd_tiled_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
     y_p, s_p = ssm_mod.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
                                    initial_state=s0)
     assert_close_scaled(y_k, y_p, tol)
+    assert_close_scaled(s_k, s_p, SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,n", [
+    (1, 512, 4, 64), (1, 512, 4, 128),
+    (2, 8192, 48, 128),              # mamba2-780m's layer at chunk 256
+    (2, 4096, None, 64), (2, 8192, None, 128)])  # a short last head group
+def test_ssd_long_matches_plain(cuda_device, b, t, h, n):
+    """``ssd_chunk_sm90_long`` (bf16, P 64, chunk 256) against the plain
+    intra-chunk block: y within SSD_BF16_TOL, the states and decays within
+    SSD_TOL, both times max(1, largest magnitude); ``ops.ssd`` with an
+    initial state against ``ssd_chunked``."""
+    chunk = 256
+    if h is None:   # a head count the block's heads do not divide
+        sms = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        h = next(k for k in (13, 11, 17, 19, 23, 7, 5) if k % ssd_kernel.
+                 heads_per_block_long(b, t // chunk, k, sms))
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, 64, n,
+                                  torch.bfloat16)
+    xw = (x * dt[..., None].bfloat16()).contiguous()
+    la = (dt * a).contiguous()
+    assert ssd_kernel.route(torch.bfloat16, 64, n, chunk) == \
+        "ssd_chunk_sm90_long"
+    before = ssd_kernel.LAUNCHES["ssd_chunk_sm90_long"]
+    got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_chunk_sm90_long"] == before + 1
+    want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
+    assert got[0].dtype == torch.bfloat16
+    assert_close_scaled(got[0], want[0], SSD_BF16_TOL)
+    for g, w in zip(got[1:], want[1:]):
+        assert_close_scaled(g, w, SSD_TOL)
+    s0 = torch.randn(b, h, 64, n, generator=gen, device=cuda_device)
+    y_k, s_k = ssd_ops.ssd(x, dt, a, bm, c, chunk=chunk, initial_state=s0)
+    y_p, s_p = ssm_mod.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
+                                   initial_state=s0)
+    assert_close_scaled(y_k, y_p, SSD_BF16_TOL)
     assert_close_scaled(s_k, s_p, SSD_TOL)
 
 
@@ -1117,7 +1251,8 @@ def test_ssd_routes_by_dtype_and_shape(cuda_device):
         assert ssd_kernel.route(dtype, 64, 128, chunk) == key
         assert {k: ssd_kernel.LAUNCHES[k] - counts[k] for k in counts} == {
             "ssd_intra_chunk": 1, "ssd_chunk_sm90": int(key != "ssd_chunk"),
-            "ssd_chunk": int(key == "ssd_chunk"), "ssd_chunk_tiled": 0}
+            "ssd_chunk": int(key == "ssd_chunk"), "ssd_chunk_tiled": 0,
+            "ssd_chunk_sm90_long": 0}
         want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
         tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
         assert_close_scaled(got[0], want[0], tol)

@@ -2,11 +2,12 @@
 numpy-seeded inputs through the JAX package's Pallas kernel in interpret
 mode and through the port's plain version (the kernel's CPU path and its
 oracle on the card), at shapes the wide routes take: the GRU at hidden
-192 and 256 (``gru_fwd_cluster``/``gru_bwd_chain_stream``), flash
+192 and 256 (``gru_fwd_cluster``/``gru_bwd_chain_cluster``), flash
 attention at head_dim 16, 80 and 320 (``flash_fwd_sm90_padded`` in
 bfloat16 up to 256, ``flash_fwd_padded`` otherwise), the SSD block at
-chunk 256 with head_dim and state 6 (``ssd_chunk_tiled``); and the
-wrappers' range checks, routes and the GRU cluster's plan, which are
+chunk 256 with head_dim and state 6 (``ssd_chunk_tiled``) and in bf16
+with both 64 (``ssd_chunk_sm90_long``); and the wrappers' range checks,
+routes and the GRU cluster's plans, which are
 decided before any launch, without a card. ``test_torch_cuda.py``
 holds each new route to its plain version on the card.
 
@@ -110,8 +111,8 @@ def test_gru_fit_rows(hdim, rows, want):
 
 @pytest.mark.parametrize("hdim,want,want_bwd", [
     (1, "resident", "resident"), (128, "resident", "resident"),
-    (129, "cluster", "stream"), (256, "cluster", "stream"),
-    (512, "cluster", "stream"), (513, "stream", "stream"),
+    (129, "cluster", "cluster"), (256, "cluster", "cluster"),
+    (512, "cluster", "cluster"), (513, "stream", "stream"),
     (7264, "stream", "stream")])
 def test_gru_route_is_counted_at_launch(hdim, want, want_bwd, monkeypatch):
     """``route`` names the kernel a width runs in each direction; a
@@ -133,7 +134,50 @@ def test_gru_route_is_counted_at_launch(hdim, want, want_bwd, monkeypatch):
         "gru_forward": 1, "gru_backward": 1,
         "gru_forward_stream": int(want == "stream"),
         "gru_forward_cluster": int(want == "cluster"),
-        "gru_backward_stream": int(want_bwd == "stream")}
+        "gru_backward_stream": int(want_bwd == "stream"),
+        "gru_backward_cluster": int(want_bwd == "cluster")}
+
+
+@pytest.mark.parametrize("hdim,plan", [
+    (128, None),          # resident: no cluster
+    (129, (5, 64)),       # the narrowest: 5 CTAs of 32 units
+    (256, (8, 64)),       # the AIP's: 98,304 B of W_h and 131,072 of slots
+    (384, (12, 16)),      # 147,456 B of W_h: 16 rows of slots fit
+    (512, (16, 8)),       # 196,608 B of W_h: 8 rows
+    (513, None)])         # 17 CTAs: streamed
+def test_gru_backward_cluster_plan_at_the_band_edges(hdim, plan):
+    """The cluster chain's plan at the AIP's batch of 100 x 128 rows: the
+    forward's CTAs, and rows halved until a CTA's W_h columns (384 KP
+    bytes, KP the hidden rounded up to 64) and its double-buffered slots
+    (8 C R U bytes) fit a block."""
+    got = gru_kernel.cluster_plan(hdim, 128, 100, 132, "backward")
+    assert got == plan
+    if plan is None:
+        return
+    ctas, rows = plan
+    kp = -(-hdim // 64) * 64
+    assert gru_kernel.cluster_chain_smem_bytes(hdim, ctas, rows) == \
+        4 * (96 * kp + 2 * ctas * rows * 32) <= gru_kernel.MAX_SMEM_BYTES
+    if rows < 64:
+        assert gru_kernel.cluster_chain_smem_bytes(hdim, ctas, 2 * rows) > \
+            gru_kernel.MAX_SMEM_BYTES
+
+
+def test_gru_backward_plans_fit_every_cluster_width():
+    """Every hidden width of the cluster band has a backward plan that
+    fits a block at every batch, as the forward's does; the plans agree
+    with the forward's at the widths the paths run."""
+    for h in range(gru_kernel.RESIDENT_HIDDEN + 1,
+                   gru_kernel.CLUSTER_HIDDEN + 1):
+        for batch, agents in ((1, 1), (8, 4), (64, 16), (128, 100)):
+            ctas, rows = gru_kernel.cluster_plan(h, batch, agents, 132,
+                                                 "backward")
+            assert gru_kernel.cluster_chain_smem_bytes(h, ctas, rows) <= \
+                gru_kernel.MAX_SMEM_BYTES
+    for h, batch, agents in ((256, 128, 100), (512, 64, 16), (512, 8, 4),
+                             (256, 1, 4)):
+        assert gru_kernel.cluster_plan(h, batch, agents, 132) == \
+            gru_kernel.cluster_plan(h, batch, agents, 132, "backward")
 
 
 @pytest.mark.parametrize("hdim,batch,agents,plan", [
@@ -161,7 +205,8 @@ def test_gru_cluster_plan_fits_a_block(hdim, batch, agents, plan):
 
 
 # clusters of a plan an NVIDIA H100 80GB HBM3 holds at once, by CTAs a
-# cluster (gru_forward_cluster_max_active, at one CTA an SM)
+# cluster (gru_forward_cluster_max_active, at one CTA an SM; the backward's
+# gru_backward_cluster_max_active gave the same counts)
 H100_CLUSTERS = {5: 22, 8: 15, 12: 7, 16: 7}
 
 
@@ -195,6 +240,42 @@ def test_gru_forward_route_by_shape(shape, want):
     hidden 128 where it is no slower than the streaming one, on a long
     enough sequence or a grid whose clusters all fit at once."""
     assert gru_kernel.forward_route(shape, 132, _h100_clusters) == want
+
+
+def _bwd_edge(ctas):
+    return next(n for c, n in sorted(
+        gru_kernel.CLUSTER_MIN_STEPS_BWD.items()) if ctas <= c)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((100, 7, 128, 128), "resident"),   # the band's edges
+    ((100, 7, 128, 129), "cluster"),
+    ((16, 16, 64, 512), "cluster"),
+    ((16, 16, 64, 513), "stream"),
+    ((100, 7, 128, 256), "cluster"),    # the AIP's training batch
+    ((4, 1, 8, 256), "cluster"),        # 4 clusters: one wave at T=1
+    ((4, 1, 8, 512), "cluster"),
+    ((15, 1, 8, 256), "cluster"),       # 15 clusters of 8 fit at once
+    ((16, 1, 8, 256), None),            # 16 do not: the edge in T decides
+    ((8, 1, 8, 512), None),
+    ((100, 1, 128, 160), None),
+    ((16, 1, 64, 384), None)])
+def test_gru_backward_route_by_shape(shape, want):
+    """The backward's chain on a card of 132 SMs that holds H100_CLUSTERS
+    clusters of a plan at once: the cluster chain from hidden 129 to 512
+    where all its clusters fit at once or the sequence is at least
+    CLUSTER_MIN_STEPS_BWD long (by the plan's CTAs), streaming one step
+    shorter; resident and streaming outside the band."""
+    a, t, b, h = shape
+    if want is not None:
+        assert gru_kernel.backward_route(shape, 132, _h100_clusters) == want
+        return
+    ctas, _ = gru_kernel.cluster_plan(h, b, a, 132, "backward")
+    edge = _bwd_edge(ctas)
+    for steps, kind in ((edge - 1, "stream"), (edge, "cluster")):
+        if steps >= 1:
+            assert gru_kernel.backward_route(
+                (a, steps, b, h), 132, _h100_clusters) == kind
 
 
 def test_gru_cluster_plan_ends_at_its_widest_hidden():
@@ -316,7 +397,15 @@ def test_ssd_chunk256_p6_n6_matches_reference_kernel(dtype):
 
 
 @pytest.mark.parametrize("dtype,p,n,chunk,kernel", [
-    (torch.bfloat16, 64, 128, 256, "ssd_chunk_tiled"),
+    (torch.bfloat16, 64, 128, 256, "ssd_chunk_sm90_long"),  # mamba2's layer
+    (torch.bfloat16, 64, 64, 256, "ssd_chunk_sm90_long"),
+    (torch.bfloat16, 64, 128, 128, "ssd_chunk_sm90"),   # the old route
+    (torch.bfloat16, 64, 64, 64, "ssd_chunk_sm90"),
+    (torch.float32, 64, 128, 256, "ssd_chunk_tiled"),   # float32 stays
+    (torch.bfloat16, 32, 128, 256, "ssd_chunk_tiled"),  # P != 64
+    (torch.bfloat16, 64, 96, 256, "ssd_chunk_tiled"),   # N not 64 or 128
+    (torch.bfloat16, 64, 128, 512, "ssd_chunk_tiled"),  # chunk 512
+    (torch.bfloat16, 6, 6, 256, "ssd_chunk_tiled"),
     (torch.float32, 6, 6, 256, "ssd_chunk_tiled"),
     (torch.float32, 6, 6, 32, "ssd_chunk_tiled"),     # P, N not of 4
     (torch.float32, 64, 64, 24, "ssd_chunk_tiled"),   # L not of 16
@@ -325,9 +414,56 @@ def test_ssd_chunk256_p6_n6_matches_reference_kernel(dtype):
     (torch.float32, 64, 128, 128, "ssd_chunk"),       # 231,936 bytes
     (torch.bfloat16, 64, 128, 128, "ssd_chunk_sm90")])
 def test_ssd_route_past_the_first_ranges(dtype, p, n, chunk, kernel):
-    """``ssd_chunk`` keeps the shapes whose whole-chunk tiles fit; every
-    other chunk, P and N goes to the tiled pair."""
+    """bf16 at P 64, N 64 or 128 goes to the tensor cores, at chunk 64 and
+    128 to ``ssd_chunk_sm90``, at 256 to ``ssd_chunk_sm90_long``;
+    ``ssd_chunk`` keeps the float32 shapes whose whole-chunk tiles fit;
+    every other chunk, P and N goes to the tiled pair."""
     assert ssd_kernel.route(dtype, p, n, chunk) == kernel
+    assert kernel in ssd_kernel.LAUNCHES
+
+
+@pytest.mark.parametrize("bsz,nc,h,want", [
+    (2, 32, 48, 8),     # mamba2-780m at chunk 256: 3,072 head-chunks
+    (1, 2, 2, 1),       # fewer head-chunks than SMs: one head a block
+    (1, 8, 40, 2)])
+def test_ssd_long_heads_per_block(bsz, nc, h, want):
+    """``ssd_chunk_sm90_long`` takes up to 8 heads a block (the most whose
+    cs and w fit beside B, C and the X ring), fewer where the grid would
+    leave SMs without a block."""
+    assert ssd_kernel.heads_per_block_long(bsz, nc, h, 132) == want
+
+
+def test_ssd_chunk256_p64_n64_bf16_matches_reference_kernel():
+    """The bf16 block the long tensor-core route takes, at its smallest
+    (chunk 256, head_dim 64, state 64, one chunk of two heads): the port's
+    plain version (the route's CPU path and its oracle on the card)
+    against the reference kernel in interpret mode; bf16 y within 1e-2
+    scaled, the float32 states and decay within 2e-4."""
+    rng = np.random.RandomState(29)
+    b, t, h, p, n, chunk = 1, 256, 2, 64, 64, 256
+    x = rng.randn(b, t, h, p).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.randn(b, t, h))) * 0.1).astype(np.float32)
+    a = (-np.exp(rng.randn(h) * 0.3)).astype(np.float32)
+    bm = rng.randn(b, t, n).astype(np.float32)
+    c = rng.randn(b, t, n).astype(np.float32)
+    xw, la = x * dt[..., None], dt * a
+    assert ssd_kernel.route(torch.bfloat16, p, n, chunk) == \
+        "ssd_chunk_sm90_long"
+    want = jssd_kernel.ssd_intra_chunk(
+        jnp.asarray(xw).astype(jnp.bfloat16), jnp.asarray(la),
+        jnp.asarray(bm).astype(jnp.bfloat16),
+        jnp.asarray(c).astype(jnp.bfloat16), chunk=chunk, interpret=True)
+    before = dict(ssd_kernel.LAUNCHES)
+    got = ssd_kernel.ssd_intra_chunk(
+        torch.from_numpy(xw).bfloat16(), torch.from_numpy(la),
+        torch.from_numpy(bm).bfloat16(), torch.from_numpy(c).bfloat16(),
+        chunk=chunk)
+    assert ssd_kernel.LAUNCHES == before             # no launch on the CPU
+    assert got[0].dtype == torch.bfloat16
+    assert_close_scaled(got[0].float().numpy(),
+                        np.asarray(want[0].astype(jnp.float32)), 1e-2)
+    for g, w in zip(got[1:], want[1:]):
+        assert_close_scaled(g.numpy(), np.asarray(w), SSD_TOL)
 
 
 def test_ssd_range_checks_without_a_card():

@@ -104,7 +104,7 @@ def test_sharded_row_keeps_its_ranks_launches(sweep):
         # routes' launches
         assert set(got["launches"]) == {
             *wrappers, "gru_forward_stream", "gru_backward_stream",
-            "gru_forward_cluster"}
+            "gru_forward_cluster", "gru_backward_cluster"}
         assert set(got["launches"].values()) == {0}
         assert got["by_shape"] == {k: {} for k in wrappers}
 
