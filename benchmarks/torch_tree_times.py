@@ -22,13 +22,14 @@ For the ``repro_torch`` under ``--src`` (default: this checkout's), prints
 * the wide routes: the GRU forward at ``chip_smoke.GRU_WIDE_SHAPES``
   (hidden 256 and 512) and at the rollout cell's T=1 (GRU_CELL_SHAPES),
   the GRU backward at GRU_WIDE_SHAPES with the device time of each of
-  its kernels (``torch.profiler``), bf16 SSD at chunk 256 at
-  mamba2-780m's layer width, and flash attention in bf16 at
+  its kernels (``torch.profiler``), SSD at chunk 256 at mamba2-780m's
+  layer width in bf16 and float32, and flash attention in bf16 at
   ``chip_smoke.FLASH_FFMA_CASES`` (head_dim 96, 16, 512),
   ``chip_smoke.FLASH_ODD_CASE`` (36) and, at the first case's shape, at
-  the head_dims of FLASH_HEAD_DIMS, each with the route its tree's
-  ``route`` names, so that two trees that route these shapes to
-  different kernels time the old kernel against the new one;
+  the head_dims of FLASH_HEAD_DIMS, and in float32 at the widest case
+  (512), each with the route its tree's ``route`` names, so that two
+  trees that route these shapes to different kernels time the old
+  kernel against the new one;
 * a digest of the outputs (the first 16 hex digits of the SHA-256 of
   their bytes) of the GRU forward at 100x128x7x64, of the SSD block at
   chunk 128 and 256, of the wide GRU forward and backward and of every
@@ -38,7 +39,9 @@ With ``--library`` it instead times, once, the PyTorch calls that compute
 the wide flash cases' function (yardsticks, never called by the port):
 ``scaled_dot_product_attention`` at the causal case and compiled
 ``flex_attention`` (``chip_smoke.flash_library_ms``) at the cases with a
-window or softcap, in both dtypes.
+window or softcap, in both dtypes, and in bf16 at
+``chip_smoke.FLASH_ODD_CASE`` (36) and ``chip_smoke.FLASH_WIDE_CASES``
+(512, 300, 384).
 
 With ``--gru-sweep`` it instead times the GRU forward's two kernels above
 hidden 128 on the same inputs, both called past the wrapper's route: the
@@ -176,10 +179,11 @@ def flash_case(gen, device, case, dtype):
 
 def wide_times(device, label):
     """The GRU forward at GRU_WIDE_SHAPES and GRU_CELL_SHAPES, the GRU
-    backward at GRU_WIDE_SHAPES (with its kernels' device times), bf16 SSD
-    at chunk 256 at mamba2's width and bf16 flash at FLASH_FFMA_CASES,
-    FLASH_ODD_CASE and FLASH_HEAD_DIMS on whatever kernel this tree routes
-    them to."""
+    backward at GRU_WIDE_SHAPES (with its kernels' device times), SSD at
+    chunk 256 at mamba2's width in bf16 and float32, bf16 flash at
+    FLASH_FFMA_CASES, FLASH_ODD_CASE and FLASH_HEAD_DIMS and float32 flash
+    at the widest of FLASH_FFMA_CASES, each on whatever kernel this tree
+    routes it to, with its output's digest."""
     import torch
 
     import chip_smoke
@@ -223,25 +227,37 @@ def wide_times(device, label):
     dt = torch.nn.functional.softplus(
         torch.randn(bsz, t, h, generator=gen, device=device) - 3.0)
     xw = (torch.randn(bsz, t, h, p, generator=gen, device=device)
-          * dt[..., None]).bfloat16().contiguous()
+          * dt[..., None]).contiguous()
     la = (dt * -torch.exp(torch.randn(h, generator=gen, device=device)
                           * 0.5)).contiguous()
-    bm, c = (torch.randn(bsz, t, n, generator=gen, device=device).bfloat16()
+    bm, c = (torch.randn(bsz, t, n, generator=gen, device=device)
              for _ in range(2))
-    fn = lambda: sk.forward(xw, la, bm, c, chunk=256)
-    print(f"{label}: ssd bf16 ({sk.route(torch.bfloat16, p, n, 256)}) "
-          f"{bsz}x{t}x{h}x{p} N {n} L 256: {chip_smoke.cuda_ms(fn, 10):.4f} "
-          f"ms; output digest {digests(fn())}", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        xw32, bm32, c32 = (x.to(dtype) for x in (xw, bm, c))
+        fn = lambda: sk.forward(xw32, la, bm32, c32, chunk=256)
+        name = str(dtype).replace("torch.", "")
+        print(f"{label}: ssd {name} ({sk.route(dtype, p, n, 256)}) "
+              f"{bsz}x{t}x{h}x{p} N {n} L 256: "
+              f"{chip_smoke.cuda_ms(fn, 10):.4f} ms; output digest "
+              f"{digests(fn())}", flush=True)
+        del xw32, bm32, c32
     del xw, la, bm, c
     first = chip_smoke.FLASH_FFMA_CASES[0]
-    for case in chip_smoke.FLASH_FFMA_CASES + (chip_smoke.FLASH_ODD_CASE,) \
-            + tuple(first[:4] + (d,) + first[5:] for d in FLASH_HEAD_DIMS):
-        (q, k, v), kw = flash_case(gen, device, case, torch.bfloat16)
+    widest = chip_smoke.FLASH_FFMA_CASES[-1]
+    for case, dtype in [(c, torch.bfloat16) for c in
+                        chip_smoke.FLASH_FFMA_CASES
+                        + (chip_smoke.FLASH_ODD_CASE,)
+                        + tuple(first[:4] + (d,) + first[5:]
+                                for d in FLASH_HEAD_DIMS)] \
+            + [(widest, torch.float32)]:
+        (q, k, v), kw = flash_case(gen, device, case, dtype)
         d = case[4]
-        ms = chip_smoke.cuda_ms(lambda: fk.forward(q, k, v, **kw), 20)
-        print(f"{label}: flash bf16 ({fk.route(torch.bfloat16, d)}) "
-              f"{case[0]}x{case[1]}/{case[2]}x{case[3]}xD{d} window "
-              f"{case[5]} softcap {case[6]}: {ms:.4f} ms", flush=True)
+        fn = lambda: fk.forward(q, k, v, **kw)
+        print(f"{label}: flash {str(dtype).replace('torch.', '')} "
+              f"({fk.route(dtype, d)}) {case[0]}x{case[1]}/{case[2]}x"
+              f"{case[3]}xD{d} window {case[5]} softcap {case[6]}: "
+              f"{chip_smoke.cuda_ms(fn, 20):.4f} ms; output digest "
+              f"{digest(fn())}", flush=True)
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -406,18 +422,24 @@ def gru_phases(device):
 
 
 def library_times(device):
-    """The PyTorch calls for the wide flash cases' function, timed once:
-    SDPA where only the causal mask is set, compiled flex_attention
-    where a window or softcap is (null with the reason where it does not
-    run)."""
+    """The PyTorch calls for the wide flash cases' function and, in
+    bf16, FLASH_ODD_CASE's and FLASH_WIDE_CASES', timed once: SDPA where
+    only the causal mask is set,
+    compiled flex_attention where a window or softcap is (null with the
+    reason where it does not run)."""
     import torch
     import torch.nn.functional as F
 
     import chip_smoke
     gen = torch.Generator(device=device).manual_seed(1)
-    for case in chip_smoke.FLASH_FFMA_CASES:
+    bf16_only = (chip_smoke.FLASH_ODD_CASE,) + tuple(
+        c for c in chip_smoke.FLASH_WIDE_CASES
+        if c not in chip_smoke.FLASH_FFMA_CASES)
+    for case, dtypes in [(c, (torch.bfloat16, torch.float32))
+                         for c in chip_smoke.FLASH_FFMA_CASES] + [
+            (c, (torch.bfloat16,)) for c in bf16_only]:
         b, d, window, cap = case[0], case[4], case[5], case[6]
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             (q, k, v), kw = flash_case(gen, device, case, dtype)
             if window is None and cap is None:
                 qb, kb, vb = (x.view(b, -1, x.shape[1], d) for x in (q, k, v))

@@ -14,11 +14,12 @@ It
   2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
      csrc``, prints the build seconds, and reads the built library with
      ``cuobjdump``: registers, stack, local memory and HGMMA (tensor-core)
-     instructions of each flash kernel (the bf16 one must have HGMMA), and
+     instructions of each flash kernel (the bf16 ones must have HGMMA), and
      registers, stack and local memory of each GRU kernel (those that keep
      W_h in registers must not spill), and the same with HGMMA for each
      instantiation of the bf16 SSD kernels ``ssd_chunk_sm90`` and
-     ``ssd_chunk_sm90_long`` (each must have HGMMA);
+     ``ssd_chunk_sm90_long`` (each must have HGMMA) and of the float32
+     long-chunk pair ``ssd_long_y``/``ssd_long_state`` (no spill);
   3. holds every kernel against its plain torch version on the card at
      the shapes its path gives it and times kernel, plain version and,
      where one exists, the one PyTorch call for the same function, with
@@ -45,8 +46,10 @@ It
      kernels of the other head_dims (checked after the paths;
      FLASH_FFMA_CASES: 96 at T=4,096, 16 at the reduced gemma2-9b's layer,
      512; and FLASH_ODD_CASE, 36 in bf16): bf16 up to 256 on the
-     tensor-core route ``flash_fwd_sm90_padded``, float32 and bf16 at 512
-     on the FFMA kernel ``flash_fwd_padded``, each against the plain
+     tensor-core route ``flash_fwd_sm90_padded``, float32 on the FFMA
+     kernel ``flash_fwd_padded``, and bf16 at 257..512 on the wide
+     tensor-core route ``flash_fwd_sm90_wide`` (FLASH_WIDE_CASES: 512, 300
+     and 384), each against the plain
      version in float32 (2e-5; 1e-3 + 8e-3 |plain|) with its time, bound,
      plain time and
      SDPA's for the causal case (null with a window or softcap: compiled
@@ -57,11 +60,12 @@ It
      tensor-core kernel ``ssd_chunk_sm90`` and, as its "before",
      ``ssd_chunk`` on the same inputs), both bf16 routes timed, and at
      zamba2-1.2b's width (64 heads, state 64); the tiled pair
-     ``ssd_chunk_tiled`` (any chunk, P, N) at chunk 256 at mamba2's width
-     in float32 and at P = N = 6 in both dtypes (SSD_TILED_CASES), and bf16
-     at chunk 256 on the tensor cores (``ssd_chunk_sm90_long``, at
-     mamba2's and zamba2's widths: SSD_LONG_CASES), each timed beside its
-     bound and the plain version;
+     ``ssd_chunk_tiled`` (any chunk, P, N) at chunk 256 with P = N = 6 in
+     both dtypes (SSD_TILED_CASES), bf16 at chunk 256 on the tensor cores
+     (``ssd_chunk_sm90_long``, at mamba2's and zamba2's widths:
+     SSD_LONG_CASES) and float32 there on FFMA (``ssd_chunk_f32_long``:
+     SSD_F32_LONG_CASES), each timed beside its bound and the plain
+     version;
   4. drives the DIALS paths at side=10 (100 agents) at the library's
      default widths with the GRU AIP, ``use_kernels="on"``, checking every
      round record and printing each round's phase seconds: warehouse with
@@ -155,8 +159,9 @@ It
   6. drives ``ssm_layer(use_kernel=True)`` at mamba2-780m's layer width on
      (2, 8192, 1536) bf16 activations (one launch of ``ssd_chunk_sm90``)
      against ``use_kernel=False``, and at chunk 256 (one launch of
-     ``ssd_chunk_sm90_long``) likewise, then times the first both warm (median
-     of 7) and
+     ``ssd_chunk_sm90_long``) likewise, and in float32 at chunk 256 (one
+     launch of ``ssd_chunk_f32_long``) likewise, then times the first both
+     warm (median of 7) and
      profiles the kernel call the same way (the SSD kernel's share of its
      device time; one traced ``ssd_chunk_sm90`` launch a kept call);
   7. drives LM training on the card (``launch/steps.make_train_step``,
@@ -255,13 +260,20 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 # the FFMA flash kernel past the tensor-core kernel's head_dims (B, heads,
 # KV heads, T, D, window, softcap): 96 at a full prompt, causal (the
 # timed case, SDPA beside it); 16, the reduced gemma2-9b's layer at the
-# lm serving path's prompt; 512, the widest, at T=2048
+# lm serving path's prompt; 512, the widest, at T=2048. Each in float32
+# (flash_fwd_padded) and, up to 256, in bf16 (flash_fwd_sm90_padded)
 FLASH_FFMA_CASES = ((1, 8, 2, 4096, 96, None, None),
                     (2, 4, 2, 4096, 16, 32, 50.0),
                     (1, 4, 2, 2048, 512, 1024, 50.0))
 # and one bf16 case of a head_dim that is no multiple of 8, whose rows the
 # tensor-core route first copies into rows padded to 8
 FLASH_ODD_CASE = (1, 8, 2, 2048, 36, 512, 50.0)
+# flash_fwd_sm90_wide (bf16 at head_dim 257..512): FLASH_FFMA_CASES'
+# widest (the timed case), 300 (rows padded to 304, DP 320) with a
+# softcap only, and 384 at a window without a softcap, GQA and MHA
+FLASH_WIDE_CASES = ((1, 4, 2, 2048, 512, 1024, 50.0),
+                    (1, 8, 2, 2048, 300, None, 50.0),
+                    (2, 4, 4, 1024, 384, 256, None))
 # gemma2-9b last logits, flash against plain prefill, and the SSM layer's
 # output, kernel against plain, both bf16: within tol times max(1, largest
 # magnitude) (bf16 rounding flips at other places, carried through the
@@ -360,16 +372,17 @@ MAMBA2 = dict(d_model=1536, state=128, head_dim=64)
 ZAMBA2 = dict(heads=64, state=64)
 SSM_INPUT = (2, 8192)
 # the tiled SSD kernels (any chunk, P, N): chunk 256 at mamba2-780m's
-# layer width in float32 (B, T, heads, P, N, chunk, dtype), and P = N = 6
-# in both dtypes (bf16 at P 64 and chunk 256 goes to the long tensor-core
-# route)
-SSD_TILED_CASES = ((2, 8192, 48, 64, 128, 256, "float32"),
-                   (2, 8192, 48, 6, 6, 256, "float32"),
+# layer width (B, T, heads, P, N, chunk, dtype) with P = N = 6 in both
+# dtypes (P 64 at N 64 or 128 and chunk 256 goes to the long routes)
+SSD_TILED_CASES = ((2, 8192, 48, 6, 6, 256, "float32"),
                    (2, 8192, 48, 6, 6, 256, "bfloat16"))
 # ssd_chunk_sm90_long (bf16, P 64, chunk 256): mamba2-780m's layer width
 # (N 128) and zamba2-1.2b's (64 heads, N 64)
 SSD_LONG_CASES = ((2, 8192, 48, 64, 128, 256, "bfloat16"),
                   (2, 8192, 64, 64, 64, 256, "bfloat16"))
+# ssd_chunk_f32_long (float32, P 64, chunk 256): the same two widths
+SSD_F32_LONG_CASES = ((2, 8192, 48, 64, 128, 256, "float32"),
+                      (2, 8192, 64, 64, 64, 256, "float32"))
 SSM_TILED_CHUNK = 256
 SSM_TIMED = 7
 
@@ -1091,27 +1104,63 @@ def check_flash_at_lm_shapes(gen, device):
     return out
 
 
+FLASH_SOURCES = {
+    "flash_fwd_sm90_padded":
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_fwd_padded": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_fwd_sm90_wide":
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"}
+
+
+def flash_route_of(dtype, d: int) -> str:
+    """The route each head_dim outside 64/128/256 must take: float32 on
+    the FFMA kernel, bf16 on the tensor cores, padded up to 256 and wide
+    above."""
+    import torch
+    if dtype == torch.float32:
+        return "flash_fwd_padded"
+    return "flash_fwd_sm90_padded" if d <= 256 else "flash_fwd_sm90_wide"
+
+
 def check_flash_ffma(gen, device):
     """Flash attention at the head_dims outside 64/128/256
     (FLASH_FFMA_CASES: 96 at T=4,096; 16, the reduced configs'; 512, the
-    widest; and FLASH_ODD_CASE in bf16): bf16 up to 256 on the tensor-core
-    route ``flash_fwd_sm90_padded``, float32 and bf16 at 512 on the FFMA
-    kernel ``flash_fwd_padded``, as ``route`` names them, each against the
-    plain version in float32 on the same inputs (FLASH_TOL; bf16 q scaled
-    by FLASH_Q_SCALE), timed with CUDA events beside its bound (the true
-    head_dim's FLOPs over the peak of the inputs' type) and the plain
-    version; beside each, ``scaled_dot_product_attention`` for the causal
-    case, and null where a window or softcap is set (compiled
-    ``flex_attention`` computes those:
-    ``benchmarks/torch_tree_times.py --library`` times it). Returns the
-    two kernel rows, each timed at its first case."""
+    widest, each in float32 and, up to 256, in bf16; and FLASH_ODD_CASE in
+    bf16): bf16 on the tensor-core route ``flash_fwd_sm90_padded``,
+    float32 on the FFMA kernel ``flash_fwd_padded``; see
+    :func:`check_flash_cases`. Returns the two kernel rows."""
+    import torch
+    cases = [(c, dt) for c in FLASH_FFMA_CASES
+             for dt in (torch.bfloat16, torch.float32)
+             if dt == torch.float32 or c[4] <= 256]
+    cases.append((FLASH_ODD_CASE, torch.bfloat16))
+    return check_flash_cases(gen, device, cases)
+
+
+def check_flash_wide(gen, device):
+    """``flash_fwd_sm90_wide`` (bf16 at head_dim 257..512) at
+    FLASH_WIDE_CASES; see :func:`check_flash_cases`. Returns its row."""
+    import torch
+    return check_flash_cases(gen, device, [(c, torch.bfloat16)
+                                           for c in FLASH_WIDE_CASES])[0]
+
+
+def check_flash_cases(gen, device, cases):
+    """Each (case, dtype) of ``cases`` on the route ``route`` names (held
+    to :func:`flash_route_of`), against the plain version in float32 on
+    the same inputs (FLASH_TOL; bf16 q scaled by FLASH_Q_SCALE), timed
+    with CUDA events beside its bound (the true head_dim's FLOPs over the
+    peak of the inputs' type) and the plain version; beside each,
+    ``scaled_dot_product_attention`` for the causal case, and null where a
+    window or softcap is set (compiled ``flex_attention`` computes those:
+    ``benchmarks/torch_tree_times.py --library`` times it). Returns a row
+    a kernel, each timed at its first case, with the launches this check
+    made (``kernel_phase_launches``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
-    cases = [(c, dt) for c in FLASH_FFMA_CASES
-             for dt in (torch.bfloat16, torch.float32)]
-    cases.append((FLASH_ODD_CASE, torch.bfloat16))
-    by_kernel = {"flash_fwd_sm90_padded": {}, "flash_fwd_padded": {}}
+    before = dict(fk.LAUNCHES)
+    by_kernel = {}
     for (b, h, hkv, t, d, window, cap), dtype in cases:
         kw = dict(causal=True, sliding_window=window, softcap=cap)
         name = str(dtype).replace("torch.", "")
@@ -1121,9 +1170,7 @@ def check_flash_ffma(gen, device):
         if dtype == torch.bfloat16:
             q = q * FLASH_Q_SCALE
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-        kernel = fk.route(dtype, d)
-        want_kernel = ("flash_fwd_sm90_padded" if dtype == torch.bfloat16
-                       and d <= 256 else "flash_fwd_padded")
+        kernel, want_kernel = fk.route(dtype, d), flash_route_of(dtype, d)
         check(kernel == want_kernel,
               f"flash {name} D={d} routes to {kernel}, not {want_kernel}")
         got = launched(fk.LAUNCHES, kernel,
@@ -1154,7 +1201,7 @@ def check_flash_ffma(gen, device):
                                      + 2 * b * hkv * t * d)
         bound = bound_ms(nbytes, flop, PEAK_BF16_PER_S
                          if dtype == torch.bfloat16 else PEAK_FP32_PER_S)
-        by_kernel[kernel][label] = dict(
+        by_kernel.setdefault(kernel, {})[label] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
             bound_ms=bound[0], bound_by=bound[1], max_abs_err=err,
             bound=bound)
@@ -1166,21 +1213,18 @@ def check_flash_ffma(gen, device):
               + f"; max abs err {err:.3e}", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
-    sources = {"flash_fwd_sm90_padded":
-               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-               "flash_fwd_padded":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
     rows = []
     for kernel, timed in by_kernel.items():
         first = next(iter(timed))
         row = timed[first]
         rows.append(dict(
-            name=kernel, route="cuda", source=sources[kernel],
+            name=kernel, route="cuda", source=FLASH_SOURCES[kernel],
             replaces="src/repro/kernels/flash_attention/kernel.py:95",
             max_abs_err=max(x["max_abs_err"] for x in timed.values()),
             ms=row["ms"], plain_ms=row["plain_ms"], bound=row["bound"],
             library_ms=row["library_ms"], library=row["library"],
-            shape=first,
+            shape=first, kernel_phase_launches=fk.LAUNCHES[kernel]
+            - before[kernel],
             by_shape={k: {n: x for n, x in v.items() if n != "bound"}
                       for k, v in timed.items()}))
     return rows
@@ -1233,7 +1277,10 @@ def kernel_resources():
     and HGMMA instructions (``cuobjdump -sass``) of each flash kernel.
     Fails unless every instantiation of the bf16 flash kernels
     (``flash_fwd_sm90`` at 64/128/256, ``flash_fwd_sm90_padded`` at
-    64/128/192/256) issues HGMMA, and if a GRU kernel that keeps W_h in
+    64/128/192/256, ``flash_fwd_sm90_wide`` at 320/384/448/512, which
+    must also not spill and use the shared memory the wrapper reckons)
+    issues HGMMA, if the FFMA kernel has a bf16 instantiation, and if a
+    GRU kernel that keeps W_h in
     registers, or the cluster forward, spills to local memory (a stack
     frame or local bytes)."""
     import re
@@ -1250,7 +1297,7 @@ def kernel_resources():
     # flash_fwd_sm90<D>, flash_fwd_sm90_padded<DP> and flash_fwd<DC, RQ,
     # CK, T, PADDED> (D = 64 DC): the route flash_fwd without PADDED,
     # flash_fwd_padded with it; and the padded route's row copy
-    flash = re.compile(r"(flash_fwd_sm90(?:_padded)?)ILi(\d+)EE|"
+    flash = re.compile(r"(flash_fwd_sm90(?:_padded|_wide)?)ILi(\d+)EE|"
                        r"flash_fwdILi(\d+)ELi(\d+)ELi\d+E"
                        r"(f|13__nv_bfloat16)Lb([01])E|(flash_pad_rows)E")
 
@@ -1304,6 +1351,21 @@ def kernel_resources():
         check(hgmma.get(key, 0) > 0,
               f"flash_fwd_sm90_padded DP={d} issues no HGMMA: not on the "
               f"tensor cores")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    for d in (320, 384, 448, 512):
+        key = ("flash_fwd_sm90_wide", d, "bf16", "")
+        check(key in usage, f"flash_fwd_sm90_wide DP={d} not found in {lib}")
+        check(hgmma.get(key, 0) > 0,
+              f"flash_fwd_sm90_wide DP={d} issues no HGMMA: not on the "
+              f"tensor cores")
+        check(usage[key].get("STACK") == "0" and
+              usage[key].get("LOCAL") == "0",
+              f"flash_fwd_sm90_wide DP={d} spills to local memory")
+        check(ext.flash_attention_sm90_smem_bytes(d) == fk.wide_smem_bytes(d)
+              <= fk.MAX_SMEM_BYTES,
+              f"flash_fwd_sm90_wide DP={d}: shared memory "
+              f"{ext.flash_attention_sm90_smem_bytes(d)}, the wrapper "
+              f"reckons {fk.wide_smem_bytes(d)}")
     check(("flash_pad_rows", 0, "bf16", "") in usage,
           f"flash_pad_rows not found in {lib}")
     for d in (64, 128, 256):
@@ -1311,10 +1373,10 @@ def kernel_resources():
               f"flash_fwd D={d} not found in {lib}")
     for d in (64, 128, 192, 256, 384, 512):
         for dtype in ("f32", "bf16"):
-            # bf16 up to 256 runs on flash_fwd_sm90_padded, and only there
+            # bf16 runs on the tensor cores, and only there
             built = any(k[:3] == ("flash_fwd_padded", d, dtype)
                         for k in usage)
-            check(built == (dtype == "f32" or d > 256),
+            check(built == (dtype == "f32"),
                   f"flash_fwd_padded D={d} {dtype} "
                   f"{'not found' if not built else 'built'} in {lib}")
     ssd_resources(res_usage, sass, ext)
@@ -1325,14 +1387,15 @@ def ssd_resources(res_usage: str, sass: str, ext):
     """Registers, stack, local memory, dynamic shared memory and HGMMA
     count of each instantiation (chunk L, state N) of ``ssd_chunk_sm90``
     and of ``ssd_chunk_sm90_long`` (L 256); fails unless all six are built
-    and every one issues HGMMA."""
+    and every one issues HGMMA. Then the float32 long-chunk pair
+    (``ssd_long_y``, ``ssd_long_state``), which must not spill."""
     import re
     pat = re.compile(r"ssd_chunk_sm90ILi(\d+)ELi(\d+)E|"
                      r"ssd_chunk_sm90_longILi(\d+)E")
     key = lambda m: (("ssd_chunk_sm90", m.group(1), m.group(2))
                      if m.group(1) else
                      ("ssd_chunk_sm90_long", "256", m.group(3)))
-    usage, hgmma, fn = {}, {}, None
+    usage, hgmma, fn, found_long = {}, {}, None, set()
     for line in res_usage.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
@@ -1361,6 +1424,24 @@ def ssd_resources(res_usage: str, sass: str, ext):
               f"{name} L={lc} N={nc} not in the library")
         check(hgmma.get((name, lc, nc), 0) > 0,
               f"{name} L={lc} N={nc} issues no HGMMA")
+    # the float32 long-chunk pair (FFMA): registers, and no spill
+    fn = None
+    for line in res_usage.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = re.search(r"(ssd_long_y|ssd_long_state)E", m.group(1))
+        elif fn and "REG:" in line:
+            use = dict(re.findall(r"(\w+):(\d+)", line))
+            name, fn = fn.group(1), None
+            print(f"resources {name}: REG {use.get('REG')}, STACK "
+                  f"{use.get('STACK')}, LOCAL {use.get('LOCAL')}, dynamic "
+                  f"shared {ext.ssd_f32_long_smem_bytes(128)} bytes (the "
+                  f"pair's larger at N 128)", flush=True)
+            check(use.get("STACK") == "0" and use.get("LOCAL") == "0",
+                  f"{name} spills to local memory")
+            found_long.add(name)
+    check(found_long == {"ssd_long_y", "ssd_long_state"},
+          f"the float32 long-chunk pair in the library: {found_long}")
 
 
 def gru_resources(res_usage: str, ext):
@@ -1494,6 +1575,7 @@ def check_ssd(gen, device):
     from repro_torch.kernels.ssd import kernel as sk, ops as so, ref as sr
     from repro_torch.configs import common
     from repro_torch.nn import ssm
+    from repro_torch.tree import tree_map
     cfg = common.ssm_layer(MAMBA2["d_model"], MAMBA2["state"],
                            head_dim=MAMBA2["head_dim"]).ssm
     bsz, t = SSM_INPUT
@@ -1586,16 +1668,17 @@ def check_ssd(gen, device):
 def check_ssd_tiled(gen, device, cases=SSD_TILED_CASES,
                     key="ssd_chunk_tiled", source="ssd.cu"):
     """``ssd_chunk_tiled`` (any chunk, P, N) at SSD_TILED_CASES: chunk 256
-    at mamba2-780m's layer width in float32, and chunk 256 with head_dim
-    and state 6 in both dtypes (or, with ``cases``, ``key`` and
-    ``source``, another route at its cases); each output against the
-    plain intra-chunk block in float32 on the same inputs (SSD_TOL), timed
-    with CUDA events beside its bound (the shape's FLOPs over the peak of
-    its inputs' type) and the plain version. Returns the kernel row,
-    timed at the first case."""
+    at mamba2-780m's layer width with head_dim and state 6 in both dtypes
+    (or, with ``cases``, ``key`` and ``source``, another route at its
+    cases); each output against the plain intra-chunk block in float32 on
+    the same inputs (SSD_TOL), timed with CUDA events beside its bound
+    (the shape's FLOPs over the peak of its inputs' type) and the plain
+    version. Returns the kernel row, timed at the first case, with the
+    launches this check made (``kernel_phase_launches``)."""
     import torch
     from repro_torch.kernels.ssd import kernel as sk, ref as sr
     worst, timed = 0.0, {}
+    before = sk.LAUNCHES[key]
     for bsz, t, h, p, n, chunk, name in cases:
         dtype = getattr(torch, name)
         rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
@@ -1639,6 +1722,7 @@ def check_ssd_tiled(gen, device, cases=SSD_TILED_CASES,
                 replaces="src/repro/kernels/ssd/kernel.py:65",
                 max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound=row["bound"], library_ms=None, shape=first,
+                kernel_phase_launches=sk.LAUNCHES[key] - before,
                 by_shape={k: {n: x for n, x in v.items() if n != "bound"}
                           for k, v in timed.items()})
 
@@ -1648,6 +1732,14 @@ def check_ssd_long(gen, device):
     at SSD_LONG_CASES, as :func:`check_ssd_tiled` holds the tiled pair."""
     return check_ssd_tiled(gen, device, SSD_LONG_CASES,
                            "ssd_chunk_sm90_long", "ssd_sm90.cu")
+
+
+def check_ssd_f32_long(gen, device):
+    """``ssd_chunk_f32_long`` (float32, P 64, chunk 256, on FFMA) at
+    SSD_F32_LONG_CASES, as :func:`check_ssd_tiled` holds the tiled
+    pair."""
+    return check_ssd_tiled(gen, device, SSD_F32_LONG_CASES,
+                           "ssd_chunk_f32_long", "ssd.cu")
 
 
 # ---------------------------------------------------------------------------
@@ -3501,13 +3593,15 @@ def run_ssm_path(device):
     one ``ssd_chunk_sm90`` launch a call checked against the wrapper's
     count) for the SSD kernel's share of the layer's device time; the same
     layer at chunk SSM_TILED_CHUNK (one launch of ``ssd_chunk_sm90_long``)
-    against its plain call. Returns the launch counts of the two counted
-    calls."""
+    and, in float32 (weights and activations cast), at that chunk (one
+    launch of ``ssd_chunk_f32_long``), each against its plain call.
+    Returns the launch counts of the three counted calls."""
     import dataclasses
     import statistics
     import torch
     from repro_torch.configs import common
     from repro_torch.nn import ssm
+    from repro_torch.tree import tree_map
     cfg = common.ssm_layer(MAMBA2["d_model"], MAMBA2["state"],
                            head_dim=MAMBA2["head_dim"]).ssm
     gen = torch.Generator(device=device).manual_seed(2)
@@ -3531,13 +3625,22 @@ def run_ssm_path(device):
     tiled_layer = {k: (lambda k=k: ssm.ssm_layer(params, x, tiled,
                                                  use_kernel=k))
                    for k in (True, False)}
+    # and in float32 there: ssd_chunk_f32_long
+    f32 = dataclasses.replace(tiled, dtype=torch.float32)
+    params32 = tree_map(lambda v: v.float(), params)
+    x32 = x.float()
+    f32_layer = {k: (lambda k=k: ssm.ssm_layer(params32, x32, f32,
+                                               use_kernel=k))
+                 for k in (True, False)}
     with torch.inference_mode():
         reset_counts()
         cold_s, y_k = timed(layer[True])
         tiled_s, y_kt = timed(tiled_layer[True])
+        f32_s, y_kf = timed(f32_layer[True])
         counts = launch_counts()
         _, y_p = timed(layer[False])
         tiled_plain_s, y_pt = timed(tiled_layer[False])
+        f32_plain_s, y_pf = timed(f32_layer[False])
         warm = {}
         for k, fn in layer.items():
             fn()
@@ -3546,27 +3649,34 @@ def run_ssm_path(device):
         summary = device_summary(
             traced_calls(layer[True], PROFILE_ITERS, "ssd_chunk_sm90",
                          "ssd_chunk_sm90"), "ssd_chunk_sm90")
-    check(counts["ssd_intra_chunk"] == 2 and counts["ssd_chunk_sm90"] == 1
-          and counts["ssd_chunk_sm90_long"] == 1
-          and counts["ssd_chunk_tiled"] == 0 and counts["ssd_chunk"] == 0,
+    ssd_counts = {k: counts[k] for k in counts
+                  if k.startswith("ssd_") and k != "ssd_intra_chunk"}
+    check(counts["ssd_intra_chunk"] == 3 and ssd_counts == {
+        **{k: 0 for k in ssd_counts}, "ssd_chunk_sm90": 1,
+        "ssd_chunk_sm90_long": 1, "ssd_chunk_f32_long": 1},
           f"ssm_layer launched the SSD kernels {counts['ssd_intra_chunk']} "
-          f"times ({counts['ssd_chunk_sm90']} ssd_chunk_sm90, "
-          f"{counts['ssd_chunk_sm90_long']} ssd_chunk_sm90_long, "
-          f"{counts['ssd_chunk_tiled']} ssd_chunk_tiled, "
-          f"{counts['ssd_chunk']} ssd_chunk), not ssd_chunk_sm90 once at "
-          f"chunk {cfg.chunk} and ssd_chunk_sm90_long once at "
-          f"{tiled.chunk}")
-    for y in (y_k, y_kt):
-        check(tuple(y.shape) == (b, t, cfg.d_model) and y.dtype == cfg.dtype,
+          f"times ({ssd_counts}), not ssd_chunk_sm90 once at chunk "
+          f"{cfg.chunk} and ssd_chunk_sm90_long and ssd_chunk_f32_long once "
+          f"each at {tiled.chunk}")
+    for y, dtype in ((y_k, cfg.dtype), (y_kt, cfg.dtype),
+                     (y_kf, torch.float32)):
+        check(tuple(y.shape) == (b, t, cfg.d_model) and y.dtype == dtype,
               f"ssm_layer output {tuple(y.shape)} {y.dtype}")
     err = allclose_err([("ssm_layer, kernel vs plain", y_k, y_p)],
                        SSM_LAYER_TOL)
     err_t = allclose_err([(f"ssm_layer at chunk {tiled.chunk}, kernel vs "
                            f"plain", y_kt, y_pt)], SSM_LAYER_TOL)
+    err_f = allclose_err([(f"ssm_layer float32 at chunk {f32.chunk}, "
+                           f"kernel vs plain", y_kf, y_pf)],
+                         SSD_TOL["float32"])
     print(f"ssm layer at chunk {tiled.chunk} (ssd_chunk_sm90_long): cold "
           f"{tiled_s:.4f} s with the kernel, {tiled_plain_s:.4f} s plain; "
           f"max abs diff {err_t:.4e} (max |y| "
           f"{float(y_pt.abs().max()):.4f})", flush=True)
+    print(f"ssm layer float32 at chunk {f32.chunk} (ssd_chunk_f32_long): "
+          f"cold {f32_s:.4f} s with the kernel, {f32_plain_s:.4f} s plain; "
+          f"max abs diff {err_f:.4e} (max |y| "
+          f"{float(y_pf.abs().max()):.4f})", flush=True)
     print(f"ssm layer: {cfg.num_heads} heads x {cfg.head_dim}, state "
           f"{cfg.state}, chunk {cfg.chunk}, on ({b}, {t}, {cfg.d_model}) "
           f"bf16: cold {cold_s:.4f} s; warm median of {SSM_TIMED} "
@@ -4727,6 +4837,8 @@ def main(argv=None) -> int:
                               gen, device))
             rows.append(phase("ssd long-chunk kernel vs plain",
                               check_ssd_long, gen, device))
+            rows.append(phase("ssd float32 long-chunk kernel vs plain",
+                              check_ssd_f32_long, gen, device))
         for row in rows:
             print(f"kernel {row['name']}: max abs err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (plain "
@@ -4842,6 +4954,8 @@ def main(argv=None) -> int:
             # the flash kernels at the other head_dims, after the paths
             rows += phase("flash kernels vs plain at other head_dims",
                           check_flash_ffma, gen, device)
+            rows.append(phase("flash wide kernel vs plain", check_flash_wide,
+                              gen, device))
         counts, by_shape, by_path = {}, {}, {}
         for path, (c, shapes_of) in paths.items():
             for k, n in c.items():
@@ -4856,7 +4970,8 @@ def main(argv=None) -> int:
             for name in ("gru_forward", "gru_backward", "gae_forward",
                          "flash_attention", "ssd_intra_chunk",
                          "gru_forward_cluster", "gru_backward_cluster",
-                         "flash_fwd_sm90_padded", "ssd_chunk_sm90_long"):
+                         "flash_fwd_sm90_padded", "ssd_chunk_sm90_long",
+                         "ssd_chunk_f32_long"):
                 check(counts[name] > 0, f"its path never launched {name}")
         print(f"phases on {smi}: "
               f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}; "
@@ -4878,7 +4993,8 @@ def main(argv=None) -> int:
                                    "device_ms", "ms_by_route", "zamba2",
                                    "at_harness_shape", "at_lm_shapes",
                                    "at_bench_shapes", "at_scaling_shapes",
-                                   "at_wide_path_shapes")
+                                   "at_wide_path_shapes",
+                                   "kernel_phase_launches")
                  if k in r},
               "launches_by_path": by_path.get(r["name"], {}),
               **({"launches_by_shape": by_shape[r["name"]]}

@@ -44,8 +44,8 @@ cudaError_t launch_gae_forward(const float* r, const float* v,
 cudaError_t launch_gae_backward(const float* g, const float* d, float* dr,
                                 float* dnv, int T, int B, float gamma,
                                 float gamma_lam, cudaStream_t stream);
-cudaError_t launch_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, bool bf16, int BH,
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, float* o, int BH,
                                    int BHkv, int Tq, int Tk, int D,
                                    int causal, int window, float softcap,
                                    float scale, cudaStream_t stream);
@@ -56,6 +56,10 @@ cudaError_t launch_flash_attention_sm90(const void* q, const void* k,
                                         float scale, cudaStream_t stream);
 size_t flash_attention_sm90_smem_bytes(int D);
 cudaError_t launch_flash_attention_sm90_padded(
+    const void* q, const void* k, const void* v, void* o, void* qp, void* kp,
+    void* vp, int BH, int BHkv, int Tq, int Tk, int d, int causal,
+    int window, float softcap, float scale, cudaStream_t stream);
+cudaError_t launch_flash_attention_sm90_wide(
     const void* q, const void* k, const void* v, void* o, void* qp, void* kp,
     void* vp, int BH, int BHkv, int Tq, int Tk, int d, int causal,
     int window, float softcap, float scale, cudaStream_t stream);
@@ -77,6 +81,12 @@ cudaError_t launch_ssd_chunk_sm90_long(const void* xw, const float* la,
                                        float* st, float* cd, int B, int T,
                                        int H, int P, int N, int L, int G,
                                        cudaStream_t stream);
+size_t ssd_f32_long_smem_bytes(int N);
+cudaError_t launch_ssd_chunk_f32_long(const float* xw, const float* la,
+                                      const float* b, const float* c,
+                                      float* y, float* st, float* cd, int B,
+                                      int T, int H, int P, int N, int L,
+                                      int G, cudaStream_t stream);
 cudaError_t launch_ssd_chunk_sm90(const void* xw, const float* la,
                                   const void* b, const void* c, void* y,
                                   float* st, float* cd, int B, int T, int H,
@@ -183,15 +193,14 @@ void gae_backward(torch::Tensor g, torch::Tensor d, torch::Tensor dr,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// float32 or bfloat16: the FFMA kernel (flash_attention.cu)
+// float32 only: the FFMA kernel (flash_attention.cu)
 void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                      torch::Tensor o, bool causal, int64_t window,
                      double softcap, double scale) {
   const c10::cuda::CUDAGuard guard(q.device());
-  const bool bf16 = half_or_float({q, k, v, o}, {"q", "k", "v", "out"});
   C10_CUDA_CHECK(launch_flash_attention(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bf16,
-      q.size(0), k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
+      in(q, "q"), in(k, "k"), in(v, "v"), out(o, "out"), q.size(0),
+      k.size(0), q.size(1), k.size(1), q.size(2), causal ? 1 : 0,
       (int)window, (float)softcap, (float)scale,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -212,16 +221,12 @@ void flash_attention_sm90(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// bf16 only, head_dim 1..256 outside 64/128/256: the tensor-core kernel
-// at the head_dim padded to 64 (flash_attention_sm90.cu); qp, kp, vp are
-// the rows padded to 8 where the head_dim is no multiple of 8 (else empty)
-void flash_attention_sm90_padded(torch::Tensor q, torch::Tensor k,
-                                 torch::Tensor v, torch::Tensor o,
-                                 torch::Tensor qp, torch::Tensor kp,
-                                 torch::Tensor vp, bool causal,
-                                 int64_t window, double softcap,
-                                 double scale) {
-  const c10::cuda::CUDAGuard guard(q.device());
+// bf16 q, k, v, o and, where the head_dim is no multiple of 8, the
+// scratch rows qp, kp, vp it is padded into (else empty)
+void check_padded(const torch::Tensor& q, const torch::Tensor& k,
+                  const torch::Tensor& v, const torch::Tensor& o,
+                  const torch::Tensor& qp, const torch::Tensor& kp,
+                  const torch::Tensor& vp) {
   TORCH_CHECK(half_or_float({q, k, v, o}, {"q", "k", "v", "out"}),
               "q must be bfloat16");
   if (q.size(2) % 8) {
@@ -236,7 +241,37 @@ void flash_attention_sm90_padded(torch::Tensor q, torch::Tensor k,
                 "qp, kp, vp must be q, k, v with rows of the head_dim "
                 "rounded up to 8");
   }
+}
+
+// bf16 only, head_dim 1..256 outside 64/128/256: the tensor-core kernel
+// at the head_dim padded to 64 (flash_attention_sm90.cu); qp, kp, vp are
+// the rows padded to 8 where the head_dim is no multiple of 8 (else empty)
+void flash_attention_sm90_padded(torch::Tensor q, torch::Tensor k,
+                                 torch::Tensor v, torch::Tensor o,
+                                 torch::Tensor qp, torch::Tensor kp,
+                                 torch::Tensor vp, bool causal,
+                                 int64_t window, double softcap,
+                                 double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_padded(q, k, v, o, qp, kp, vp);
   C10_CUDA_CHECK(launch_flash_attention_sm90_padded(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), qp.data_ptr(),
+      kp.data_ptr(), vp.data_ptr(), q.size(0), k.size(0), q.size(1),
+      k.size(1), q.size(2), causal ? 1 : 0, (int)window, (float)softcap,
+      (float)scale, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// bf16 only, head_dim 257..512: the wide tensor-core kernel
+// (flash_attention_sm90.cu), qp, kp, vp as above
+void flash_attention_sm90_wide(torch::Tensor q, torch::Tensor k,
+                               torch::Tensor v, torch::Tensor o,
+                               torch::Tensor qp, torch::Tensor kp,
+                               torch::Tensor vp, bool causal, int64_t window,
+                               double softcap, double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_padded(q, k, v, o, qp, kp, vp);
+  C10_CUDA_CHECK(launch_flash_attention_sm90_wide(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), qp.data_ptr(),
       kp.data_ptr(), vp.data_ptr(), q.size(0), k.size(0), q.size(1),
       k.size(1), q.size(2), causal ? 1 : 0, (int)window, (float)softcap,
@@ -267,6 +302,22 @@ void ssd_intra_chunk_tiled(torch::Tensor xw, torch::Tensor la,
       xw.data_ptr(), in(la, "la"), b.data_ptr(), c.data_ptr(), y.data_ptr(),
       out(st, "states"), out(cd, "chunk_decay"), bf16, xw.size(0),
       xw.size(1), xw.size(2), xw.size(3), b.size(2), (int)chunk,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// float32 only, P 64, L 256, N 64 or 128: the long-chunk FFMA pair
+// (ssd.cu)
+void ssd_intra_chunk_f32_long(torch::Tensor xw, torch::Tensor la,
+                              torch::Tensor b, torch::Tensor c,
+                              torch::Tensor y, torch::Tensor st,
+                              torch::Tensor cd, int64_t chunk,
+                              int64_t heads_per_block) {
+  const c10::cuda::CUDAGuard guard(xw.device());
+  C10_CUDA_CHECK(launch_ssd_chunk_f32_long(
+      in(xw, "xw"), in(la, "la"), in(b, "b"), in(c, "c"), out(y, "y"),
+      out(st, "states"), out(cd, "chunk_decay"), xw.size(0), xw.size(1),
+      xw.size(2), xw.size(3), b.size(2), (int)chunk, (int)heads_per_block,
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -324,10 +375,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_sm90", &flash_attention_sm90);
   m.def("flash_attention_sm90_smem_bytes", &flash_attention_sm90_smem_bytes);
   m.def("flash_attention_sm90_padded", &flash_attention_sm90_padded);
+  m.def("flash_attention_sm90_wide", &flash_attention_sm90_wide);
   m.def("ssd_smem_bytes", &ssd_smem_bytes);
   m.def("ssd_intra_chunk", &ssd_intra_chunk);
   m.def("ssd_tiled_smem_bytes", &ssd_tiled_smem_bytes);
   m.def("ssd_intra_chunk_tiled", &ssd_intra_chunk_tiled);
+  m.def("ssd_f32_long_smem_bytes", &ssd_f32_long_smem_bytes);
+  m.def("ssd_intra_chunk_f32_long", &ssd_intra_chunk_f32_long);
   m.def("ssd_sm90_smem_bytes", &ssd_sm90_smem_bytes);
   m.def("ssd_intra_chunk_sm90", &ssd_intra_chunk_sm90);
   m.def("ssd_sm90_long_smem_bytes", &ssd_sm90_long_smem_bytes);

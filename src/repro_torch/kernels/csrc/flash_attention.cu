@@ -3,11 +3,10 @@
 // Replaces the Pallas kernel of repro/kernels/flash_attention/kernel.py:
 //   flash_fwd, flash_fwd_padded <- flash_attention_bhsd / _attn_kernel
 // for float32 q/k/v at any head_dim 1..512 (flash_fwd at 64, 128 and 256,
-// flash_fwd_padded at the others), and bfloat16 q/k/v at a head_dim other
-// than 64, 128 or 256 (flash_fwd_padded) (those go to flash_attention_sm90.cu,
-// on the tensor cores, which float32 could only reach through TF32).
-// bfloat16 inputs are widened to float32 as they are staged in shared
-// memory; every sum is float32 and the output is rounded to q's dtype.
+// flash_fwd_padded at the others). bfloat16 q/k/v at every head_dim go to
+// flash_attention_sm90.cu, on the tensor cores, which float32 could only
+// reach through TF32; the template keeps its dtype parameter, but only
+// float32 is compiled.
 //
 // Layout (the reference's flattened rows): q (BH, Tq, D); k, v (BHkv, Tk, D)
 // with query row bh reading kv row bh / (BH / BHkv) (GQA: repeated heads are
@@ -36,11 +35,10 @@
 // half-warp with shuffles. Causal q tiles are launched longest first.
 //
 // Other head dims (flash_fwd_padded): the same template with PADDED set,
-// compiled for D = 64 DC, DC in {1, 2, 3, 4, 6, 8} with float32 loads and
-// DC in {6, 8} with bf16 ones (bf16 up to D = 256 runs on the tensor cores,
-// flash_attention_sm90.cu). A head_dim between the cases is padded up to
-// the next one: its loads are masked to zero past the true D (the
-// wrapper's 1/sqrt(D) scale is the true D's), the q.k loop stops at D
+// compiled for D = 64 DC, DC in {1, 2, 3, 4, 6, 8}. A head_dim between
+// the cases is padded up to the next one: its loads are masked to zero
+// past the true D (the wrapper's 1/sqrt(D) scale is the true D's), the
+// q.k loop stops at D
 // rounded up to 4, the p.v loop skips the 64-column groups past D, and
 // only the true D columns are stored. Above D = 256 the query and key
 // tiles drop to 32 rows (RQ = CK = 2) so one block's tiles still fit: 202
@@ -58,8 +56,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -305,20 +301,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // a head_dim padded up to the next compiled case (flash_fwd_padded)
-template <typename T>
 cudaError_t launch_padded(const void* q, const void* k, const void* v,
                           void* o, int BH, int BHkv, int Tq, int Tk, int D,
                           int causal, int window, float softcap, float scale,
                           cudaStream_t stream) {
-#define FLASH_PADDED(DC, RQ)                                                  \
-  return launch<DC, RQ, RQ, T, true>(q, k, v, o, BH, BHkv, Tq, Tk, D, causal, \
-                                     window, softcap, scale, stream)
-  if constexpr (std::is_same<T, float>::value) {
-    if (D <= 64) FLASH_PADDED(1, 4);
-    if (D <= 128) FLASH_PADDED(2, 4);
-    if (D <= 192) FLASH_PADDED(3, 4);
-    if (D <= 256) FLASH_PADDED(4, 4);
-  }
+#define FLASH_PADDED(DC, RQ)                                                 \
+  return launch<DC, RQ, RQ, float, true>(q, k, v, o, BH, BHkv, Tq, Tk, D,    \
+                                         causal, window, softcap, scale,     \
+                                         stream)
+  if (D <= 64) FLASH_PADDED(1, 4);
+  if (D <= 128) FLASH_PADDED(2, 4);
+  if (D <= 192) FLASH_PADDED(3, 4);
+  if (D <= 256) FLASH_PADDED(4, 4);
   if (D <= 384) FLASH_PADDED(6, 2);
   FLASH_PADDED(8, 2);
 #undef FLASH_PADDED
@@ -327,19 +321,15 @@ cudaError_t launch_padded(const void* q, const void* k, const void* v,
 }  // namespace
 
 // window <= 0: no sliding window; softcap <= 0: no softcap. q, k, v and o
-// are float32, or bfloat16 when bf16 is set (then D > 256).
-cudaError_t launch_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, bool bf16, int BH,
+// are float32.
+cudaError_t launch_flash_attention(const float* q, const float* k,
+                                   const float* v, float* o, int BH,
                                    int BHkv, int Tq, int Tk, int D,
                                    int causal, int window, float softcap,
                                    float scale, cudaStream_t stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Tq <= 0 || Tk <= 0 ||
-      D < 1 || D > 512 || (bf16 && D <= 256))
+      D < 1 || D > 512)
     return cudaErrorInvalidValue;
-  if (bf16)
-    return launch_padded<__nv_bfloat16>(q, k, v, o, BH, BHkv, Tq, Tk, D,
-                                        causal, window, softcap, scale,
-                                        stream);
 #define FLASH_EXACT(DC)                                                    \
   return launch<DC, 4, 4, float, false>(q, k, v, o, BH, BHkv, Tq, Tk, D,  \
                                         causal, window, softcap, scale,   \
@@ -349,8 +339,8 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
     case 128: FLASH_EXACT(2);
     case 256: FLASH_EXACT(4);
     default:
-      return launch_padded<float>(q, k, v, o, BH, BHkv, Tq, Tk, D, causal,
-                                  window, softcap, scale, stream);
+      return launch_padded(q, k, v, o, BH, BHkv, Tq, Tk, D, causal, window,
+                           softcap, scale, stream);
   }
 #undef FLASH_EXACT
 }

@@ -83,6 +83,36 @@
 // compile none of this (PADDED false), so their code stays the parent's.
 // At DP = 192: O is 96 floats a consumer thread; shared memory is Q 48 KB
 // plus 2 stages of K and V, 96 KB.
+//
+// The wide route (flash_fwd_sm90_wide<DP>): bf16 at head_dim 257..512, in
+// place of the FFMA kernel of flash_attention.cu, which widens bf16 to
+// float32 (1.42 ms at D = 512, 1x4/2x2,048, window 1,024, softcap 50,
+// against a bound of 0.013 ms on the bf16 tensor cores). DP is d rounded
+// up to 64 (320, 384, 448, 512), read through the same zero-filled maps
+// and pad_rows copies as the padded route. The body above cannot take
+// DP > 256: a consumer warpgroup's 64 x DP accumulator would be 256
+// registers a thread at DP = 512, and 64-key K/V stages would need 320 KB.
+// So one block owns 64 query rows, and the two consumer warpgroups split
+// O by columns: warpgroup w holds O's columns w DP/2 .. + DP/2 - 1 (128
+// floats a thread at DP = 512; setmaxnreg 240/24 as above), with the
+// producer warpgroup's one thread issuing every TMA load. K and V tiles
+// are 32 keys in a 2-stage ring. V is loaded as two halves of
+// ceil(DP/128) boxes, the second from column DP/2, so each half starts on
+// a box (a wgmma operand cannot start inside one along N); at DP = 320 and
+// 448 a half's last box carries 32 columns of the other half, unread.
+// S = Q K^T (64 x 32, m64n32k16) is split by D: each warpgroup runs its
+// DP/32 k-steps over its half of the columns (a 32-B step inside a box),
+// writes its f32 partial to shared memory, and adds the other's after one
+// named barrier (a buffer per warpgroup and parity: 32 KB), so both hold
+// the same S (a + b == b + a) and run the same softmax. Computing S whole
+// in both warpgroups needs no exchange but a third more tensor-core work
+// a tile (S twice, P V's hi and lo once each); the exchange costs 16
+// float stores and loads a thread. A turn issues O += P V of the last
+// tile (P split into bf16 hi + lo as above, m64n{DP/2}k16, V MN-major)
+// and the next tile's S partial as one batch; the first turn and the last
+// are peeled, no wgmma under a branch. Shared memory: Q 64 x DP, 2 stages
+// of K (32 x DP) and V (2 halves), the partials: 164,936 B at DP = 320,
+// 181,320 at 384, 214,088 at 448, 230,472 at 512, of 232,448.
 #include <algorithm>
 
 #include "sm90.cuh"
@@ -426,6 +456,326 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        window, softcap, scale, d);
 }
 
+// ---------------------------------------------------------------------------
+// the wide route: bf16 at head_dim 257..512 (flash_fwd_sm90_wide<DP>)
+// ---------------------------------------------------------------------------
+constexpr int WBQ = 64;   // queries a block
+constexpr int WBK = 32;   // keys a tile
+
+// shared memory: [slack to 1024-B alignment] Q | K x STAGES | V x STAGES |
+// S partials (2 parities x 2 warpgroups) | barriers
+template <int DP>
+struct WideSmem {
+  static constexpr int DC = DP / 64;              // 128-B boxes of a row
+  static constexpr int HALF = DP / 2;             // O columns a warpgroup
+  static constexpr int NB = (HALF + 63) / 64;     // boxes of a V half
+  static constexpr int Q_BYTES = WBQ * DP * 2;
+  static constexpr int K_BYTES = WBK * DP * 2;
+  static constexpr int V_HALF = NB * WBK * 128;
+  static constexpr int V_BYTES = 2 * V_HALF;
+  static constexpr int X_BYTES = WBQ * WBK * 4;   // one 64 x 32 f32 partial
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 4 * X_BYTES;
+  static constexpr int N_BARS = 1 + 4 * STAGES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * N_BARS;
+};
+
+// DP = 320, 384, 448 or 512, the true head_dim d in (DP - 64, DP]
+template <int DP>
+__device__ __forceinline__ void flash_wide_body(
+    const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, __nv_bfloat16* __restrict__ o, int Tq, int Tk,
+    int group, int causal, int window, float softcap, float scale, int d) {
+  using L = WideSmem<DP>;
+  constexpr int DC = L::DC, HALF = L::HALF, NB = L::NB;
+  constexpr int KSTEPS = DP / 32;   // S's k-steps of 16 a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t base = raw + pad;
+  const uint32_t sq = base + L::Q_OFF, sk = base + L::K_OFF,
+                 sv = base + L::V_OFF, bars = base + L::BAR_OFF;
+  float4* xbuf = reinterpret_cast<float4*>(smem_raw + pad + L::X_OFF);
+  const uint32_t q_full = bars;
+#define K_FULL(s) (bars + 8u * (1 + (s)))
+#define V_FULL(s) (bars + 8u * (1 + STAGES + (s)))
+#define K_EMPTY(s) (bars + 8u * (1 + 2 * STAGES + (s)))
+#define V_EMPTY(s) (bars + 8u * (1 + 3 * STAGES + (s)))
+
+  const int nq = (Tq + WBQ - 1) / WBQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * WBQ;  // longest tiles first
+  const int bh = blockIdx.x;
+
+  // the live key range of this query tile
+  int k_lo = 0, k_hi = Tk;
+  if (causal) k_hi = min(Tk, min(q0 + WBQ, Tq));
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int t_begin = k_lo / WBK;
+  const int n_tiles = max(0, (k_hi + WBK - 1) / WBK - t_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(K_FULL(s), 1);
+      mbar_init(V_FULL(s), 1);
+      mbar_init(K_EMPTY(s), CONSUMER_WARPS);
+      mbar_init(V_EMPTY(s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load; V goes in two halves of NB
+    // boxes, the second from column HALF, so that each warpgroup's half
+    // starts on a box
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      const int bhkv = bh / group;
+      mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        tma_load(sq + c * WBQ * 128, map_q, 64 * c, q0, bh, q_full);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t ph = (it / STAGES) & 1;
+        const int k0 = (t_begin + it) * WBK;
+        mbar_wait(K_EMPTY(s), ph ^ 1);
+        mbar_expect_tx(K_FULL(s), L::K_BYTES);
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load(sk + s * L::K_BYTES + c * WBK * 128, map_k, 64 * c, k0,
+                   bhkv, K_FULL(s));
+        mbar_wait(V_EMPTY(s), ph ^ 1);
+        mbar_expect_tx(V_FULL(s), L::V_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            tma_load(sv + s * L::V_BYTES + hf * L::V_HALF + c * WBK * 128,
+                     map_v, hf * HALF + 64 * c, k0, bhkv, V_FULL(s));
+      }
+    }
+  } else {
+    // consumer warpgroup wg: all 64 query rows, S over its half of DP and
+    // O's columns wg * HALF .. + HALF - 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int row0 = q0 + 16 * warp + lane / 4;  // rows row0, row0 + 8
+    const int col0 = 2 * (lane % 4);              // + 8j + {0, 1}
+    const bool cap = softcap > 0.0f;
+    const float qk_scale =
+        cap ? 2.0f * LOG2E * scale / softcap : scale * LOG2E;
+    const float cap2 = softcap * LOG2E;
+
+    // K-major Q and K: 1024 B between 8-row groups; this warpgroup's
+    // k-steps start at column wg * HALF (a 32-B step inside a box). V's
+    // half MN-major: WBK * 128 B between 64-column boxes
+    const int kk0 = wg * KSTEPS;
+    const uint64_t dq = sw128_desc(sq, 16, 1024);
+    const uint64_t dk = sw128_desc(sk, 16, 1024);
+    const uint64_t dv = sw128_desc(sv + wg * L::V_HALF, WBK * 128, 1024);
+
+    float oacc[HALF / 2];
+#pragma unroll
+    for (int r = 0; r < HALF / 2; ++r) oacc[r] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+    float sacc[16];
+    uint32_t p_hi[2][4], p_lo[2][4];  // the last tile's P = P_hi + P_lo
+
+    // the products of one turn; wgmma stays out of branches, or ptxas
+    // serialises every wgmma of the kernel
+    auto issue_s = [&](int s) {
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        const int kk = kk0 + ks, c = kk / 4, k4 = kk % 4;
+        wgmma_ss(sacc, dq + ((c * WBQ * 128 + k4 * 32) >> 4),
+                 dk + ((s * L::K_BYTES + c * WBK * 128 + k4 * 32) >> 4),
+                 ks != 0);
+      }
+    };
+    auto issue_pv = [&](int s) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t db = dv + ((s * L::V_BYTES + kk * 16 * 128) >> 4);
+        wgmma_rs(oacc, p_hi[kk], db, 1);
+        wgmma_rs(oacc, p_lo[kk], db, 1);
+      }
+    };
+    auto retire = [&]() {
+      wgmma_wait_all();
+      fence_regs(oacc);
+      fence_regs(sacc);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        fence_regs(p_hi[kk]);
+        fence_regs(p_lo[kk]);
+      }
+      __syncwarp();
+    };
+    // S = this warpgroup's partial + the other's, through shared memory
+    // (a buffer a parity, so a write never meets the other's last read);
+    // a + b == b + a, so both warpgroups hold the same S
+    auto exchange = [&](int it) {
+      float4* mine = xbuf + ((it & 1) * 2 + wg) * (L::X_BYTES / 16);
+      const float4* other =
+          xbuf + ((it & 1) * 2 + 1 - wg) * (L::X_BYTES / 16);
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4)
+        mine[r4 * 128 + tid] = make_float4(sacc[4 * r4], sacc[4 * r4 + 1],
+                                           sacc[4 * r4 + 2], sacc[4 * r4 + 3]);
+      named_sync(1, 256);
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const float4 v = other[r4 * 128 + tid];
+        sacc[4 * r4] += v.x;
+        sacc[4 * r4 + 1] += v.y;
+        sacc[4 * r4 + 2] += v.z;
+        sacc[4 * r4 + 3] += v.w;
+      }
+    };
+    // scale and softcap (base 2), mask, online softmax of the tile at k0;
+    // rescales O and leaves P in p_hi, p_lo
+    auto softmax = [&](int k0) {
+      if (cap) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          sacc[r] = fmaf(-2.0f * cap2, rcp(ex2(sacc[r] * qk_scale) + 1.0f),
+                         cap2);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) sacc[r] *= qk_scale;
+      }
+      uint32_t live = 0xffffu;
+      if ((causal && k0 + WBK - 1 > q0) ||
+          (window > 0 && k0 <= q0 + WBQ - 1 - window) || k0 + WBK > Tk) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const int qi = row0 + 8 * ((r / 2) % 2);
+          const int kj = k0 + 8 * (r / 4) + col0 + r % 2;
+          const bool ok = kj < Tk && (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window);
+          if (!ok) {
+            live &= ~(1u << r);
+            sacc[r] = NEG_INF;
+          }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * i], sacc[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        alpha[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 4 * j + 2 * i + e;
+            const float p = (live >> r) & 1u ? ex2(sacc[r] - m_new) : 0.0f;
+            sacc[r] = p;
+            sum += p;
+          }
+        l[i] = l[i] * alpha[i] + sum;  // this lane's columns; reduced last
+      }
+#pragma unroll
+      for (int r = 0; r < HALF / 2; ++r) oacc[r] *= alpha[(r / 2) % 2];
+      // P = P_hi + P_lo as bf16 A fragments, one pair per 16 keys
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          split_bf16(sacc[8 * kk + 2 * h], sacc[8 * kk + 2 * h + 1],
+                     p_hi[kk][h], p_lo[kk][h]);
+    };
+
+    mbar_wait(q_full, 0);
+    // Each turn issues O += P V of the last tile and this warpgroup's
+    // part of S = Q K^T of the next as one batch, then sums S with the
+    // other warpgroup's part and runs its softmax. No live key tile: no
+    // turn, o = 0.
+    if (n_tiles > 0) {
+      mbar_wait(K_FULL(0), 0);
+      wgmma_fence();
+      issue_s(0);
+      wgmma_commit();
+      retire();
+      if (lane == 0) mbar_arrive(K_EMPTY(0));
+      exchange(0);
+      softmax(t_begin * WBK);
+      for (int it = 1; it < n_tiles; ++it) {
+        const int s = it % STAGES, sp = (it - 1) % STAGES;
+        mbar_wait(K_FULL(s), (it / STAGES) & 1);
+        mbar_wait(V_FULL(sp), ((it - 1) / STAGES) & 1);
+        wgmma_fence();
+        issue_pv(sp);
+        issue_s(s);
+        wgmma_commit();
+        retire();
+        if (lane == 0) {
+          mbar_arrive(K_EMPTY(s));
+          mbar_arrive(V_EMPTY(sp));
+        }
+        exchange(it);
+        softmax((t_begin + it) * WBK);
+      }
+      const int sp = (n_tiles - 1) % STAGES;
+      mbar_wait(V_FULL(sp), ((n_tiles - 1) / STAGES) & 1);
+      wgmma_fence();
+      issue_pv(sp);
+      wgmma_commit();
+      retire();
+    }
+
+    // row stride d; this warpgroup's columns past d are not stored
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int qi = row0 + 8 * i;
+      if (qi >= Tq) continue;
+      const float den = fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow = o + ((size_t)bh * Tq + qi) * d + wg * HALF;
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + col0 + e;
+          if (wg * HALF + c < d)
+            orow[c] = __float2bfloat16_rn(oacc[4 * j + 2 * i + e] / den);
+        }
+    }
+  }
+#undef K_FULL
+#undef V_FULL
+#undef K_EMPTY
+#undef V_EMPTY
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_sm90_wide(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        __nv_bfloat16* __restrict__ o, int Tq, int Tk,
+                        int group, int causal, int window, float softcap,
+                        float scale, int d) {
+  flash_wide_body<DP>(&map_q, &map_k, &map_v, o, Tq, Tk, group, causal,
+                      window, softcap, scale, d);
+}
+
 // rows of d bf16 -> rows of d8 (d rounded up to 8), zeros past d: the
 // copy a head_dim that is no multiple of 8 needs, since a tensor map's row
 // stride (2 d bytes) must be a multiple of 16
@@ -500,6 +850,28 @@ cudaError_t launch_padded(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int BH, int BHkv, int Tq, int Tk, int w, int d,
+                        int causal, int window, float softcap, float scale,
+                        cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, BH, Tq, w, WBQ) ||
+      !make_map(&mk, k, BHkv, Tk, w, WBK) ||
+      !make_map(&mv, v, BHkv, Tk, w, WBK))
+    return cudaErrorInvalidValue;
+  const int smem = WideSmem<DP>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_wide<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + WBQ - 1) / WBQ);
+  flash_fwd_sm90_wide<DP><<<grid, NTHREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Tq, Tk, BH / BHkv, causal,
+      window, softcap, scale, d);
+  return cudaGetLastError();
+}
+
 cudaError_t pad_rows(const void* src, void* dst, size_t rows, int d, int d8,
                      cudaStream_t stream) {
   const size_t n = rows * d8;
@@ -512,8 +884,8 @@ cudaError_t pad_rows(const void* src, void* dst, size_t rows, int d, int d8,
 
 }  // namespace
 
-// dynamic shared memory of one block at head_dim D, or padded width D = 192
-// (0: D not taken)
+// dynamic shared memory of one block at head_dim D, or padded width D = 192,
+// or the wide route's DP = 320..512 (0: D not taken)
 size_t flash_attention_sm90_smem_bytes(int D) {
   switch (D) {
     case 64:
@@ -524,6 +896,14 @@ size_t flash_attention_sm90_smem_bytes(int D) {
       return Smem<192>::BYTES;
     case 256:
       return Smem<256>::BYTES;
+    case 320:
+      return WideSmem<320>::BYTES;
+    case 384:
+      return WideSmem<384>::BYTES;
+    case 448:
+      return WideSmem<448>::BYTES;
+    case 512:
+      return WideSmem<512>::BYTES;
     default:
       return 0;
   }
@@ -598,5 +978,45 @@ cudaError_t launch_flash_attention_sm90_padded(
     default:
       return launch_padded<256>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
                                 window, softcap, scale, stream);
+  }
+}
+
+// The wide route, bf16 at a head_dim d in 257..512, padded to DP = d
+// rounded up to 64; the rest as the padded route above.
+cudaError_t launch_flash_attention_sm90_wide(
+    const void* q, const void* k, const void* v, void* o, void* qp, void* kp,
+    void* vp, int BH, int BHkv, int Tq, int Tk, int d, int causal,
+    int window, float softcap, float scale, cudaStream_t stream) {
+  if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || Tq <= 0 || Tk <= 0 ||
+      d <= 256 || d > 512 || (Tq + WBQ - 1) / WBQ > 65535)
+    return cudaErrorInvalidValue;
+  const int w = (d + 7) / 8 * 8;
+  if (w != d) {
+    cudaError_t err = pad_rows(q, qp, (size_t)BH * Tq, d, w, stream);
+    if (err == cudaSuccess)
+      err = pad_rows(k, kp, (size_t)BHkv * Tk, d, w, stream);
+    if (err == cudaSuccess)
+      err = pad_rows(v, vp, (size_t)BHkv * Tk, d, w, stream);
+    if (err != cudaSuccess) return err;
+    q = qp;
+    k = kp;
+    v = vp;
+  }
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  switch ((d + 63) / 64 * 64) {
+    case 320:
+      return launch_wide<320>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                              window, softcap, scale, stream);
+    case 384:
+      return launch_wide<384>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                              window, softcap, scale, stream);
+    case 448:
+      return launch_wide<448>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                              window, softcap, scale, stream);
+    default:
+      return launch_wide<512>(q, k, v, o, BH, BHkv, Tq, Tk, w, d, causal,
+                              window, softcap, scale, stream);
   }
 }

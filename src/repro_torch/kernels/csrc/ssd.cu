@@ -1,7 +1,8 @@
 // Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel of repro/kernels/ssd/kernel.py:
-//   ssd_chunk, ssd_tiled_y + ssd_tiled_state
+//   ssd_chunk, ssd_tiled_y + ssd_tiled_state,
+//   ssd_long_y + ssd_long_state (ssd_chunk_f32_long)
 //             <- ssd_intra_chunk / _ssd_chunk_kernel
 //
 // Layout: xw (B,T,H,P) dt-weighted inputs and b, c (B,T,N), float32 or
@@ -49,6 +50,34 @@
 // It recomputes C.B^T per head and per 256 columns of P, and is FFMA on
 // fp32 like ssd_chunk: the simple design, right for every shape.
 //
+// The long-chunk pair (ssd_long_y, ssd_long_state; the route
+// ssd_chunk_f32_long): float32 at chunk 256, P 64, N 64 or 128 --
+// mamba2-780m's and zamba2-1.2b's layers at Mamba-2's own default chunk.
+// It replaces the tiled pair there, which recomputes C.B^T for every head
+// and reads each operand with scalar loads for 2 FMAs (7.36 ms at
+// 2x8192x48x64, N 128; bound ~27 GFLOP at 67 TFLOP/s of FFMA: 0.41 ms).
+// Every product stays FFMA on fp32 (TF32 would break the reference's
+// 2e-4), so the design is the FFMA units' register tile:
+//  * ssd_long_y: one block per (b, chunk, strip of 64 query rows, G
+//    heads), the strip with the most key tiles first. It computes the
+//    strip's C.B^T against its live key tiles only (j <= i: 1 to 4 tiles
+//    of 64) once into shared memory, transposed (64 KB at the last strip),
+//    and reuses it for its G heads. Four groups of 64 threads then take a
+//    head each: per key tile the group loads X's 64 x 64 tile into
+//    registers, builds M^T = (C.B^T * exp(cs_i - cs_j))^T (zero past the
+//    diagonal) in shared memory while the loads fly, stores X, and adds M.X
+//    into an 8 x 8 register tile a thread: two float4 reads of M and two
+//    of X for every 64 FMAs. The groups synchronise on named barriers of
+//    their own, so one group's loads overlap the others' products. 201 KB
+//    of shared memory: one block an SM.
+//  * ssd_long_state: one block per (b, chunk) and 256 / N heads (a group
+//    of N threads a head): w_j = exp(cs_L - cs_j) and the decay from one
+//    warp's scan, then the state X^T (B w) over the chunk in 64-row tiles,
+//    x_j w_j staged per head and B once for the block, the same 8 x 8
+//    tile. Each state element is one thread's FFMA chain over j = 0..255,
+//    so the bits repeat.
+// The wrapper picks G so that the y grid gives each SM a few blocks.
+//
 // Bound: per (b, chunk) the work is ~2 L^2 N + G (2 L^2 P + 2 L P N) FLOP
 // over ~(2 L N + G (L P + P N)) x 4 bytes, so at mamba2 widths it is
 // bound by operations on the FFMA units; the triangular half of M . X is
@@ -56,6 +85,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -517,6 +547,288 @@ cudaError_t launch_tiled(const void* xw, const float* la, const void* b,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// ssd_chunk_f32_long: float32 at P 64, N 64 or 128, chunk 256
+// ---------------------------------------------------------------------------
+constexpr int LL = 256;          // the chunk
+constexpr int LS = 64;           // query rows a strip, keys a tile
+constexpr int LSTRIPS = LL / LS;
+constexpr int LP = 64;           // head_dim
+constexpr int LGROUPS = 4;       // ssd_long_y: heads in flight, 64 threads each
+constexpr int CBS = LS + 4;      // row stride of the strip's (C.B^T)^T
+
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(group + 1) : "memory");
+}
+
+// inclusive cumsum of head h's la over the chunk into cs[0, LL), by one
+// warp (lane 0..31): the 8 loads first, then 8 warp scans in order
+__device__ __forceinline__ void long_cumsum(const float* __restrict__ la,
+                                            size_t row0, int H, int h,
+                                            int lane, float* cs) {
+  float v[LL / 32];
+#pragma unroll
+  for (int k = 0; k < LL / 32; ++k) v[k] = la[(row0 + 32 * k + lane) * H + h];
+  float carry = 0.0f;
+#pragma unroll
+  for (int k = 0; k < LL / 32; ++k) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, v[k], off);
+      if (lane >= off) v[k] += up;
+    }
+    v[k] += carry;
+    cs[32 * k + lane] = v[k];
+    carry = __shfl_sync(0xffffffffu, v[k], 31);
+  }
+}
+
+// 8 x 8 outputs += a (8 rows) x b (8 columns), each a pair of float4
+__device__ __forceinline__ void outer8(const float4& a0, const float4& a1,
+                                       const float4& b0, const float4& b1,
+                                       float (&acc)[8][8]) {
+  const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+}
+
+size_t long_y_smem_floats() {
+  // cs per group | (C.B^T)^T of the strip, LL x CBS | per group M^T and X
+  // (LS x LS, LS x LP); C and B (LS x (N+4) each) are staged over the
+  // group tiles before the heads' loop
+  return (size_t)LGROUPS * LL + (size_t)LL * CBS +
+         (size_t)LGROUPS * (LS * LS + LS * LP);
+}
+
+size_t long_state_smem_floats(int N) {
+  const int hs = NTHREADS / N;   // heads a block
+  // w per head | B (LS x N) | x w per head (LS x LP)
+  return (size_t)hs * LL + (size_t)LS * N + (size_t)hs * LS * LP;
+}
+
+// y for one strip of 64 query rows of one (b, chunk) and G heads.
+// grid (LSTRIPS x head groups, nc, B): the last strip (the most key
+// tiles) first.
+__global__ void __launch_bounds__(NTHREADS, 1)
+    ssd_long_y(const float* __restrict__ xw, const float* __restrict__ la,
+               const float* __restrict__ bm, const float* __restrict__ cm,
+               float* __restrict__ y, int Tt, int H, int N, int G) {
+  extern __shared__ float4 smem4[];
+  float* cs_all = reinterpret_cast<float*>(smem4);  // LGROUPS x LL
+  float* cbt = cs_all + LGROUPS * LL;               // cbt[j * CBS + i]
+  float* tiles = cbt + LL * CBS;
+  const int tid = threadIdx.x;
+  const int s = LSTRIPS - 1 - (int)(blockIdx.x % LSTRIPS);
+  const int hg = blockIdx.x / LSTRIPS, ci = blockIdx.y, bi = blockIdx.z;
+  const int i0 = s * LS, NS = N + 4, N4 = N / 4;
+  const size_t row0 = (size_t)bi * Tt + (size_t)ci * LL;
+
+  // (C.B^T)^T of the strip against its live key tiles, once for G heads:
+  // thread (ty, tx) owns rows ty + 16r and keys tx + 16c of each tile
+  {
+    const int tx = tid & 15, ty = tid >> 4;
+    float* c_s = tiles;             // LS x NS
+    float* b_s = tiles + LS * NS;   // LS x NS
+    for (int e = tid; e < LS * N4; e += NTHREADS) {
+      const int i = e / N4, n4 = e - i * N4;
+      *reinterpret_cast<float4*>(&c_s[i * NS + 4 * n4]) =
+          *reinterpret_cast<const float4*>(&cm[(row0 + i0 + i) * N + 4 * n4]);
+    }
+    for (int kt = 0; kt <= s; ++kt) {
+      __syncthreads();   // the previous tile's reads of b_s are done
+      for (int e = tid; e < LS * N4; e += NTHREADS) {
+        const int j = e / N4, n4 = e - j * N4;
+        *reinterpret_cast<float4*>(&b_s[j * NS + 4 * n4]) =
+            *reinterpret_cast<const float4*>(
+                &bm[(row0 + kt * LS + j) * N + 4 * n4]);
+      }
+      __syncthreads();
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+      for (int n = 0; n < N; n += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          cv[r] = *reinterpret_cast<const float4*>(&c_s[(ty + 16 * r) * NS + n]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          bv[c] = *reinterpret_cast<const float4*>(&b_s[(tx + 16 * c) * NS + n]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[r][c] = fmaf(cv[r].x, bv[c].x, acc[r][c]);
+            acc[r][c] = fmaf(cv[r].y, bv[c].y, acc[r][c]);
+            acc[r][c] = fmaf(cv[r].z, bv[c].z, acc[r][c]);
+            acc[r][c] = fmaf(cv[r].w, bv[c].w, acc[r][c]);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          cbt[(kt * LS + tx + 16 * c) * CBS + ty + 16 * r] = acc[r][c];
+    }
+    __syncthreads();   // C.B^T is whole; the staging area is free
+  }
+
+  // four groups of 64 threads, one head each at a time; thread (ti, tp)
+  // of a group owns rows {4ti, 32 + 4ti} + 0..3 and columns
+  // {4tp, 32 + 4tp} + 0..3 of the head's 64 x 64 strip of y
+  const int q = tid >> 6, gt = tid & 63, lane = tid & 31;
+  const int ti = gt >> 3, tp = gt & 7;
+  float* cs = cs_all + q * LL;
+  float* mt = tiles + q * (LS * LS + LS * LP);   // mt[j * LS + i]
+  float* xs = mt + LS * LS;                      // xs[j * LP + p]
+  for (int g = q; g < G; g += LGROUPS) {
+    const int h = hg * G + g;
+    if (h >= H) break;
+    group_sync(q);     // the previous head's cs, M and X are consumed
+    if (gt < 32) long_cumsum(la, row0, H, h, lane, cs);
+    group_sync(q);
+    float acc[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+    for (int kt = 0; kt <= s; ++kt) {
+      // X's tile kt into registers; its loads run while M is built
+      // thread gt moves float4 column gt % 16 of rows gt / 16 + 4k
+      const int c4 = gt & 15, jr = gt >> 4;
+      float4 xr[LS / 4];
+#pragma unroll
+      for (int k = 0; k < LS / 4; ++k)
+        xr[k] = *reinterpret_cast<const float4*>(
+            &xw[((row0 + kt * LS + jr + 4 * k) * H + h) * LP + 4 * c4]);
+      // M^T[j][i] = C.B^T[i][j] exp(cs_i - cs_j), 0 past the diagonal
+      const float4 ci = *reinterpret_cast<const float4*>(&cs[i0 + 4 * c4]);
+#pragma unroll 4
+      for (int k = 0; k < LS / 4; ++k) {
+        const int j = jr + 4 * k, i4 = c4;
+        const float4 cb =
+            *reinterpret_cast<const float4*>(&cbt[(kt * LS + j) * CBS + 4 * i4]);
+        const float cj = cs[kt * LS + j];
+        float4 m = make_float4(cb.x * expf(ci.x - cj), cb.y * expf(ci.y - cj),
+                               cb.z * expf(ci.z - cj), cb.w * expf(ci.w - cj));
+        if (kt == s) {   // the diagonal tile: keys j <= i only
+          const int i = 4 * i4;
+          if (j > i) m.x = 0.0f;
+          if (j > i + 1) m.y = 0.0f;
+          if (j > i + 2) m.z = 0.0f;
+          if (j > i + 3) m.w = 0.0f;
+        }
+        *reinterpret_cast<float4*>(&mt[j * LS + 4 * i4]) = m;
+      }
+#pragma unroll
+      for (int k = 0; k < LS / 4; ++k)
+        *reinterpret_cast<float4*>(&xs[(jr + 4 * k) * LP + 4 * c4]) = xr[k];
+      group_sync(q);
+#pragma unroll 4
+      for (int j = 0; j < LS; ++j)
+        outer8(*reinterpret_cast<const float4*>(&mt[j * LS + 4 * ti]),
+               *reinterpret_cast<const float4*>(&mt[j * LS + 32 + 4 * ti]),
+               *reinterpret_cast<const float4*>(&xs[j * LP + 4 * tp]),
+               *reinterpret_cast<const float4*>(&xs[j * LP + 32 + 4 * tp]),
+               acc);
+      group_sync(q);   // M and X are read
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = (r < 4 ? 4 * ti : 32 + 4 * ti - 4) + r;
+      float* yrow = y + ((row0 + i0 + i) * H + h) * LP;
+      *reinterpret_cast<float4*>(&yrow[4 * tp]) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      *reinterpret_cast<float4*>(&yrow[32 + 4 * tp]) =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+}
+
+// the chunk states and decays of one (b, chunk) and NTHREADS / N heads,
+// one group of N threads a head; grid (head groups, nc, B)
+__global__ void __launch_bounds__(NTHREADS, 2)
+    ssd_long_state(const float* __restrict__ xw, const float* __restrict__ la,
+                   const float* __restrict__ bm, float* __restrict__ st,
+                   float* __restrict__ cd, int Tt, int H, int N) {
+  extern __shared__ float4 smem4[];
+  const int hs = NTHREADS / N, NG = N / 8, N4 = N / 4;
+  float* w_s = reinterpret_cast<float*>(smem4);   // hs x LL
+  float* b_s = w_s + hs * LL;                     // LS x N
+  float* x_s = b_s + LS * N;                      // hs x LS x LP
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ci = blockIdx.y, bi = blockIdx.z, nc = Tt / LL;
+  const size_t row0 = (size_t)bi * Tt + (size_t)ci * LL;
+  // w_j = exp(cs_L - cs_j) and the decay exp(cs_L): warp k scans head k
+  if (warp < hs) {
+    const int h = blockIdx.x * hs + warp;
+    float* w = w_s + warp * LL;
+    if (h < H) {
+      long_cumsum(la, row0, H, h, lane, w);
+      __syncwarp();
+      const float cs_last = w[LL - 1];
+      __syncwarp();   // every lane has read cs_L before w overwrites it
+      for (int j = lane; j < LL; j += 32) w[j] = expf(cs_last - w[j]);
+      if (lane == 0) cd[((size_t)bi * nc + ci) * H + h] = expf(cs_last);
+    } else {
+      for (int j = lane; j < LL; j += 32) w[j] = 0.0f;
+    }
+  }
+  // thread (tr, tn) of head slot q owns the state's rows {4tr, 32 + 4tr}
+  // + 0..3 and columns {4tn, N/2 + 4tn} + 0..3
+  const int q = tid / N, gt = tid - q * N, tr = gt / NG, tn = gt - tr * NG;
+  const int h = blockIdx.x * hs + q;
+  float* xq = x_s + q * LS * LP;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  for (int jt = 0; jt < LSTRIPS; ++jt) {
+    __syncthreads();   // w is written; the previous tile is read
+    for (int e = tid; e < LS * N4; e += NTHREADS) {
+      const int j = e / N4, n4 = e - j * N4;
+      *reinterpret_cast<float4*>(&b_s[j * N + 4 * n4]) =
+          *reinterpret_cast<const float4*>(
+              &bm[(row0 + jt * LS + j) * N + 4 * n4]);
+    }
+    for (int e = gt; e < LS * LP / 4; e += N) {   // x_j w_j of head h
+      const int j = e >> 4, p4 = e & 15;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (h < H) {
+        v = *reinterpret_cast<const float4*>(
+            &xw[((row0 + jt * LS + j) * H + h) * LP + 4 * p4]);
+        const float wj = w_s[q * LL + jt * LS + j];
+        v = make_float4(v.x * wj, v.y * wj, v.z * wj, v.w * wj);
+      }
+      *reinterpret_cast<float4*>(&xq[j * LP + 4 * p4]) = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < LS; ++j)
+      outer8(*reinterpret_cast<const float4*>(&xq[j * LP + 4 * tr]),
+             *reinterpret_cast<const float4*>(&xq[j * LP + 32 + 4 * tr]),
+             *reinterpret_cast<const float4*>(&b_s[j * N + 4 * tn]),
+             *reinterpret_cast<const float4*>(&b_s[j * N + N / 2 + 4 * tn]),
+             acc);
+  }
+  if (h >= H) return;
+  float* sbase = st + (((size_t)bi * nc + ci) * H + h) * LP * N;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int p = (r < 4 ? 4 * tr : 32 + 4 * tr - 4) + r;
+    *reinterpret_cast<float4*>(&sbase[(size_t)p * N + 4 * tn]) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    *reinterpret_cast<float4*>(&sbase[(size_t)p * N + N / 2 + 4 * tn]) =
+        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+}
+
 }  // namespace
 
 size_t ssd_smem_bytes(int L, int P, int N) {
@@ -578,4 +890,44 @@ cudaError_t launch_ssd_chunk_tiled(const void* xw, const float* la,
                                        N, L, stream);
   return launch_tiled<float>(xw, la, b, c, y, st, cd, B, T, H, P, N, L,
                              stream);
+}
+
+// The larger of the long-chunk pair's two blocks.
+size_t ssd_f32_long_smem_bytes(int N) {
+  const size_t y = long_y_smem_floats(), s = long_state_smem_floats(N);
+  return (y > s ? y : s) * sizeof(float);
+}
+
+// float32 only; L 256, P 64, N 64 or 128, T % L == 0, all of xw, b, c
+// 16-byte aligned (float4 loads); G >= 1 heads a block of ssd_long_y (the
+// last group may be short).
+cudaError_t launch_ssd_chunk_f32_long(const float* xw, const float* la,
+                                      const float* b, const float* c,
+                                      float* y, float* st, float* cd, int B,
+                                      int T, int H, int P, int N, int L,
+                                      int G, cudaStream_t stream) {
+  if (L != LL || P != LP || (N != 64 && N != 128) || T % L || B < 1 ||
+      H < 1 || G < 1 || T / L > 65535 || B > 65535)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(xw) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const int nc = T / L;
+  const size_t ysmem = long_y_smem_floats() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_long_y, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ysmem);
+  if (err != cudaSuccess) return err;
+  ssd_long_y<<<dim3(LSTRIPS * ((H + G - 1) / G), nc, B), NTHREADS, ysmem,
+               stream>>>(xw, la, b, c, y, T, H, N, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int hs = NTHREADS / N;
+  const size_t ssmem = long_state_smem_floats(N) * sizeof(float);
+  err = cudaFuncSetAttribute(ssd_long_state,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ssmem);
+  if (err != cudaSuccess) return err;
+  ssd_long_state<<<dim3((H + hs - 1) / hs, nc, B), NTHREADS, ssmem,
+                   stream>>>(xw, la, b, st, cd, T, H, N);
+  return cudaGetLastError();
 }

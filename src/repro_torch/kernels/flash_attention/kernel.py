@@ -14,14 +14,15 @@ terms for p·v); bfloat16 at any other head_dim up to 256 goes to
 ``flash_fwd_sm90_padded``, the same kernel at the head_dim rounded up to
 64 (its tensor maps read zeros past the true head_dim; a head_dim that is
 no multiple of 8 is first copied into rows padded to 8, scratch the
-wrapper allocates). float32 q/k/v go to fp32 FFMA, since the tensor cores
-would need TF32 for them: ``flash_fwd`` at head_dim 64, 128 or 256,
-``flash_fwd_padded`` at any other head_dim up to 512, padded up to the
-next of 64, 128, 192, 256, 384, 512; bfloat16 above 256 goes to
-``flash_fwd_padded`` too, widened to float32 as it is loaded. Above 512
-the padded kernel's smallest tiles leave no room in a block's shared
-memory and the wrapper raises. The output is in q's dtype. A failed
-build or launch raises: there is no fallback.
+wrapper allocates); bfloat16 at 257..512 goes to ``flash_fwd_sm90_wide``,
+the same products at the head_dim rounded up to 64 with O split by
+columns over two warpgroups (the same padding and scratch). float32
+q/k/v go to fp32 FFMA, since the tensor cores would need TF32 for them:
+``flash_fwd`` at head_dim 64, 128 or 256, ``flash_fwd_padded`` at any
+other head_dim up to 512, padded up to the next of 64, 128, 192, 256,
+384, 512. Above 512 the padded kernel's smallest tiles leave no room in
+a block's shared memory and the wrapper raises. The output is in q's
+dtype. A failed build or launch raises: there is no fallback.
 ``LAUNCHES["flash_attention"]`` counts every launch, ``LAUNCHES[route]``
 each kernel's. The reference's ``block_q``/``block_k``/``interpret``
 arguments are gone: the kernels fix their tiles and there is no
@@ -39,11 +40,12 @@ from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.flash_attention import ref
 
 ROUTES = ("flash_fwd_sm90", "flash_fwd_sm90_padded", "flash_fwd",
-          "flash_fwd_padded")
+          "flash_fwd_padded", "flash_fwd_sm90_wide")
 LAUNCHES = {"flash_attention": 0, **{r: 0 for r in ROUTES}}
 DTYPES = (torch.float32, torch.bfloat16)
 SM90_HEAD_DIMS = (64, 128, 256)  # flash_fwd_sm90 (bf16), flash_fwd (f32)
 SM90_PADDED_MAX = 256            # flash_fwd_sm90_padded: bf16 up to here
+WIDE_QUERIES, WIDE_KEYS = 64, 32  # flash_fwd_sm90_wide's q and k/v tiles
 FFMA_HEAD_DIMS = (64, 128, 192, 256, 384, 512)  # flash_fwd_padded's
 MAX_HEAD_DIM = FFMA_HEAD_DIMS[-1]
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
@@ -53,12 +55,14 @@ def route(dtype, d: int) -> str:
     """The kernel a launch goes to: at head_dim 64, 128 or 256
     ``"flash_fwd_sm90"`` for bf16 and ``"flash_fwd"`` for float32; bf16
     at the other head_dims up to SM90_PADDED_MAX
-    ``"flash_fwd_sm90_padded"``; ``"flash_fwd_padded"`` for the rest."""
+    ``"flash_fwd_sm90_padded"`` and above it ``"flash_fwd_sm90_wide"``;
+    ``"flash_fwd_padded"`` for the other float32 head_dims."""
     bf16 = dtype == torch.bfloat16
     if d in SM90_HEAD_DIMS:
         return "flash_fwd_sm90" if bf16 else "flash_fwd"
-    if bf16 and d <= SM90_PADDED_MAX:
-        return "flash_fwd_sm90_padded"
+    if bf16:
+        return ("flash_fwd_sm90_padded" if d <= SM90_PADDED_MAX
+                else "flash_fwd_sm90_wide")
     return "flash_fwd_padded"
 
 
@@ -70,6 +74,19 @@ def ffma_smem_bytes(d: int) -> int:
     dp = next(c for c in FFMA_HEAD_DIMS if c >= d)
     rows = 64 if dp <= 256 else 32
     return 4 * (2 * rows * (dp + 4) + rows * dp + rows * (rows + 4))
+
+
+def wide_smem_bytes(d: int) -> int:
+    """Shared memory of one ``flash_fwd_sm90_wide`` block at head_dim
+    ``d`` (257..512), as ``csrc/flash_attention_sm90.cu``'s ``WideSmem``
+    lays it out at DP = d rounded up to 64: 1,024 B of alignment slack, Q
+    (64 rows of DP bf16), two stages of K (32 rows) and of V (two halves
+    of ceil(DP/128) 4-KB boxes), four 64 x 32 float32 S partials and nine
+    mbarriers."""
+    dp = -(-d // 64) * 64
+    v_stage = 2 * -(-dp // 128) * WIDE_KEYS * 128
+    return (1024 + WIDE_QUERIES * dp * 2 + 2 * (WIDE_KEYS * dp * 2 + v_stage)
+            + 4 * WIDE_QUERIES * WIDE_KEYS * 4 + 8 * 9)
 
 
 def check_head_dim(d: int) -> None:
@@ -86,9 +103,10 @@ def check_head_dim(d: int) -> None:
 
 
 def _pad_scratch(q, k, v):
-    """The rows ``flash_fwd_sm90_padded`` reads when the head_dim is no
-    multiple of 8 (a tensor map's rows are 16-byte strides): q, k and v
-    copied into rows of the head_dim rounded up to 8; empty otherwise."""
+    """The rows ``flash_fwd_sm90_padded`` and ``flash_fwd_sm90_wide``
+    read when the head_dim is no multiple of 8 (a tensor map's rows are
+    16-byte strides): q, k and v copied into rows of the head_dim rounded
+    up to 8; empty otherwise."""
     d = q.shape[-1]
     d8 = -(-d // 8) * 8
     if d8 == d:
@@ -128,9 +146,11 @@ def forward(q, k, v, *, causal: bool = True,
                 raise ValueError(f"{name} must be 16-byte aligned")
     if kernel == "flash_fwd_sm90":
         ext.flash_attention_sm90(*args)
-    elif kernel == "flash_fwd_sm90_padded":
-        ext.flash_attention_sm90_padded(q, k, v, out, *_pad_scratch(q, k, v),
-                                        *args[4:])
+    elif kernel in ("flash_fwd_sm90_padded", "flash_fwd_sm90_wide"):
+        launch = (ext.flash_attention_sm90_padded
+                  if kernel == "flash_fwd_sm90_padded"
+                  else ext.flash_attention_sm90_wide)
+        launch(q, k, v, out, *_pad_scratch(q, k, v), *args[4:])
     else:
         ext.flash_attention(*args)
     LAUNCHES[kernel] += 1

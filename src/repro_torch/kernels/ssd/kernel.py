@@ -16,14 +16,18 @@ M and X·w split into bf16 hi + lo), and at chunk 256 to
 ``ssd_chunk_sm90_long`` (the same products, C·Bᵀ recomputed a 64 x 64
 tile at a time for each head); float32 inputs and the other shapes go
 to fp32 FFMA, since the tensor cores would need TF32 for float32:
-``ssd_chunk`` where its whole-chunk tiles fit (chunk a multiple of 16 up
-to 128, head_dim and state multiples of 4 up to 128, within a block's
-shared memory), ``ssd_chunk_tiled`` (two kernels, ``ssd_tiled_y`` and
-``ssd_tiled_state``) at every other chunk that divides T and every head_dim
-and state, as the reference takes them. All take xw, b and c in one dtype
-and la in float32. A refused or failed launch raises: no route gives way
-to another. ``LAUNCHES["ssd_intra_chunk"]`` counts every launch,
-``LAUNCHES[route]`` each route's.
+float32 at head_dim 64, state 64 or 128 and chunk 256 to
+``ssd_chunk_f32_long`` (two kernels, ``ssd_long_y`` and
+``ssd_long_state``: C·Bᵀ once a strip for a group of heads, 8 x 8
+register tiles), ``ssd_chunk`` where its whole-chunk tiles fit (chunk a
+multiple of 16 up to 128, head_dim and state multiples of 4 up to 128,
+within a block's shared memory), ``ssd_chunk_tiled`` (two kernels,
+``ssd_tiled_y`` and ``ssd_tiled_state``) at every other chunk that
+divides T and every head_dim and state, as the reference takes them.
+All take xw, b and c in one dtype and la in float32. A refused or
+failed launch raises: no route gives way to another.
+``LAUNCHES["ssd_intra_chunk"]`` counts every launch, ``LAUNCHES[route]``
+each route's.
 """
 from __future__ import annotations
 
@@ -34,13 +38,16 @@ from repro_torch.kernels.build import check_tensor
 from repro_torch.kernels.ssd import ref
 
 LAUNCHES = {"ssd_intra_chunk": 0, "ssd_chunk_sm90": 0, "ssd_chunk": 0,
-            "ssd_chunk_tiled": 0, "ssd_chunk_sm90_long": 0}
+            "ssd_chunk_tiled": 0, "ssd_chunk_sm90_long": 0,
+            "ssd_chunk_f32_long": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232448          # dynamic shared memory of one H100 block
 SM90_HEAD_DIMS, SM90_CHUNKS, SM90_STATES = (64,), (64, 128), (64, 128)
 SM90_MAX_HEADS = 16              # heads a block of ssd_chunk_sm90
 SM90_LONG_CHUNKS = (256,)        # ssd_chunk_sm90_long's chunks
 SM90_LONG_MAX_HEADS = 8          # heads a block of ssd_chunk_sm90_long
+F32_LONG_MAX_HEADS = 16          # heads a block of ssd_long_y
+F32_LONG_STRIPS = 4              # its 64-row strips of a 256-step chunk
 
 
 def ffma_smem_bytes(chunk: int, p: int, n: int) -> int:
@@ -53,13 +60,15 @@ def ffma_smem_bytes(chunk: int, p: int, n: int) -> int:
 def route(dtype, p: int, n: int, chunk: int) -> str:
     """The kernel a launch goes to: ``"ssd_chunk_sm90"`` and
     ``"ssd_chunk_sm90_long"`` for bf16 at the shapes they take,
+    ``"ssd_chunk_f32_long"`` for float32 at the long route's shapes,
     ``"ssd_chunk"`` where its whole-chunk tiles fit, ``"ssd_chunk_tiled"``
     otherwise."""
-    if dtype == torch.bfloat16 and p in SM90_HEAD_DIMS and n in SM90_STATES:
-        if chunk in SM90_CHUNKS:
+    if p in SM90_HEAD_DIMS and n in SM90_STATES:
+        if dtype == torch.bfloat16 and chunk in SM90_CHUNKS:
             return "ssd_chunk_sm90"
         if chunk in SM90_LONG_CHUNKS:
-            return "ssd_chunk_sm90_long"
+            return ("ssd_chunk_sm90_long" if dtype == torch.bfloat16
+                    else "ssd_chunk_f32_long")
     if (chunk % 16 == 0 and chunk <= 128 and p % 4 == 0 and p <= 128
             and n % 4 == 0 and n <= 128
             and ffma_smem_bytes(chunk, p, n) <= MAX_SMEM_BYTES):
@@ -98,6 +107,15 @@ def heads_per_block_long(bsz: int, nc: int, h: int, sms: int) -> int:
     return max(1, min(SM90_LONG_MAX_HEADS, bsz * nc * h // sms))
 
 
+def heads_per_block_f32_long(bsz: int, nc: int, h: int, sms: int) -> int:
+    """``ssd_long_y``: G heads share a strip's C·Bᵀ. One block an SM (its
+    shared memory allows no second) and strips of 1 to 4 key tiles, so G
+    is the most heads (up to 16) that still gives the grid four blocks an
+    SM; the last group of heads may be short."""
+    return max(1, min(F32_LONG_MAX_HEADS,
+                      bsz * nc * F32_LONG_STRIPS * h // (4 * sms)))
+
+
 def forward(xw, la, b, c, *, chunk: int):
     """Launch the kernel; see :func:`ssd_intra_chunk` for the contract."""
     bsz, t, h, p = xw.shape
@@ -112,6 +130,7 @@ def forward(xw, la, b, c, *, chunk: int):
     smem = {"ssd_chunk_sm90": lambda: ext.ssd_sm90_smem_bytes(chunk, p, n),
             "ssd_chunk_sm90_long":
                 lambda: ext.ssd_sm90_long_smem_bytes(chunk, p, n),
+            "ssd_chunk_f32_long": lambda: ext.ssd_f32_long_smem_bytes(n),
             "ssd_chunk": lambda: ext.ssd_smem_bytes(chunk, p, n),
             "ssd_chunk_tiled": lambda: ext.ssd_tiled_smem_bytes(chunk, p)
             }[kernel]()
@@ -126,12 +145,18 @@ def forward(xw, la, b, c, *, chunk: int):
                          device=xw.device)
     chunk_decay = torch.empty((bsz, nc, h), dtype=torch.float32,
                               device=xw.device)
-    if kernel in ("ssd_chunk_sm90", "ssd_chunk_sm90_long"):
-        # the tensor maps of its loads and stores need 16-byte alignment
+    if kernel in ("ssd_chunk_sm90", "ssd_chunk_sm90_long",
+                  "ssd_chunk_f32_long"):
+        # the tensor maps of its loads and stores, or its float4 loads,
+        # need 16-byte alignment
         for name, x in (("xw", xw), ("b", b), ("c", c)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
-        if kernel == "ssd_chunk_sm90":
+        if kernel == "ssd_chunk_f32_long":
+            ext.ssd_intra_chunk_f32_long(
+                xw, la, b, c, y, states, chunk_decay, chunk,
+                heads_per_block_f32_long(bsz, nc, h, sms))
+        elif kernel == "ssd_chunk_sm90":
             ext.ssd_intra_chunk_sm90(xw, la, b, c, y, states, chunk_decay,
                                      chunk,
                                      heads_per_block_sm90(bsz, nc, h, sms))

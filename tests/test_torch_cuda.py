@@ -43,8 +43,12 @@ its rows exactly the three labels and the GAE forward launched;
 spawned ranks, its rows under the reference's labels and keys. The wide
 routes (GRU above hidden 128, flash at head_dims outside 64/128/256 in
 both dtypes, SSD at any chunk, P and N) at the tolerances above, against
-the plain versions; the bf16 FFMA flash kernel against the plain version
-in float32 on the same inputs (FLASH_BF16_F32_TOL).
+the plain versions; the bf16 tensor-core flash kernels past the first
+head_dims (``flash_fwd_sm90_padded`` up to 256, ``flash_fwd_sm90_wide``
+above) against the plain version in float32 on the same inputs
+(FLASH_BF16_F32_TOL), a query row with no live key at o = 0; SSD in
+float32 at chunk 256 on ``ssd_chunk_f32_long`` within SSD_TOL, its bits
+repeating.
 """
 import dataclasses
 
@@ -910,9 +914,9 @@ def _launched(kernel):
 @pytest.mark.cuda
 def test_flash_routes_by_dtype(cuda_device):
     """bf16 goes to the tensor-core kernel and float32 to the FFMA kernel,
-    which still holds the reference's 2e-5, as ``route`` names them;
-    each launch counts once in ``flash_attention`` and once under its
-    kernel."""
+    which still holds the reference's 2e-5, as ``route`` names them (at
+    head_dim 512 too: bf16 on the wide kernel); each launch counts once
+    in ``flash_attention`` and once under its kernel."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(4, 192, 128, generator=gen, device=cuda_device)
                for _ in range(3))
@@ -938,6 +942,25 @@ def test_flash_routes_by_dtype(cuda_device):
     odd = flat[1:].view(4, 192, 128)
     with pytest.raises(ValueError, match="aligned"):
         fa_kernel.forward(odd, kb, vb, **kw)
+    # at head_dim 512 bf16 goes to the wide tensor-core kernel, float32
+    # stays on the FFMA kernel; 512 in place is aligned, 511 padded to 512
+    for d, dtype, want in ((512, torch.bfloat16, "flash_fwd_sm90_wide"),
+                           (511, torch.bfloat16, "flash_fwd_sm90_wide"),
+                           (512, torch.float32, "flash_fwd_padded")):
+        q, k, v = (torch.randn(4, 96, d, generator=gen,
+                               device=cuda_device).to(dtype)
+                   for _ in range(3))
+        assert fa_kernel.route(dtype, d) == want
+        counts = dict(fa_kernel.LAUNCHES)
+        out = fa_kernel.forward(q, k, v, **kw)
+        assert out.dtype == dtype and out.shape == q.shape
+        assert {k: fa_kernel.LAUNCHES[k] - counts[k] for k in counts} == \
+            _launched(want)
+    flat = torch.zeros(4 * 96 * 512 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    odd = flat[1:].view(4, 96, 512)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_kernel.forward(odd, odd, odd, **kw)
 
 
 @pytest.mark.cuda
@@ -953,9 +976,9 @@ def test_flash_routes_by_dtype(cuda_device):
 ])
 def test_flash_ffma_head_dims_match_plain(cuda_device, dtype, bh, bhkv, t,
                                           d, window, softcap, causal):
-    """Head_dims outside the tensor-core kernel's 64/128/256: float32
-    and bf16 above 256 on the FFMA kernel ``flash_fwd_padded`` (bf16
-    widened as it loads), bf16 up to 256 on ``flash_fwd_sm90_padded``, as
+    """Head_dims outside the tensor-core kernel's 64/128/256: float32 on
+    the FFMA kernel ``flash_fwd_padded``, bf16 up to 256 on
+    ``flash_fwd_sm90_padded`` and above on ``flash_fwd_sm90_wide``, as
     ``route`` names them, against the plain version in float32 on the
     same inputs: FLASH_TOL in float32; in bf16 only p's split, the
     output's rounding (2^-8 relative) and the order of float32 sums
@@ -966,8 +989,9 @@ def test_flash_ffma_head_dims_match_plain(cuda_device, dtype, bh, bhkv, t,
         rnd(bhkv, t, d).to(dtype)
     kw = dict(causal=causal, sliding_window=window, softcap=softcap)
     kernel = fa_kernel.route(dtype, d)
-    assert kernel == ("flash_fwd_sm90_padded" if dtype == torch.bfloat16
-                      and d <= 256 else "flash_fwd_padded")
+    assert kernel == ("flash_fwd_padded" if dtype == torch.float32 else
+                      "flash_fwd_sm90_padded" if d <= 256 else
+                      "flash_fwd_sm90_wide")
     before = dict(fa_kernel.LAUNCHES)
     out = fa_kernel.forward(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -1068,10 +1092,58 @@ def test_flash_sm90_padded_alignment(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh,bhkv,tq,tk,d,window,softcap,causal", [
+    (4, 2, 200, 200, 257, 64, 50.0, True),    # the first wide head_dim
+    (2, 1, 150, 150, 300, None, None, False),  # rows padded to 304, MQA
+    (4, 2, 300, 300, 320, 17, 50.0, True),     # DP 320, window in a tile
+    (2, 2, 257, 257, 384, None, 30.0, True),   # DP 384, causal + softcap
+    (4, 2, 130, 130, 448, 100, None, True),    # DP 448
+    (2, 2, 150, 150, 512, None, 50.0, False),  # DP 512, non-causal
+    (8, 2, 97, 300, 512, 40, 50.0, True),      # Tq < Tk
+    (4, 4, 300, 100, 400, 20, None, True),     # Tq > Tk: rows with no key
+    (2, 1, 1100, 1100, 512, 1024, 50.0, True),  # long, a window of 1,024
+])
+def test_flash_sm90_wide_matches_plain_in_float32(
+        cuda_device, bh, bhkv, tq, tk, d, window, softcap, causal):
+    """``flash_fwd_sm90_wide`` (bf16 at head_dim 257..512) on bf16 inputs,
+    q scaled by 8 so a few keys lead each softmax and the scores reach the
+    softcap, against the plain version in float32 on the same inputs
+    (FLASH_BF16_F32_TOL). A query row with no live key gets o = 0, the
+    reference kernel's rule (the plain version averages v there); the
+    output bits repeat."""
+    from repro_torch.nn.attention import make_mask
+    gen = torch.Generator(device=cuda_device).manual_seed(d + tq)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    q = (rnd(bh, tq, d) * 8).bfloat16()
+    k, v = rnd(bhkv, tk, d).bfloat16(), rnd(bhkv, tk, d).bfloat16()
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    assert fa_kernel.route(torch.bfloat16, d) == "flash_fwd_sm90_wide"
+    before = dict(fa_kernel.LAUNCHES)
+    out = fa_kernel.forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {k: fa_kernel.LAUNCHES[k] - before[k] for k in before} == \
+        _launched("flash_fwd_sm90_wide")
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    live = make_mask(tq, tk, causal=causal, sliding_window=window,
+                     device=cuda_device).any(-1)
+    assert bool(live.all()) == (tq <= tk)
+    want = fa_ref.attention_bhsd(q.float(), k.float(), v.float(), **kw)
+    want = torch.where(live[None, :, None], want, 0.0)
+    atol, rtol = FLASH_BF16_F32_TOL
+    diff = (out.double() - want.double()).abs()
+    bad = diff > atol + rtol * want.double().abs()
+    assert not bool(bad.any()), \
+        f"max abs err {float(diff.max()):.3e} at rows " \
+        f"{bad.any(-1).nonzero()[:4].tolist()}"
+    assert torch.equal(fa_kernel.forward(q, k, v, **kw), out)
+
+
+@pytest.mark.cuda
 def test_flash_extension_refuses_what_no_route_sends(cuda_device):
-    """The FFMA kernel has no bf16 instantiation at head_dim <= 256 (the
-    tensor-core route takes those), and the padded tensor-core binding
-    refuses scratch rows that are not q, k, v's padded to 8."""
+    """The FFMA kernel has no bf16 instantiation (the tensor-core routes
+    take bf16 at every head_dim), the padded tensor-core binding refuses
+    scratch rows that are not q, k, v's padded to 8, and the wide one a
+    head_dim of 256 or less."""
     from repro_torch.kernels import build
     ext = build.extension()
     q = torch.randn(2, 64, 96, device=cuda_device).bfloat16()
@@ -1082,6 +1154,16 @@ def test_flash_extension_refuses_what_no_route_sends(cuda_device):
     with pytest.raises(RuntimeError, match="rounded up to 8"):
         ext.flash_attention_sm90_padded(q, q, q, torch.empty_like(q), short,
                                         short, short, True, 0, 0.0, 0.1)
+    # nor at 512 (bf16 there runs on the wide kernel), which takes only
+    # 257..512
+    q = torch.randn(2, 64, 512, device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError):
+        ext.flash_attention(q, q, q, torch.empty_like(q), True, 0, 0.0, 0.1)
+    q = torch.randn(2, 64, 256, device=cuda_device).bfloat16()
+    empty = q.new_empty(0)
+    with pytest.raises(RuntimeError):
+        ext.flash_attention_sm90_wide(q, q, q, torch.empty_like(q), empty,
+                                      empty, empty, True, 0, 0.0, 0.1)
 
 
 def _ragged_heads(device, b, t, chunk):
@@ -1170,9 +1252,11 @@ def test_ssd_tiled_matches_plain(cuda_device, dtype, b, t, h, p, n, chunk):
     x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, p, n, dtype)
     xw = (x * dt[..., None].to(dtype)).contiguous()
     la = (dt * a).contiguous()
-    # bf16 at P 64, N 64/128, chunk 256 goes to the long tensor-core route
-    key = ("ssd_chunk_sm90_long" if dtype == torch.bfloat16 and p == 64
-           and n in (64, 128) and chunk == 256 else "ssd_chunk_tiled")
+    # P 64, N 64/128, chunk 256 goes to the long routes: bf16 on the
+    # tensor cores, float32 on FFMA
+    long = p == 64 and n in (64, 128) and chunk == 256
+    key = ("ssd_chunk_tiled" if not long else "ssd_chunk_sm90_long"
+           if dtype == torch.bfloat16 else "ssd_chunk_f32_long")
     assert ssd_kernel.route(dtype, p, n, chunk) == key
     before = dict(ssd_kernel.LAUNCHES)
     got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
@@ -1233,14 +1317,68 @@ def test_ssd_long_matches_plain(cuda_device, b, t, h, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,n", [
+    (1, 256, 2, 128),                # a single chunk
+    (1, 256, 1, 64),                 # one head: three groups idle
+    (1, 768, 5, 64), (2, 512, 4, 128),
+    (2, 8192, 48, 128),              # mamba2-780m's layer at chunk 256
+    (2, 8192, 64, 64),               # zamba2-1.2b's
+    (2, 4096, None, 64), (2, 8192, None, 128)])  # a short last head group
+def test_ssd_f32_long_matches_plain(cuda_device, b, t, h, n):
+    """``ssd_chunk_f32_long`` (float32, P 64, chunk 256, on FFMA) against
+    the plain intra-chunk block: every output within SSD_TOL times
+    max(1, largest magnitude), and its bits repeat; ``ops.ssd`` with an
+    initial state against ``ssd_chunked``."""
+    chunk = 256
+    if h is None:   # a head count the y kernel's groups do not divide
+        sms = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        h = next(k for k in (13, 11, 17, 19, 23, 7, 5) if k % ssd_kernel.
+                 heads_per_block_f32_long(b, t // chunk, k, sms))
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, b, t, h, 64, n,
+                                  torch.float32)
+    xw = (x * dt[..., None]).contiguous()
+    la = (dt * a).contiguous()
+    assert ssd_kernel.route(torch.float32, 64, n, chunk) == \
+        "ssd_chunk_f32_long"
+    before = dict(ssd_kernel.LAUNCHES)
+    got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {k: ssd_kernel.LAUNCHES[k] - before[k] for k in before} == {
+        **{k: 0 for k in before}, "ssd_intra_chunk": 1,
+        "ssd_chunk_f32_long": 1}
+    want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert_close_scaled(g, w, SSD_TOL)
+    again = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
+    assert all(torch.equal(g, r) for g, r in zip(got, again))
+    s0 = torch.randn(b, h, 64, n, generator=gen, device=cuda_device)
+    y_k, s_k = ssd_ops.ssd(x, dt, a, bm, c, chunk=chunk, initial_state=s0)
+    y_p, s_p = ssm_mod.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
+                                   initial_state=s0)
+    assert_close_scaled(y_k, y_p, SSD_TOL)
+    assert_close_scaled(s_k, s_p, SSD_TOL)
+    # its float4 loads need 16-byte alignment
+    flat = torch.zeros(xw.numel() + 1, device=cuda_device)
+    odd = flat[1:].view(xw.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_kernel.forward(odd, la, bm, c, chunk=chunk)
+
+
+@pytest.mark.cuda
 def test_ssd_routes_by_dtype_and_shape(cuda_device):
     """bf16 at mamba2's widths goes to ``ssd_chunk_sm90``; float32, and
-    bf16 at chunk 32, go to ``ssd_chunk``; each launch also counts once in
-    ``ssd_intra_chunk``."""
+    bf16 at chunk 32, go to ``ssd_chunk``; at chunk 256 bf16 goes to
+    ``ssd_chunk_sm90_long`` and float32 to ``ssd_chunk_f32_long``; each
+    launch also counts once in ``ssd_intra_chunk``."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     cases = [(torch.bfloat16, 128, "ssd_chunk_sm90"),
              (torch.float32, 128, "ssd_chunk"),
-             (torch.bfloat16, 32, "ssd_chunk")]
+             (torch.bfloat16, 32, "ssd_chunk"),
+             (torch.bfloat16, 256, "ssd_chunk_sm90_long"),
+             (torch.float32, 256, "ssd_chunk_f32_long")]
     for dtype, chunk, key in cases:
         x, dt, a, bm, c = _ssd_inputs(gen, cuda_device, 1, 256, 4, 64, 128,
                                       dtype)
@@ -1250,9 +1388,7 @@ def test_ssd_routes_by_dtype_and_shape(cuda_device):
         got = ssd_kernel.forward(xw, la, bm, c, chunk=chunk)
         assert ssd_kernel.route(dtype, 64, 128, chunk) == key
         assert {k: ssd_kernel.LAUNCHES[k] - counts[k] for k in counts} == {
-            "ssd_intra_chunk": 1, "ssd_chunk_sm90": int(key != "ssd_chunk"),
-            "ssd_chunk": int(key == "ssd_chunk"), "ssd_chunk_tiled": 0,
-            "ssd_chunk_sm90_long": 0}
+            **{k: 0 for k in counts}, "ssd_intra_chunk": 1, key: 1}
         want = ssd_ref.intra_chunk(xw, la, bm, c, chunk=chunk)
         tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
         assert_close_scaled(got[0], want[0], tol)
@@ -1353,7 +1489,8 @@ def test_moe_and_hybrid_prefill_flash_matches_plain(cuda_device, arch,
     other = "flash_fwd_sm90" if dtype == torch.float32 else "flash_fwd"
     assert {k: after[k] - counts[k] for k in counts} == {
         "flash_attention": launches, kernel: launches, other: 0,
-        "flash_fwd_padded": 0, "flash_fwd_sm90_padded": 0}
+        "flash_fwd_padded": 0, "flash_fwd_sm90_padded": 0,
+        "flash_fwd_sm90_wide": 0}
     assert fa_kernel.LAUNCHES == after      # the plain prefill: none
     assert got.dtype == torch.float32
     assert tuple(got.shape) == (2, 1, cfg.vocab)

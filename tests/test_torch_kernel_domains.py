@@ -4,9 +4,11 @@ mode and through the port's plain version (the kernel's CPU path and its
 oracle on the card), at shapes the wide routes take: the GRU at hidden
 192 and 256 (``gru_fwd_cluster``/``gru_bwd_chain_cluster``), flash
 attention at head_dim 16, 80 and 320 (``flash_fwd_sm90_padded`` in
-bfloat16 up to 256, ``flash_fwd_padded`` otherwise), the SSD block at
+bfloat16 up to 256, ``flash_fwd_sm90_wide`` above, ``flash_fwd_padded``
+in float32), the SSD block at
 chunk 256 with head_dim and state 6 (``ssd_chunk_tiled``) and in bf16
-with both 64 (``ssd_chunk_sm90_long``); and the wrappers' range checks,
+with both 64 (``ssd_chunk_sm90_long``) and in float32 at head_dim 64,
+state 128 (``ssd_chunk_f32_long``); and the wrappers' range checks,
 routes and the GRU cluster's plans, which are
 decided before any launch, without a card. ``test_torch_cuda.py``
 holds each new route to its plain version on the card.
@@ -331,23 +333,47 @@ def test_flash_head_dims_match_reference_kernel(d, dtype):
     (torch.bfloat16, 256, "flash_fwd_sm90"),
     (torch.bfloat16, 16, "flash_fwd_sm90_padded"),   # the reduced gemma2-9b
     (torch.bfloat16, 96, "flash_fwd_sm90_padded"),
-    (torch.bfloat16, 512, "flash_fwd_padded"),
+    (torch.bfloat16, 512, "flash_fwd_sm90_wide"),
     (torch.float32, 64, "flash_fwd"),
     (torch.float32, 256, "flash_fwd"),
     (torch.float32, 320, "flash_fwd_padded"),
     (torch.bfloat16, 1, "flash_fwd_sm90_padded"),
     (torch.bfloat16, 20, "flash_fwd_sm90_padded"),   # rows padded to 24
     (torch.bfloat16, 200, "flash_fwd_sm90_padded"),  # DP 256
-    (torch.bfloat16, 257, "flash_fwd_padded"),
+    (torch.bfloat16, 257, "flash_fwd_sm90_wide"),
     (torch.float32, 16, "flash_fwd_padded"),
-    (torch.float32, 96, "flash_fwd_padded")])
+    (torch.float32, 96, "flash_fwd_padded"),
+    (torch.bfloat16, 255, "flash_fwd_sm90_padded"),  # the wide route's edges
+    (torch.bfloat16, 300, "flash_fwd_sm90_wide"),    # rows padded to 304
+    (torch.bfloat16, 320, "flash_fwd_sm90_wide"),
+    (torch.bfloat16, 384, "flash_fwd_sm90_wide"),
+    (torch.bfloat16, 448, "flash_fwd_sm90_wide"),
+    (torch.bfloat16, 511, "flash_fwd_sm90_wide"),
+    (torch.float32, 257, "flash_fwd_padded"),        # float32 stays on FFMA
+    (torch.float32, 384, "flash_fwd_padded"),
+    (torch.float32, 512, "flash_fwd_padded")])
 def test_flash_route(dtype, d, kernel):
     """At 64, 128 or 256 bf16 stays on the tensor-core kernel and float32
     on the FFMA kernel ``flash_fwd``; bf16 at the other head_dims up to
-    256 goes to ``flash_fwd_sm90_padded``, and the rest (float32, bf16
-    above 256) to ``flash_fwd_padded``."""
+    256 goes to ``flash_fwd_sm90_padded`` and above 256 to
+    ``flash_fwd_sm90_wide``, and float32 at the rest to
+    ``flash_fwd_padded``."""
     assert fa_kernel.route(dtype, d) == kernel
     assert kernel in fa_kernel.ROUTES
+
+
+@pytest.mark.parametrize("d,want", [
+    (257, 164936), (320, 164936),    # DP 320: Q 40 KB, K 2 x 20, V 2 x 24
+    (321, 181320), (384, 181320),
+    (400, 214088), (448, 214088),    # V halves of 4 boxes at DP 448
+    (449, 230472), (512, 230472)])
+def test_flash_wide_smem_fits_a_block(d, want):
+    """``flash_fwd_sm90_wide``'s shared memory at each padded width (as
+    ``csrc/flash_attention_sm90.cu``'s ``WideSmem`` lays it out; the card
+    tests hold the two equal): Q, two stages of 32-key K and V tiles, the
+    S partials and the barriers, under a block's 232,448 bytes at 512."""
+    assert fa_kernel.wide_smem_bytes(d) == want
+    assert want <= fa_kernel.MAX_SMEM_BYTES
 
 
 def test_flash_range_checks_without_a_card():
@@ -401,7 +427,12 @@ def test_ssd_chunk256_p6_n6_matches_reference_kernel(dtype):
     (torch.bfloat16, 64, 64, 256, "ssd_chunk_sm90_long"),
     (torch.bfloat16, 64, 128, 128, "ssd_chunk_sm90"),   # the old route
     (torch.bfloat16, 64, 64, 64, "ssd_chunk_sm90"),
-    (torch.float32, 64, 128, 256, "ssd_chunk_tiled"),   # float32 stays
+    (torch.float32, 64, 128, 256, "ssd_chunk_f32_long"),  # float32, FFMA
+    (torch.float32, 64, 64, 256, "ssd_chunk_f32_long"),   # zamba2's layer
+    (torch.float32, 64, 96, 256, "ssd_chunk_tiled"),      # N not 64 or 128
+    (torch.float32, 32, 128, 256, "ssd_chunk_tiled"),     # P != 64
+    (torch.float32, 64, 128, 512, "ssd_chunk_tiled"),     # chunk 512
+    (torch.float32, 64, 64, 128, "ssd_chunk"),            # chunk 128
     (torch.bfloat16, 32, 128, 256, "ssd_chunk_tiled"),  # P != 64
     (torch.bfloat16, 64, 96, 256, "ssd_chunk_tiled"),   # N not 64 or 128
     (torch.bfloat16, 64, 128, 512, "ssd_chunk_tiled"),  # chunk 512
@@ -415,9 +446,10 @@ def test_ssd_chunk256_p6_n6_matches_reference_kernel(dtype):
     (torch.bfloat16, 64, 128, 128, "ssd_chunk_sm90")])
 def test_ssd_route_past_the_first_ranges(dtype, p, n, chunk, kernel):
     """bf16 at P 64, N 64 or 128 goes to the tensor cores, at chunk 64 and
-    128 to ``ssd_chunk_sm90``, at 256 to ``ssd_chunk_sm90_long``;
-    ``ssd_chunk`` keeps the float32 shapes whose whole-chunk tiles fit;
-    every other chunk, P and N goes to the tiled pair."""
+    128 to ``ssd_chunk_sm90``, at 256 to ``ssd_chunk_sm90_long``; float32
+    there at chunk 256 to ``ssd_chunk_f32_long``; ``ssd_chunk`` keeps the
+    float32 shapes whose whole-chunk tiles fit; every other chunk, P and N
+    goes to the tiled pair."""
     assert ssd_kernel.route(dtype, p, n, chunk) == kernel
     assert kernel in ssd_kernel.LAUNCHES
 
@@ -431,6 +463,46 @@ def test_ssd_long_heads_per_block(bsz, nc, h, want):
     cs and w fit beside B, C and the X ring), fewer where the grid would
     leave SMs without a block."""
     assert ssd_kernel.heads_per_block_long(bsz, nc, h, 132) == want
+
+
+@pytest.mark.parametrize("bsz,nc,h,want", [
+    (2, 32, 48, 16),    # mamba2-780m at chunk 256: 768 blocks of 16 heads
+    (2, 32, 64, 16),    # zamba2-1.2b
+    (2, 16, 13, 3),     # 13 heads in groups of 3: the last group short
+    (1, 1, 2, 1)])      # one chunk: one head a block
+def test_ssd_f32_long_heads_per_block(bsz, nc, h, want):
+    """``ssd_long_y`` takes up to 16 heads a block (one strip's C·Bᵀ for
+    all of them), fewer where the grid would give an SM fewer than four
+    blocks."""
+    assert ssd_kernel.heads_per_block_f32_long(bsz, nc, h, 132) == want
+
+
+def test_ssd_chunk256_p64_n128_f32_matches_reference_kernel():
+    """The float32 block the long FFMA route takes (chunk 256, head_dim
+    64, state 128, two chunks of two heads): the port's plain version
+    (the route's CPU path and its oracle on the card) against the
+    reference kernel in interpret mode, every output within 2e-4."""
+    rng = np.random.RandomState(31)
+    b, t, h, p, n, chunk = 1, 512, 2, 64, 128, 256
+    x = rng.randn(b, t, h, p).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.randn(b, t, h))) * 0.1).astype(np.float32)
+    a = (-np.exp(rng.randn(h) * 0.3)).astype(np.float32)
+    bm = rng.randn(b, t, n).astype(np.float32)
+    c = rng.randn(b, t, n).astype(np.float32)
+    xw, la = x * dt[..., None], dt * a
+    assert ssd_kernel.route(torch.float32, p, n, chunk) == \
+        "ssd_chunk_f32_long"
+    want = jssd_kernel.ssd_intra_chunk(
+        jnp.asarray(xw), jnp.asarray(la), jnp.asarray(bm), jnp.asarray(c),
+        chunk=chunk, interpret=True)
+    before = dict(ssd_kernel.LAUNCHES)
+    got = ssd_kernel.ssd_intra_chunk(
+        torch.from_numpy(xw), torch.from_numpy(la), torch.from_numpy(bm),
+        torch.from_numpy(c), chunk=chunk)
+    assert ssd_kernel.LAUNCHES == before             # no launch on the CPU
+    assert got[0].dtype == torch.float32
+    for g, w in zip(got, want):
+        assert_close_scaled(g.numpy(), np.asarray(w), SSD_TOL)
 
 
 def test_ssd_chunk256_p64_n64_bf16_matches_reference_kernel():
